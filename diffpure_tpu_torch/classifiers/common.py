@@ -1,0 +1,28 @@
+"""Shared classifier pieces (port of diffpure_tpu/classifiers/common.py:16)."""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+Tensor = torch.Tensor
+
+
+class BatchNormInference(nn.Module):
+    """BatchNorm with stored running statistics over NHWC maps.
+
+    Keys match ``nn.BatchNorm2d`` (weight, bias, running_mean, running_var,
+    num_batches_tracked), so robustbench state dicts load strictly.
+    """
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: Tensor) -> Tensor:
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return x * inv + (self.bias - self.running_mean * inv)

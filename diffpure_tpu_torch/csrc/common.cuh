@@ -1,0 +1,571 @@
+// Building blocks shared by the fused NCSN++ block kernels:
+//   - gn_apply_kernel: GroupNorm statistics of a map (two passes, fp32) and
+//     then the normalised (+ SiLU) and naively 2x-resampled activation,
+//     written once in the compute dtype;
+//   - an implicit-GEMM kernel (3x3 SAME conv or pointwise) that reads that
+//     activation, optionally a second raw source for a folded 1x1 skip
+//     projection, and whose epilogue adds bias, a per-example row, a
+//     residual and a rescale. bf16 multiplies on the tensor cores, fp32 on
+//     the FMA units.
+//
+// Layout: every map is NHWC. A map may be split at a channel seam across
+// two tensors (the UNet up-path pair (h, skip)); the loaders index the
+// logical concatenation, so the concatenated input is never materialised.
+//
+// Numerics follow diffpure_tpu/ops/fused_resblock.py: fp32 statistics
+// (two-pass here, where the TPU kernel takes E[x^2] - mean^2), operands
+// rounded to the compute dtype T before the product (the TPU kernel's pad
+// scratch holds T too), products accumulated in fp32 (never TF32).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
+
+namespace dp {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int NT = 256;  // threads per block for every kernel here
+enum { RS_NONE = 0, RS_DOWN = 1, RS_UP = 2 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// v rounded to T and back: the value an operand stored as T would hold.
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
+
+// An NHWC map of H x W pixels whose channels are c0 from p0 then c1 from p1
+// (c1 == 0: one tensor). Stored as T, or as fp32 when f32 != 0.
+struct Src {
+  const void* p0;
+  const void* p1;
+  int c0, c1;
+  int H, W;
+  int f32;
+};
+
+// 4 consecutive channels c..c+3 of pixel (y, x) of example n. The caller
+// keeps c % 4 == 0 and the seam at a multiple of 4, so the 4 never straddle it.
+template <typename T>
+__device__ __forceinline__ float4 src_load4(const Src& s, int n, int y, int x, int c) {
+  const long pix = ((long)n * s.H + y) * s.W + x;
+  const void* base = s.p0;
+  long idx = pix * s.c0 + c;
+  if (c >= s.c0) {
+    base = s.p1;
+    idx = pix * s.c1 + (c - s.c0);
+  }
+  return s.f32 ? load4(static_cast<const float*>(base) + idx)
+               : load4(static_cast<const T*>(base) + idx);
+}
+
+template <typename T>
+__device__ __forceinline__ float src_load1(const Src& s, long pix, int c) {
+  const void* base = s.p0;
+  long idx = pix * s.c0 + c;
+  if (c >= s.c0) {
+    base = s.p1;
+    idx = pix * s.c1 + (c - s.c0);
+  }
+  return s.f32 ? static_cast<const float*>(base)[idx]
+               : to_f32(static_cast<const T*>(base)[idx]);
+}
+
+// ---------------------------------------------------------------------------
+// GroupNorm: one block per (group, example). Two passes in fp32 give the
+// group's mean and variance; a third writes the group's channels of
+//   act = [SiLU]((x - mean) * rstd * gamma + beta)
+// at the grid after the naive 2x resample (GN first, then resample, as the
+// BigGAN block orders it), in T, NHWC with all C channels. Groups are taken
+// over the logical concatenation of a split Src, so a group that straddles
+// the seam gets one set of statistics. Normalising here, once per element,
+// keeps it out of the conv's inner loop, where each element is read for
+// nine taps. With raw != nullptr the pass also writes the resampled raw x
+// (the skip branch's input), so every GEMM operand is a plain copy. The 2x2
+// mean sums in the TPU kernel's order 0.5 * (0.5 * (v00 + v01) + 0.5 *
+// (v10 + v11)).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();  // red may still be read by the previous call
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int i = 0; i < NT / 32; ++i) t += red[i];
+  return t;
+}
+
+struct GnArgs {
+  Src src;
+  int G;
+  const float* gamma;
+  const float* beta;
+  float eps;
+  int silu;
+  int resample;
+  void* act;  // (N, Ho, Wo, C) in T
+  void* raw;  // (N, Ho, Wo, C) in T, or nullptr
+};
+
+template <typename T>
+__global__ void __launch_bounds__(NT) gn_apply_kernel(const __grid_constant__ GnArgs a) {
+  __shared__ float red[NT / 32];
+  const Src& s = a.src;
+  const int g = blockIdx.x, n = blockIdx.y;
+  const int C = s.c0 + s.c1, cg = C / a.G, hw = s.H * s.W;
+  const long cnt = (long)hw * cg;
+  const long pix0 = (long)n * hw;
+
+  float acc = 0.f;
+  for (long e = threadIdx.x; e < cnt; e += NT) {
+    const long p = e / cg;
+    acc += src_load1<T>(s, pix0 + p, g * cg + (int)(e - p * cg));
+  }
+  const float mean = block_sum(acc, red) / (float)cnt;
+
+  acc = 0.f;
+  for (long e = threadIdx.x; e < cnt; e += NT) {
+    const long p = e / cg;
+    const float d = src_load1<T>(s, pix0 + p, g * cg + (int)(e - p * cg)) - mean;
+    acc += d * d;
+  }
+  const float rstd = rsqrtf(block_sum(acc, red) / (float)cnt + a.eps);
+
+  const int Ho = a.resample == RS_DOWN ? s.H / 2 : (a.resample == RS_UP ? s.H * 2 : s.H);
+  const int Wo = a.resample == RS_DOWN ? s.W / 2 : (a.resample == RS_UP ? s.W * 2 : s.W);
+  const long out0 = (long)n * Ho * Wo * C;
+  for (long e = threadIdx.x; e < (long)Ho * Wo * cg; e += NT) {
+    const int p = (int)(e / cg), c = g * cg + (int)(e - (long)p * cg);
+    const int oy = p / Wo, ox = p - (p / Wo) * Wo;
+    const float scale = rstd * a.gamma[c], shift = a.beta[c];
+    auto load = [&](int y, int x) { return src_load1<T>(s, pix0 + (long)y * s.W + x, c); };
+    auto norm = [&](float x) {
+      const float v = (x - mean) * scale + shift;
+      return a.silu ? silu(v) : v;
+    };
+    float v, r;
+    if (a.resample == RS_DOWN) {
+      const float x00 = load(2 * oy, 2 * ox), x01 = load(2 * oy, 2 * ox + 1);
+      const float x10 = load(2 * oy + 1, 2 * ox), x11 = load(2 * oy + 1, 2 * ox + 1);
+      v = 0.5f * (0.5f * (norm(x00) + norm(x01)) + 0.5f * (norm(x10) + norm(x11)));
+      r = 0.5f * (0.5f * (x00 + x01) + 0.5f * (x10 + x11));
+    } else {
+      r = a.resample == RS_UP ? load(oy >> 1, ox >> 1) : load(oy, ox);
+      v = norm(r);
+    }
+    static_cast<T*>(a.act)[out0 + (long)p * C + c] = from_f32<T>(v);
+    if (a.raw != nullptr) static_cast<T*>(a.raw)[out0 + (long)p * C + c] = from_f32<T>(r);
+  }
+}
+
+template <typename T>
+cudaError_t launch_gn_apply(const GnArgs& a, int N, cudaStream_t st) {
+  gn_apply_kernel<T><<<dim3(a.G, N), NT, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Implicit GEMM: out[M, Nc] = epilogue(A[M, K] @ B[K, Nc]).
+// Row m is output pixel (n, oy, ox) of an Ho x Wo grid. A's columns are
+//   [0, Kmain):  (tap, channel) of the activation src, which lies on the
+//                output grid; taps == 9 is a 3x3 SAME conv, whose
+//                out-of-image taps are 0 in activation space;
+//   [Kmain, K):  channels of the proj source at the row's pixel (the 1x1
+//                skip projection folded into the same accumulator).
+// Both sources lie on the output grid. B is stored (Nc, K), k contiguous, in
+// T. Epilogue: (acc + bias + temb[n] + resid) * oscale, stored as T or fp32,
+// where resid is channels col.. of the resid source at the row's pixel (an
+// identity skip). fp32 multiplies in full fp32 on the FMA units; bf16 on the
+// tensor cores.
+// ---------------------------------------------------------------------------
+
+struct GemmArgs {
+  int M, Nc, K, Kmain;
+  int Ho, Wo, taps;
+  Src src;
+  Src proj;
+  const void* w;
+  const float* bias;
+  const void* temb;
+  int has_resid;
+  Src resid;
+  float oscale;
+  void* out;
+  int out_f32;
+  // split-K, set by launch_gemm
+  int splits, k_per_split;
+  float* ws;
+};
+
+constexpr int BM = 64, BN = 64, BK = 32;
+constexpr int MAX_SPLITS = 16;  // K-slices of a split-K GEMM
+constexpr int MIN_STEPS = 4;    // fewest BK-steps a K-slice gets
+
+// B is stored (Nc, K), k contiguous: each thread reads 4 consecutive k of
+// one column n, like its A row.
+__device__ __forceinline__ float4 load_b4(const GemmArgs& a, int n, int k, int kend) {
+  if (n >= a.Nc || k >= kend) return make_float4(0.f, 0.f, 0.f, 0.f);
+  return load4(static_cast<const float*>(a.w) + (long)n * a.K + k);
+}
+
+// (acc + bias + temb[n] + resid) * oscale for 4 columns of one row, stored.
+template <typename T>
+__device__ __forceinline__ void epilogue4(const GemmArgs& a, int row, int col, float4 v) {
+  const int hw = a.Ho * a.Wo;
+  const float4 b = load4(a.bias + col);
+  v.x += b.x; v.y += b.y; v.z += b.z; v.w += b.w;
+  if (a.temb != nullptr) {
+    const float4 t = load4(static_cast<const T*>(a.temb) + (long)(row / hw) * a.Nc + col);
+    v.x += t.x; v.y += t.y; v.z += t.z; v.w += t.w;
+  }
+  if (a.has_resid) {
+    const int n = row / hw, p = row - n * hw, y = p / a.Wo, x = p - y * a.Wo;
+    const float4 r = src_load4<T>(a.resid, n, y, x, col);
+    v.x += r.x; v.y += r.y; v.z += r.z; v.w += r.w;
+  }
+  v.x *= a.oscale; v.y *= a.oscale; v.z *= a.oscale; v.w *= a.oscale;
+  if (a.out_f32)
+    store4(static_cast<float*>(a.out) + (long)row * a.Nc + col, v);
+  else
+    store4(static_cast<T*>(a.out) + (long)row * a.Nc + col, v);
+}
+
+// A finished accumulator quad: the raw partial of this K-slice when K is
+// split, else through the epilogue.
+template <typename T>
+__device__ __forceinline__ void finish4(const GemmArgs& a, int row, int col, float4 v) {
+  if (a.splits > 1)
+    store4(a.ws + ((long)blockIdx.z * a.M + row) * a.Nc + col, v);
+  else
+    epilogue4<T>(a, row, col, v);
+}
+
+// Both GEMM kernels: a 64 x 64 output tile per block, K in steps of 32.
+// Each thread loads A for one fixed row and B for one fixed column, 4
+// consecutive k at lk and lk + 16. blockIdx.z picks a K-slice (split-K).
+struct TileCoords {
+  int m0, n0, kbeg, kend, lrow, lk, n_img, oy, ox;
+  bool row_ok;
+  __device__ TileCoords(const GemmArgs& a) {
+    const int tid = threadIdx.x, hw = a.Ho * a.Wo;
+    m0 = blockIdx.x * BM;
+    n0 = blockIdx.y * BN;
+    kbeg = blockIdx.z * a.k_per_split;
+    kend = min(a.K, kbeg + a.k_per_split);
+    lrow = tid % BM;
+    lk = (tid / BM) * 4;
+    const int m = m0 + lrow;
+    row_ok = m < a.M;
+    n_img = m / hw;
+    const int rem = m - n_img * hw;
+    oy = rem / a.Wo;
+    ox = rem - oy * a.Wo;
+  }
+};
+
+// Address of A's 4 elements (row, k..k+3), or nullptr where they are 0
+// (outside the image, past the K-slice or past M). Both A sources hold T.
+template <typename T>
+__device__ __forceinline__ const T* a_addr(const GemmArgs& a, const TileCoords& tc, int k) {
+  if (!tc.row_ok || k >= tc.kend) return nullptr;
+  const Src* s = &a.proj;
+  int y = tc.oy, x = tc.ox, c = k - a.Kmain;
+  if (k < a.Kmain) {
+    const int C = a.src.c0 + a.src.c1, tap = k / C;
+    c = k - tap * C;
+    if (a.taps == 9) {
+      y += tap / 3 - 1;
+      x += tap % 3 - 1;
+      if (y < 0 || y >= a.Ho || x < 0 || x >= a.Wo) return nullptr;
+    }
+    s = &a.src;
+  }
+  const long pix = ((long)tc.n_img * s->H + y) * s->W + x;
+  if (c < s->c0) return static_cast<const T*>(s->p0) + pix * s->c0 + c;
+  return static_cast<const T*>(s->p1) + pix * s->c1 + (c - s->c0);
+}
+
+// fp32: plain FMAs, 4 x 4 outputs per thread from shared tiles [k][m], [k][n];
+// the next step's loads are issued (into registers) before this step's FMAs.
+static __global__ void __launch_bounds__(NT) igemm_f32_kernel(const __grid_constant__ GemmArgs a) {
+  __shared__ __align__(16) float As[BK][BM];
+  __shared__ __align__(16) float Bs[BK][BN];
+  const TileCoords tc(a);
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int bn = tc.n0 + tc.lrow;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  auto fetch_a = [&](int k) {
+    const float* p = a_addr<float>(a, tc, k);
+    return p != nullptr ? load4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  float4 a0 = fetch_a(tc.kbeg + tc.lk);
+  float4 a1 = fetch_a(tc.kbeg + tc.lk + 16);
+  float4 b0 = load_b4(a, bn, tc.kbeg + tc.lk, tc.kend);
+  float4 b1 = load_b4(a, bn, tc.kbeg + tc.lk + 16, tc.kend);
+  for (int k0 = tc.kbeg; k0 < tc.kend; k0 += BK) {
+    __syncthreads();  // the previous step's reads of As/Bs are done
+    const int r = tc.lrow, k = tc.lk;
+    As[k + 0][r] = a0.x; As[k + 1][r] = a0.y; As[k + 2][r] = a0.z; As[k + 3][r] = a0.w;
+    As[k + 16][r] = a1.x; As[k + 17][r] = a1.y; As[k + 18][r] = a1.z; As[k + 19][r] = a1.w;
+    Bs[k + 0][r] = b0.x; Bs[k + 1][r] = b0.y; Bs[k + 2][r] = b0.z; Bs[k + 3][r] = b0.w;
+    Bs[k + 16][r] = b1.x; Bs[k + 17][r] = b1.y; Bs[k + 18][r] = b1.z; Bs[k + 19][r] = b1.w;
+    __syncthreads();
+    if (k0 + BK < tc.kend) {  // in flight while the FMAs below run
+      a0 = fetch_a(k0 + BK + tc.lk);
+      a1 = fetch_a(k0 + BK + tc.lk + 16);
+      b0 = load_b4(a, bn, k0 + BK + tc.lk, tc.kend);
+      b1 = load_b4(a, bn, k0 + BK + tc.lk + 16, tc.kend);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+  }
+
+  const int col = tc.n0 + tx * 4;
+  if (col >= a.Nc) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = tc.m0 + ty * 4 + i;
+    if (row >= a.M) break;
+    finish4<float>(a, row, col, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+  }
+}
+
+__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// D += A (16x16, row-major) * B (16x8, k-major per column), bf16 in, fp32 out.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 8-byte asynchronous copy global -> shared; src == nullptr zero-fills
+// (read from `valid`, any mapped address, with a source size of 0).
+__device__ __forceinline__ void cp_async8(bf16* dst, const bf16* src, const void* valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src != nullptr ? static_cast<const void*>(src) : valid),
+               "r"(src != nullptr ? 8 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+constexpr int BKP = BK + 8;  // bf16 row pitch: 80 bytes, conflict-free fragment reads
+constexpr int STAGES = 4;    // K-steps in flight
+constexpr int A_STAGE = BM * BKP, B_STAGE = BN * BKP;  // bf16 elements per stage
+
+// bf16: tensor cores (mma.sync m16n8k16, fp32 accumulate). A and B tiles
+// ([m][k], [n][k]) arrive by cp.async in a ring of STAGES K-steps, so the
+// L2 latency of one step hides behind the products of the ones before; 8
+// warps each own a 32 x 16 sub-tile (2 x 2 mma tiles). The accumulators
+// pass through a shared fp32 tile (aliasing the drained ring) so the
+// epilogue is the fp32 kernel's (4 x 4 per thread).
+static __global__ void __launch_bounds__(NT) igemm_bf16_kernel(const __grid_constant__ GemmArgs a) {
+  __shared__ __align__(16) unsigned char smem[STAGES * (A_STAGE + B_STAGE) * sizeof(bf16)];
+  static_assert(BM * (BN + 4) * sizeof(float) <= sizeof(smem), "C tile must fit the ring");
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + STAGES * A_STAGE;
+  float (*Cs)[BN + 4] = reinterpret_cast<float (*)[BN + 4]>(smem);
+  const TileCoords tc(a);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 16;
+  const int bn = tc.n0 + tc.lrow;
+  const bf16* wrow = static_cast<const bf16*>(a.w) + (long)bn * a.K;
+  const int nsteps = (tc.kend - tc.kbeg + BK - 1) / BK;
+
+  auto issue = [&](int step) {
+    const int k0 = tc.kbeg + step * BK, st = step % STAGES;
+    bf16* as = As + st * A_STAGE + tc.lrow * BKP + tc.lk;
+    bf16* bs = Bs + st * B_STAGE + tc.lrow * BKP + tc.lk;
+#pragma unroll
+    for (int h = 0; h < 32; h += 16) {
+      const int k = k0 + tc.lk + h;
+      cp_async8(as + h, a_addr<bf16>(a, tc, k), a.w);
+      cp_async8(bs + h, bn < a.Nc && k < tc.kend ? wrow + k : nullptr, a.w);
+    }
+  };
+
+  float acc[2][2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nsteps) issue(s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<STAGES - 2>();  // this step's tiles have landed
+    __syncthreads();              // ... for every thread; the previous step's reads are done
+    if (step + STAGES - 1 < nsteps) issue(step + STAGES - 1);
+    cp_async_commit();
+    const bf16* as = As + (step % STAGES) * A_STAGE;
+    const bf16* bs = Bs + (step % STAGES) * B_STAGE;
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += 16) {
+      uint32_t af[2][4], bfr[2][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const bf16* r = as + (wm + mi * 16 + g) * BKP + ks + t2;
+        af[mi][0] = lds32(r);
+        af[mi][1] = lds32(r + 8 * BKP);
+        af[mi][2] = lds32(r + 8);
+        af[mi][3] = lds32(r + 8 * BKP + 8);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) {
+        const bf16* c = bs + (wn + ni * 8 + g) * BKP + ks + t2;
+        bfr[ni][0] = lds32(c);
+        bfr[ni][1] = lds32(c + 8);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni) mma_bf16_16816(acc[mi][ni], af[mi], bfr[ni]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is drained and read: Cs may overwrite it
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) {
+      const int r = wm + mi * 16 + g, c = wn + ni * 8 + t2;
+      Cs[r][c] = acc[mi][ni][0];
+      Cs[r][c + 1] = acc[mi][ni][1];
+      Cs[r + 8][c] = acc[mi][ni][2];
+      Cs[r + 8][c + 1] = acc[mi][ni][3];
+    }
+  __syncthreads();
+  const int ty = tid / 16, tx = tid % 16, col = tc.n0 + tx * 4;
+  if (col >= a.Nc) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = tc.m0 + ty * 4 + i;
+    if (row >= a.M) break;
+    finish4<bf16>(a, row, col, *reinterpret_cast<const float4*>(&Cs[ty * 4 + i][tx * 4]));
+  }
+}
+
+// Sums the K-slices' partials in slice order (deterministic), then the
+// epilogue. One thread per 4 outputs.
+template <typename T>
+__global__ void __launch_bounds__(NT) splitk_epilogue_kernel(const __grid_constant__ GemmArgs a) {
+  const long i = ((long)blockIdx.x * NT + threadIdx.x) * 4;
+  if (i >= (long)a.M * a.Nc) return;
+  const int row = (int)(i / a.Nc), col = (int)(i - (long)row * a.Nc);
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int z = 0; z < a.splits; ++z) {
+    const float4 p = load4(a.ws + ((long)z * a.M + row) * a.Nc + col);
+    v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+  }
+  epilogue4<T>(a, row, col, v);
+}
+
+inline int num_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+// Launches the GEMM. A grid of fewer tiles than SMs is split along K into
+// up to MAX_SPLITS slices of at least MIN_STEPS steps, aiming at two waves
+// of blocks; ws (ws_elems fp32) holds the partials, and bounds the split.
+template <typename T>
+cudaError_t launch_gemm(GemmArgs a, float* ws, long ws_elems, cudaStream_t st) {
+  const int gm = (a.M + BM - 1) / BM, gn = (a.Nc + BN - 1) / BN;
+  const int tiles = gm * gn, steps = (a.K + BK - 1) / BK;
+  int splits = 1;
+  if (tiles < num_sms()) {
+    splits = std::min({(2 * num_sms() + tiles - 1) / tiles, steps / MIN_STEPS, MAX_SPLITS});
+    splits = (int)std::min<long>(splits, ws_elems / ((long)a.M * a.Nc));
+    splits = std::max(splits, 1);
+  }
+  const int steps_per = (steps + splits - 1) / splits;
+  a.k_per_split = steps_per * BK;
+  a.splits = (steps + steps_per - 1) / steps_per;
+  a.ws = ws;
+  if constexpr (std::is_same<T, bf16>::value)
+    igemm_bf16_kernel<<<dim3(gm, gn, a.splits), NT, 0, st>>>(a);
+  else
+    igemm_f32_kernel<<<dim3(gm, gn, a.splits), NT, 0, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  const long quads = (long)a.M * a.Nc / 4;
+  splitk_epilogue_kernel<T><<<(unsigned)((quads + NT - 1) / NT), NT, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace dp

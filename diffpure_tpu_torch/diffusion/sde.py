@@ -1,0 +1,62 @@
+"""VP-SDE closed forms (port of diffpure_tpu/diffusion/sde.py, VP part).
+
+Time runs over [0, 1]; ``t`` is a scalar or a (batch,) tensor, and
+per-example coefficients broadcast against the state by right-padding
+singleton axes. The sub-VP and VE SDEs and the reverse-SDE object wait for
+ROADMAP Slice 1 item 4.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+
+def batch_mul(coef, x: Tensor) -> Tensor:
+    """Multiply per-example coefficients (batch,) into a state of any rank."""
+    if not torch.is_tensor(coef) or coef.ndim == 0:
+        return coef * x
+    return coef.reshape(coef.shape + (1,) * (x.ndim - coef.ndim)) * x
+
+
+@dataclasses.dataclass(frozen=True)
+class VPSDE:
+    """dx = -1/2 beta(t) x dt + sqrt(beta(t)) dW,
+    beta(t) = beta_min + t (beta_max - beta_min)
+    (ref score_sde/sde_lib.py:120-172)."""
+
+    beta_min: float = 0.1
+    beta_max: float = 20.0
+    N: int = 1000
+
+    def beta(self, t):
+        return self.beta_min + t * (self.beta_max - self.beta_min)
+
+    def sde(self, x: Tensor, t) -> Tuple[Tensor, Tensor]:
+        beta_t = self.beta(t)
+        return batch_mul(-0.5 * beta_t, x), torch.sqrt(torch.as_tensor(beta_t))
+
+    def log_mean_coeff(self, t):
+        return (-0.25 * t ** 2 * (self.beta_max - self.beta_min)
+                - 0.5 * t * self.beta_min)
+
+    def marginal_prob(self, x: Tensor, t) -> Tuple[Tensor, Tensor]:
+        """Mean and std of p_t(x(t) | x(0))."""
+        lmc = torch.as_tensor(self.log_mean_coeff(t))
+        mean = batch_mul(torch.exp(lmc), x)
+        std = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * lmc), min=0.0))
+        return mean, std
+
+    @property
+    def discrete_betas(self) -> np.ndarray:
+        return np.linspace(self.beta_min / self.N, self.beta_max / self.N,
+                           self.N, dtype=np.float64)
+
+    @property
+    def alphas_cumprod(self) -> np.ndarray:
+        """Discrete alpha-bar, float64 as in the reference."""
+        return np.cumprod(1.0 - self.discrete_betas)

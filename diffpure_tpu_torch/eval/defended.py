@@ -1,0 +1,59 @@
+"""Defended model: purify, then classify (port of
+diffpure_tpu/eval/defended.py:35).
+
+[0, 1] NHWC in -> [-1, 1] -> forward-diffuse and reverse-integrate ->
+[0, 1] -> classifier logits. Every call takes its own noise (an integer
+seed or a noise source, see purify/runners.py): the defence is randomised
+by design. Forward only in this port so far: run it under
+``torch.inference_mode()``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import torch
+
+from diffpure_tpu_torch.purify.config import PurifyConfig
+from diffpure_tpu_torch.purify.runners import Noise, purify
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class DefendedModel:
+    """purify + classify with the [0, 1] NHWC input contract."""
+
+    score_model: Callable[[Tensor, Tensor], Tensor]  # (x_img, t_labels) -> eps
+    classifier: Callable[[Tensor], Tensor]           # x01 -> logits
+    purify_cfg: PurifyConfig
+    log_every: int = 5
+    tag: str = "defended"
+
+    def __post_init__(self):
+        self.reset_counter()
+
+    def purify(self, x01: Tensor, noise: Noise) -> Tensor:
+        """[0, 1] -> purified [0, 1]."""
+        x = (x01 - 0.5) * 2.0
+        x_pure = purify(self.score_model, x, noise, self.purify_cfg)
+        return (x_pure + 1.0) * 0.5
+
+    def classify(self, x01: Tensor) -> Tensor:
+        return self.classifier(x01)
+
+    def __call__(self, x01: Tensor, noise: Noise) -> Tensor:
+        """purify_and_classify; counts calls and reports every
+        ``log_every``-th (ref eval_sde_adv.py:57-91)."""
+        if self._t0 is None:
+            self._t0 = time.time()
+        self._counter += 1
+        if self.log_every and self._counter % self.log_every == 0:
+            print(f"[{self.tag}] diffusion calls: {self._counter}, shape "
+                  f"{tuple(x01.shape)}, {time.time() - self._t0:.1f}s elapsed")
+        return self.classify(self.purify(x01, noise))
+
+    def reset_counter(self):
+        self._counter = 0
+        self._t0 = None

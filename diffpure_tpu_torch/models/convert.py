@@ -1,0 +1,64 @@
+"""flax params -> PyTorch state dict: the inverse of
+diffpure_tpu/models/convert.py (``_leaf`` :73, ``ncsnpp_key`` :107,
+``translate_ncsnpp`` :182), so weights held by the JAX package load into
+the port with ``load_state_dict(strict=True)``.
+
+Leaves: conv kernel HWIO -> weight OIHW; Dense kernel (in, out) -> weight
+(out, in); norm ``scale`` -> ``weight``; NIN ``W``/``b`` unchanged.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from diffpure_tpu_torch.models.ncsnpp import get_sigmas
+
+
+def flatten_params(tree: Mapping, prefix: Tuple[str, ...] = ()
+                   ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    """(path, leaf) pairs of a nested params dict, ``{'params': ...}`` or bare."""
+    if prefix == () and set(tree) == {"params"}:
+        tree = tree["params"]
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from flatten_params(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def torch_leaf(name: str, v: np.ndarray) -> Tuple[str, np.ndarray]:
+    """Inverse of the JAX ``_leaf``: flax (leaf, array) -> torch (leaf, array)."""
+    if name == "kernel":
+        if v.ndim == 4:
+            return "weight", v.transpose(3, 2, 0, 1)
+        if v.ndim == 2:
+            return "weight", v.transpose(1, 0)
+    if name == "scale":
+        return "weight", v
+    if name in ("bias", "W", "b"):
+        return name, v
+    raise ValueError(f"unhandled flax leaf {name} with shape {v.shape}")
+
+
+def to_tensor(v: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(v, order="C", copy=True))
+
+
+def ncsnpp_state_dict_from_flax(params: Mapping, *, sigma_min: float = 0.01,
+                                sigma_max: float = 50.0,
+                                num_scales: int = 1000
+                                ) -> Dict[str, torch.Tensor]:
+    """``m{i}/...`` -> ``all_modules.{i}....``. The ``sigmas`` buffer, which
+    the JAX translator drops, is rebuilt from the model's noise scales."""
+    sd = {}
+    for path, v in flatten_params(params):
+        head, *mods, leaf = path
+        if not head.startswith("m") or not head[1:].isdigit():
+            raise ValueError(f"unexpected NCSN++ param path {'/'.join(path)}")
+        name, arr = torch_leaf(leaf, v)
+        sd[".".join(["all_modules", head[1:], *mods, name])] = to_tensor(arr)
+    sd["sigmas"] = torch.tensor(get_sigmas(sigma_min, sigma_max, num_scales),
+                                dtype=torch.float32)
+    return sd

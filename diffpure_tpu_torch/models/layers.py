@@ -1,0 +1,175 @@
+"""NCSN++ layers for the CIFAR-10 configuration (port of the matching parts
+of diffpure_tpu/models/layers.py).
+
+Parameter names are the reference PyTorch names (``GroupNorm_0``,
+``Conv_0``, ``Dense_0``, ``NIN_0`` ...; ref score_sde/models/layerspp.py),
+so a ``checkpoint_8.pth`` state dict loads as it is. Activations are NHWC.
+
+The blocks are eval-only and always go through the fused-block wrappers,
+which run the plain version on CPU tensors and the CUDA kernel on CUDA
+tensors. That is the JAX gate of layers.py:516-539 with every condition
+fixed true by what the port builds (eval mode, swish, naive resampling, a
+temb row); the TPU's 128-lane condition does not apply on the GPU.
+Training mode, FIR resampling and the DDPM++ blocks wait for ROADMAP
+Slice 1 item 5.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from diffpure_tpu_torch.ops.fused_attnblock import fused_attnblock, \
+    pack_attnblock_params
+from diffpure_tpu_torch.ops.fused_resblock import fused_resblock, \
+    fused_resblock_cat, pack_resblock_params
+from diffpure_tpu_torch.ops.groupnorm import ncsn_num_groups
+
+Tensor = torch.Tensor
+
+
+def get_timestep_embedding(timesteps: Tensor, embedding_dim: int,
+                           max_positions: int = 10000) -> Tensor:
+    """DDPM sinusoidal embedding [sin, cos] with frequency factor
+    1/(half-1), in fp32 (ref score_sde/models/layers.py:515-532)."""
+    assert timesteps.ndim == 1
+    half_dim = embedding_dim // 2
+    emb = math.log(max_positions) / (half_dim - 1)
+    emb = torch.exp(torch.arange(half_dim, dtype=torch.float32,
+                                 device=timesteps.device) * -emb)
+    emb = timesteps.float()[:, None] * emb[None, :]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
+    if embedding_dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class NIN(nn.Module):
+    """1x1 'network-in-network' with the reference's (in, out) weight ``W``
+    (ref score_sde/models/layers.py:546-556)."""
+
+    def __init__(self, in_dim: int, num_units: int):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_dim)
+        self.W = nn.Parameter(torch.empty(in_dim, num_units).uniform_(-bound, bound))
+        self.b = nn.Parameter(torch.zeros(num_units))
+
+    def forward(self, x: Tensor) -> Tensor:
+        return x @ self.W.to(x.dtype) + self.b.to(x.dtype)
+
+
+def _stamp(t: Tensor):
+    """Changes when t is replaced or written in place. Tensors made under
+    inference_mode (e.g. by a .to() there) keep no version counter; for
+    them only a replacement is seen."""
+    return t.data_ptr(), None if t.is_inference() else t._version
+
+
+class _Derived:
+    """Something made from a block's weights for one dtype and device (the
+    kernel-layout pack, a cast), remade only when the dtype, the device or a
+    weight changes: one purification makes thousands of block calls with the
+    same weights."""
+
+    def __init__(self, make):
+        self._make = make
+        self._key = None
+        self._value = None
+
+    def get(self, tensors, dtype: torch.dtype, device: torch.device):
+        key = (dtype, device, tuple(_stamp(t) for t in tensors if t is not None))
+        if key != self._key:
+            self._value = self._make(tensors, dtype, device)
+            self._key = key
+        return self._value
+
+
+def _cast(tensors, dtype, device):
+    return tuple(t.to(device=device, dtype=dtype) for t in tensors)
+
+
+class AttnBlockpp(nn.Module):
+    """NCSN++ self-attention block over spatial positions
+    (ref layerspp.py:62-91)."""
+
+    def __init__(self, channels: int, skip_rescale: bool = False):
+        super().__init__()
+        self.GroupNorm_0 = nn.GroupNorm(ncsn_num_groups(channels), channels,
+                                        eps=1e-6)
+        self.NIN_0 = NIN(channels, channels)
+        self.NIN_1 = NIN(channels, channels)
+        self.NIN_2 = NIN(channels, channels)
+        self.NIN_3 = NIN(channels, channels)
+        self.skip_rescale = skip_rescale
+        self._kernel = _Derived(pack_attnblock_params)
+
+    def _params(self):
+        gn = self.GroupNorm_0
+        return (gn.weight, gn.bias, self.NIN_0.W, self.NIN_0.b, self.NIN_1.W,
+                self.NIN_1.b, self.NIN_2.W, self.NIN_2.b, self.NIN_3.W,
+                self.NIN_3.b)
+
+    def forward(self, x: Tensor) -> Tensor:
+        params = self._params()
+        packed = (self._kernel.get(params, x.dtype, x.device)
+                  if x.device.type == "cuda" else None)
+        return fused_attnblock(
+            x, params, num_groups=self.GroupNorm_0.num_groups, eps=1e-6,
+            rescale=self.skip_rescale, packed=packed)
+
+
+class ResnetBlockBigGANpp(nn.Module):
+    """BigGAN residual block with optional naive 2x resampling
+    (ref layerspp.py:212-274)."""
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None,
+                 temb_dim: int = 512, up: bool = False, down: bool = False,
+                 skip_rescale: bool = True):
+        super().__init__()
+        out_ch = out_ch or in_ch
+        self.GroupNorm_0 = nn.GroupNorm(ncsn_num_groups(in_ch), in_ch, eps=1e-6)
+        self.Conv_0 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.Dense_0 = nn.Linear(temb_dim, out_ch)
+        self.GroupNorm_1 = nn.GroupNorm(ncsn_num_groups(out_ch), out_ch, eps=1e-6)
+        self.Conv_1 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.has_proj = in_ch != out_ch or up or down
+        if self.has_proj:
+            self.Conv_2 = nn.Conv2d(in_ch, out_ch, 1)
+        self.resample = "up" if up else ("down" if down else "none")
+        self.skip_rescale = skip_rescale
+        self._kernel = _Derived(pack_resblock_params)
+        self._dense = _Derived(_cast)
+
+    def _params(self):
+        proj = self.Conv_2 if self.has_proj else None
+        return (self.GroupNorm_0.weight, self.GroupNorm_0.bias,
+                self.Conv_0.weight, self.Conv_0.bias,
+                self.GroupNorm_1.weight, self.GroupNorm_1.bias,
+                self.Conv_1.weight, self.Conv_1.bias,
+                proj.weight[:, :, 0, 0] if proj is not None else None,
+                proj.bias if proj is not None else None)
+
+    def forward(self, x: Union[Tensor, Tuple[Tensor, Tensor]],
+                temb: Tensor) -> Tensor:
+        """x: an NHWC map, or the up path's (h, skip) pair, which is
+        concatenated along channels (inside the kernel when the block
+        projects and does not resample)."""
+        # the temb row stays a plain op, in the torso's dtype (DenseP)
+        w, b = self._dense.get((self.Dense_0.weight, self.Dense_0.bias),
+                               temb.dtype, temb.device)
+        temb_row = F.linear(F.silu(temb), w, b)
+        params = self._params()
+        anchor = x[0] if isinstance(x, tuple) else x
+        packed = (self._kernel.get(params, anchor.dtype, anchor.device)
+                  if anchor.device.type == "cuda" else None)
+        kw = dict(num_groups1=self.GroupNorm_0.num_groups,
+                  num_groups2=self.GroupNorm_1.num_groups, eps=1e-6,
+                  rescale=self.skip_rescale, packed=packed)
+        if isinstance(x, tuple):
+            if self.has_proj and self.resample == "none":
+                return fused_resblock_cat(x[0], x[1], temb_row, params, **kw)
+            x = torch.cat(x, dim=-1)
+        return fused_resblock(x, temb_row, params, resample=self.resample, **kw)

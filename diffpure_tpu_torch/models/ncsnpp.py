@@ -1,0 +1,154 @@
+"""NCSN++ score UNet (port of diffpure_tpu/models/ncsnpp.py:48).
+
+Same construction walk as the reference (ref score_sde/models/ncsnpp.py):
+``all_modules[i]`` here is ``m{i}`` in the flax model, so the two load the
+same weights (models/convert.py). Input, output and activations are NHWC.
+
+Ported: ``resblock_type='biggan'``, ``progressive='none'``,
+``progressive_input='none'``, positional embedding, conditional, naive
+resampling, centered data, no sigma scaling, eval mode. With
+``dtype=torch.bfloat16`` the torso runs in bf16 (parameters stay fp32;
+GroupNorm statistics and softmax stay fp32 inside the ops) and the output
+head in fp32, as ``NCSNpp(dtype=jnp.bfloat16)`` does.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from diffpure_tpu_torch.models.layers import AttnBlockpp, \
+    ResnetBlockBigGANpp, get_timestep_embedding
+from diffpure_tpu_torch.ops.conv import conv2d_nhwc
+from diffpure_tpu_torch.ops.groupnorm import group_norm_silu, ncsn_num_groups
+
+Tensor = torch.Tensor
+
+
+def get_sigmas(sigma_min: float, sigma_max: float, num_scales: int) -> np.ndarray:
+    """Geometric noise scales, descending (ref score_sde/models/utils.py:50-60)."""
+    return np.exp(np.linspace(np.log(sigma_max), np.log(sigma_min), num_scales))
+
+
+_NOT_PORTED = "not ported yet: ROADMAP Slice 1 item 5 (NCSN++ building blocks)"
+
+
+class NCSNpp(nn.Module):
+    """NCSN++ score network, CIFAR-10 family (configs/cifar10.yml)."""
+
+    def __init__(self, image_size: int = 32, num_channels: int = 3,
+                 nf: int = 128, ch_mult: Tuple[int, ...] = (1, 2, 2, 2),
+                 num_res_blocks: int = 8,
+                 attn_resolutions: Tuple[int, ...] = (16,),
+                 dropout: float = 0.1, resamp_with_conv: bool = True,
+                 conditional: bool = True, fir: bool = False,
+                 fir_kernel: Tuple[int, ...] = (1, 3, 3, 1),
+                 skip_rescale: bool = True, resblock_type: str = "biggan",
+                 progressive: str = "none", progressive_input: str = "none",
+                 progressive_combine: str = "sum",
+                 embedding_type: str = "positional",
+                 fourier_scale: float = 16.0, init_scale: float = 0.0,
+                 scale_by_sigma: bool = False, centered: bool = True,
+                 sigma_min: float = 0.01, sigma_max: float = 50.0,
+                 num_scales: int = 1000,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        # dropout (training only), resamp_with_conv (DDPM++ blocks only),
+        # fir_kernel, progressive_combine, fourier_scale and init_scale do
+        # not change this configuration's eval forward.
+        for name, value, want in (
+                ("resblock_type", resblock_type, "biggan"),
+                ("progressive", progressive, "none"),
+                ("progressive_input", progressive_input, "none"),
+                ("embedding_type", embedding_type, "positional"),
+                ("conditional", conditional, True), ("fir", fir, False),
+                ("scale_by_sigma", scale_by_sigma, False),
+                ("centered", centered, True)):
+            if value != want:
+                raise NotImplementedError(f"NCSNpp {name}={value!r} is {_NOT_PORTED}")
+        self.nf = nf
+        self.num_res_blocks = num_res_blocks
+        self.all_resolutions = [image_size // (2 ** i) for i in range(len(ch_mult))]
+        self.attn_resolutions = tuple(attn_resolutions)
+        self.ch_mult = tuple(ch_mult)
+        self.dtype = dtype
+        self.register_buffer("sigmas", torch.tensor(
+            get_sigmas(sigma_min, sigma_max, num_scales), dtype=torch.float32))
+
+        temb_dim = nf * 4
+        block = lambda i, o=None, **kw: ResnetBlockBigGANpp(  # noqa: E731
+            i, o, temb_dim=temb_dim, skip_rescale=skip_rescale, **kw)
+        modules = [nn.Linear(nf, temb_dim), nn.Linear(temb_dim, temb_dim),
+                   nn.Conv2d(num_channels, nf, 3, padding=1)]
+        hs_c = [nf]
+        in_ch = nf
+        for i_level, res in enumerate(self.all_resolutions):
+            for _ in range(num_res_blocks):
+                out_ch = nf * ch_mult[i_level]
+                modules.append(block(in_ch, out_ch))
+                in_ch = out_ch
+                if res in self.attn_resolutions:
+                    modules.append(AttnBlockpp(in_ch, skip_rescale))
+                hs_c.append(in_ch)
+            if i_level != len(ch_mult) - 1:
+                modules.append(block(in_ch, down=True))
+                hs_c.append(in_ch)
+        modules += [block(in_ch), AttnBlockpp(in_ch, skip_rescale), block(in_ch)]
+        for i_level in reversed(range(len(ch_mult))):
+            for _ in range(num_res_blocks + 1):
+                out_ch = nf * ch_mult[i_level]
+                modules.append(block(in_ch + hs_c.pop(), out_ch))
+                in_ch = out_ch
+            if self.all_resolutions[i_level] in self.attn_resolutions:
+                modules.append(AttnBlockpp(in_ch, skip_rescale))
+            if i_level != 0:
+                modules.append(block(in_ch, up=True))
+        assert not hs_c
+        modules += [nn.GroupNorm(ncsn_num_groups(in_ch), in_ch, eps=1e-6),
+                    nn.Conv2d(in_ch, num_channels, 3, padding=1)]
+        self.all_modules = nn.ModuleList(modules)
+
+    def forward(self, x: Tensor, time_cond: Tensor) -> Tensor:
+        """x: (N, H, W, C) images in [-1, 1]; time_cond: (N,) labels t*999."""
+        modules = iter(self.all_modules)
+        temb = get_timestep_embedding(time_cond, self.nf)
+        temb = next(modules)(temb)
+        temb = next(modules)(F.silu(temb))
+
+        input_dtype = x.dtype
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+            temb = temb.to(self.dtype)
+        cdt = x.dtype
+        stem = next(modules)
+        hs = [conv2d_nhwc(x, stem.weight.to(cdt), stem.bias.to(cdt))]
+        for i_level, res in enumerate(self.all_resolutions):
+            for _ in range(self.num_res_blocks):
+                h = next(modules)(hs[-1], temb)
+                if res in self.attn_resolutions:
+                    h = next(modules)(h)
+                hs.append(h)
+            if i_level != len(self.all_resolutions) - 1:
+                hs.append(next(modules)(hs[-1], temb))
+
+        h = next(modules)(hs[-1], temb)
+        h = next(modules)(h)
+        h = next(modules)(h, temb)
+
+        for i_level in reversed(range(len(self.all_resolutions))):
+            for _ in range(self.num_res_blocks + 1):
+                h = next(modules)((h, hs.pop()), temb)
+            if self.all_resolutions[i_level] in self.attn_resolutions:
+                h = next(modules)(h)
+            if i_level != 0:
+                h = next(modules)(h, temb)
+        assert not hs
+
+        h = h.to(input_dtype)
+        gn = next(modules)
+        h = group_norm_silu(h, gn.weight, gn.bias, gn.num_groups, gn.eps)
+        head = next(modules)
+        return conv2d_nhwc(h, head.weight.to(h.dtype), head.bias.to(h.dtype))

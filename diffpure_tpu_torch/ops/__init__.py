@@ -1,0 +1,22 @@
+from diffpure_tpu_torch.ops import fused_attnblock as _fab
+from diffpure_tpu_torch.ops import fused_resblock as _frb
+from diffpure_tpu_torch.ops.attention import spatial_attention
+from diffpure_tpu_torch.ops.groupnorm import group_norm, group_norm_silu, \
+    ncsn_num_groups
+from diffpure_tpu_torch.ops.upfirdn2d import naive_downsample_2d, \
+    naive_upsample_2d
+
+# The wrappers of the hand-written kernels, each with its launch counter.
+# (Not re-exported under their own names: they would shadow the modules.)
+KERNEL_WRAPPERS = (_frb.fused_resblock, _frb.fused_resblock_cat,
+                   _fab.fused_attnblock)
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last reset."""
+    return {f.__name__: f.launches for f in KERNEL_WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for f in KERNEL_WRAPPERS:
+        f.launches = 0

@@ -1,0 +1,2 @@
+from diffpure_tpu_torch.purify.config import PurifyConfig
+from diffpure_tpu_torch.purify.runners import SeededNoise, purify, purify_sde

@@ -1,0 +1,131 @@
+"""Reverse VP-SDE purification (port of diffpure_tpu/purify/runners.py:66-141
+and the ``purify`` dispatcher :391, ``diffusion_type='sde'``).
+
+Images are NHWC in [-1, 1]. ``model_fn(x, t_labels)`` is the epsilon model
+(an ``NCSNpp``). Randomness comes from a noise source with the JAX
+runner's stream layout: purification round ``it`` draws t* from stream
+3*it, the forward-diffusion noise from 3*it + 1 and the Brownian increment
+of step i from (3*it + 2, i) (runners.py:114-117, em.py:42). An integer
+seed gives ``SeededNoise``; tests pass an object with the same three
+methods that returns the draws JAX made.
+"""
+from __future__ import annotations
+
+from typing import Callable, Union
+
+import numpy as np
+import torch
+
+from diffpure_tpu_torch.diffusion.score import get_score_fn
+from diffpure_tpu_torch.diffusion.sde import VPSDE, batch_mul
+from diffpure_tpu_torch.purify.config import PurifyConfig
+from diffpure_tpu_torch.solvers.em import brownian_increment, sdeint_em
+from diffpure_tpu_torch.utils.prng import fold_in, generator
+
+Tensor = torch.Tensor
+ModelFn = Callable[[Tensor, Tensor], Tensor]
+
+
+class SeededNoise:
+    """Counter-based noise from one integer seed (torch generators on the
+    data's device; not JAX's bits)."""
+
+    def __init__(self, seed: int):
+        self.seed = int(seed)
+
+    def t_offset(self, it: int, t_delta: int) -> int:
+        g = generator(self.seed, 3 * it)
+        return int(torch.randint(-t_delta, t_delta, (), generator=g))
+
+    def forward_eps(self, it: int, shape, like: Tensor) -> Tensor:
+        g = generator(self.seed, 3 * it + 1, device=like.device)
+        return torch.randn(shape, generator=g, device=like.device, dtype=like.dtype)
+
+    def brownian(self, it: int, i: int, like: Tensor, dt: float) -> Tensor:
+        return brownian_increment(fold_in(self.seed, 3 * it + 2), i, like, dt)
+
+
+Noise = Union[int, SeededNoise]
+
+
+def as_noise(noise) -> SeededNoise:
+    return SeededNoise(noise) if isinstance(noise, (int, np.integer)) else noise
+
+
+def _forward_diffuse(x0: Tensor, noise, it: int, cfg: PurifyConfig,
+                     total_noise_levels: int) -> Tensor:
+    """One-shot forward diffusion to step t* with the discrete alpha-bar,
+    float64 table cast to float32 (ref diffpure_sde.py:217-223). With
+    fix_rand one noise tile is shared across the batch."""
+    a = VPSDE(cfg.beta_min, cfg.beta_max, cfg.N).alphas_cumprod.astype(np.float32)
+    if cfg.fix_rand:
+        e = noise.forward_eps(it, (1,) + tuple(x0.shape[1:]), x0)
+        e = e.expand_as(x0)
+    else:
+        e = noise.forward_eps(it, tuple(x0.shape), x0)
+    abar = torch.tensor(a[total_noise_levels - 1], device=x0.device)
+    return x0 * torch.sqrt(abar) + e * torch.sqrt(1.0 - abar)
+
+
+def _sample_t(noise, it: int, cfg: PurifyConfig) -> int:
+    """t*, or with rand_t t* + U{-t_delta, t_delta - 1}
+    (ref diffpure_sde.py:219-221)."""
+    if not cfg.rand_t:
+        return cfg.t
+    return cfg.t + noise.t_offset(it, cfg.t_delta)
+
+
+def purify_sde(model_fn: ModelFn, x: Tensor, noise: Noise,
+               cfg: PurifyConfig) -> Tensor:
+    """Integrate the reverse VP-SDE in flipped time t' = 1 - s from
+    1 - t*/1000 to 1 - 1e-5 with Euler-Maruyama:
+    drift'(x, t') = -[f(x, s) - g(s)^2 score(x, s)], diffusion' = g(s)."""
+    if cfg.score_type != "score_sde":
+        raise NotImplementedError(
+            f"score_type={cfg.score_type!r} waits for ROADMAP Slice 3 item 15")
+    if cfg.grad_mode not in ("checkpoint", "none"):
+        raise NotImplementedError(
+            f"grad_mode={cfg.grad_mode!r} waits for the backward kernels "
+            "(ROADMAP next slice)")
+    noise = as_noise(noise)
+    sde = VPSDE(beta_min=cfg.beta_min, beta_max=cfg.beta_max, N=cfg.N)
+    score_fn = get_score_fn(sde, model_fn, continuous=True)
+
+    def drift(xx: Tensor, t_flip: Tensor) -> Tensor:
+        s = 1.0 - t_flip
+        f, g = sde.sde(xx, s)
+        return -(f - batch_mul(g ** 2, score_fn(xx, s)))
+
+    def diffusion(t_flip: Tensor) -> Tensor:
+        return torch.sqrt(sde.beta(1.0 - t_flip))
+
+    n_steps = cfg.solver_steps()
+    xs = []
+    x0 = x
+    for it in range(cfg.sample_step):
+        t_star = _sample_t(noise, it, cfg)
+        xt = _forward_diffuse(x0, noise, it, cfg, t_star)
+        t0 = 1.0 - t_star / 1000.0
+        t1 = 1.0 - cfg.epsilon_dt1
+        dt = (t1 - t0) / n_steps
+        x0 = sdeint_em(drift, diffusion, xt, t0, t1, n_steps,
+                       lambda i, it=it, xt=xt: noise.brownian(it, i, xt, dt))
+        xs.append(x0)
+    return torch.cat(xs, dim=0)
+
+
+_LATER = {"ode": "Slice 2 item 11", "ldsde": "Slice 2 item 11",
+          "dpm": "Slice 1 item 9", "ddpm": "Slice 3 item 15",
+          "celebahq-ddpm": "Slice 4 item 17"}
+
+
+def purify(model_fn: ModelFn, x: Tensor, noise: Noise,
+           cfg: PurifyConfig) -> Tensor:
+    """Runner dispatch (ref eval_sde_adv.py:44-55)."""
+    if cfg.diffusion_type == "sde":
+        return purify_sde(model_fn, x, noise, cfg)
+    if cfg.diffusion_type in _LATER:
+        raise NotImplementedError(
+            f"diffusion_type={cfg.diffusion_type!r} waits for ROADMAP "
+            f"{_LATER[cfg.diffusion_type]}")
+    raise NotImplementedError(f"unknown diffusion type {cfg.diffusion_type}")
