@@ -204,7 +204,10 @@ cudaError_t launch_gn_apply(const GnArgs& a, int N, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// Implicit GEMM: out[M, Nc] = epilogue(A[M, K] @ B[K, Nc]).
+// Implicit GEMM: out[M, Nc] = epilogue(A[M, K] @ B[K, Nc]). The backward
+// chain (fused_resblock_bwd.cu) runs its transposed 3x3 convs and the skip
+// adjoint through the same kernels: a transposed SAME 3x3 conv of stride 1
+// is a 3x3 conv with the flipped, channel-transposed weights.
 // Row m is output pixel (n, oy, ox) of an Ho x Wo grid. A's columns are
 //   [0, Kmain):  (tap, channel) of the activation src, which lies on the
 //                output grid; taps == 9 is a 3x3 SAME conv, whose
@@ -248,11 +251,14 @@ __device__ __forceinline__ float4 load_b4(const GemmArgs& a, int n, int k, int k
 }
 
 // (acc + bias + temb[n] + resid) * oscale for 4 columns of one row, stored.
+// bias may be nullptr (the backward's transposed convs have none).
 template <typename T>
 __device__ __forceinline__ void epilogue4(const GemmArgs& a, int row, int col, float4 v) {
   const int hw = a.Ho * a.Wo;
-  const float4 b = load4(a.bias + col);
-  v.x += b.x; v.y += b.y; v.z += b.z; v.w += b.w;
+  if (a.bias != nullptr) {
+    const float4 b = load4(a.bias + col);
+    v.x += b.x; v.y += b.y; v.z += b.z; v.w += b.w;
+  }
   if (a.temb != nullptr) {
     const float4 t = load4(static_cast<const T*>(a.temb) + (long)(row / hw) * a.Nc + col);
     v.x += t.x; v.y += t.y; v.z += t.z; v.w += t.w;

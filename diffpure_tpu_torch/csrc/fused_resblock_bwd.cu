@@ -1,0 +1,300 @@
+// Input-gradient backward of the fused BigGAN residual block (NCSN++
+// ResnetBlockBigGANpp, eval mode) for Hopper, bf16 or fp32 NHWC maps:
+// (dx, dtemb_row), or (dx1, dx2, dtemb_row) for the concat-input block.
+//
+// Replaces the TPU kernels diffpure_tpu/ops/fused_resblock.py:506
+// fused_resblock_bwd_pallas (_fused_resblock_bwd_kernel :373) and :941
+// fused_resblock_cat_bwd_pallas (_fused_resblock_cat_bwd_kernel :803).
+// Weight cotangents are not computed here (the caller takes them from
+// autodiff of the plain version, only when asked, as the JAX custom_vjp does).
+//
+// What bounds it on this card: three 3x3 convs of the block's size (the
+// recompute of conv0, conv1 transposed, conv0 transposed) plus the 1x1 skip
+// adjoint, 0.9-29 GFLOP per block at the CIFAR shapes and batch 8, on
+// operands that fit the 50 MB L2: products, as in the forward. The TPU
+// kernel holds one example's whole map in VMEM; an SM's 227 KB of shared
+// memory holds less than one 32x32x128 bf16 map.
+//
+// What the design does about it: a chain of launches on the forward's
+// building blocks (common.cuh), every product on the repo's implicit GEMM:
+//   1. GN1 + SiLU (+ resample) of x -> act1, the forward's GN pass;
+//   2. conv0 over act1 + b0 + temb -> h1 in fp32 (the GN2 input, c1 in JAX);
+//   3. conv1^T: g against the flipped, channel-transposed w1, times the
+//      output scale 1/sqrt(2) in the epilogue -> d_a2 in fp32;
+//   4. GN2 + SiLU backward (gn_silu_bwd_kernel below) from h1 and d_a2:
+//      d_c1 in the compute dtype (the next GEMM's operand, as JAX feeds the
+//      conv in compute_dtype) and dtemb = sum over HW of d_c1 in fp32,
+//      summed in a fixed order (deterministic);
+//   5. conv0^T: d_c1 against the flipped, transposed w0 -> d_h (cin
+//      channels) in fp32;
+//   6. the skip adjoint: g against wskip^T (1x1 GEMM, times 1/sqrt(2)) when
+//      the block projects, else g itself;
+//   7. GN1 + SiLU backward over x, reading d_h and the skip adjoint through
+//      the resample's transpose (x1/4 nearest-up for a down block, a 2x2
+//      sum for an up block), writing dx in fp32 -- split at the seam into
+//      dx1 | dx2 for the concat block, whose GN1 groups may straddle it.
+// Each GN backward block owns one (group, example) and makes four passes
+// over it (mean, variance, the two reductions of dxhat, the output), so
+// nothing but h1, d_a2, d_c1 and d_h goes through memory between launches.
+#include "common.cuh"
+
+using namespace dp;
+
+namespace {
+
+// d(loss)/d(act) at pixel (y, x) of the GN input's grid, read from a map on
+// the grid after the block's resample, through the resample's transpose.
+template <typename T>
+__device__ __forceinline__ float read_transposed(const Src& s, int resample, int n, int y,
+                                                 int x, int c) {
+  const long row = (long)n * s.H;
+  if (resample == RS_DOWN)  // 2x2 mean -> each input pixel got 1/4 of one output
+    return 0.25f * src_load1<T>(s, (row + (y >> 1)) * s.W + (x >> 1), c);
+  if (resample == RS_UP) {  // nearest 2x -> the sum of the four copies (JAX's order)
+    const long p0 = (row + 2 * y) * s.W + 2 * x, p1 = p0 + s.W;
+    return (src_load1<T>(s, p0, c) + src_load1<T>(s, p0 + 1, c)) +
+           (src_load1<T>(s, p1, c) + src_load1<T>(s, p1 + 1, c));
+  }
+  return src_load1<T>(s, (row + y) * s.W + x, c);
+}
+
+struct GnBwdArgs {
+  Src x;         // the GN's input, H x W
+  Src d;         // d(loss)/d(SiLU(GN(x))), on the grid after `resample`
+  int resample;  // RS_*: how x's grid maps onto d's
+  int G;
+  const float* gamma;
+  const float* beta;
+  float eps;
+  Src add;          // added to the output through the same transpose; p0 == nullptr: none
+  float add_scale;  // times add
+  void* out0;       // channels [0, oc0), row pitch oc0
+  void* out1;       // channels [oc0, C), row pitch C - oc0 (the cat block's dx2)
+  int oc0;
+  int out_f32;   // output stored as fp32, else as T
+  float* dsum;   // (N, C) sum over HW of the output before `add`, or nullptr
+};
+
+// GroupNorm + SiLU backward, one block per (group, example):
+//   xhat = (x - mean) * rstd, y = xhat * gamma + beta,
+//   dxhat = d * silu'(y) * gamma,
+//   dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)),
+// the means over the group (JAX _gn_silu_bwd_inkernel :140). Threads
+// [0, nthr) each keep one channel of the group (nthr is a multiple of the
+// group's width), so the per-channel sum for dtemb needs no atomics.
+template <typename T>
+__global__ void __launch_bounds__(NT) gn_silu_bwd_kernel(const __grid_constant__ GnBwdArgs a) {
+  __shared__ float red[NT / 32];
+  __shared__ float part[NT];
+  const Src& s = a.x;
+  const int g = blockIdx.x, n = blockIdx.y;
+  const int C = s.c0 + s.c1, cg = C / a.G, hw = s.H * s.W;
+  const int nthr = (NT / cg) * cg, pstep = nthr / cg;
+  const bool active = threadIdx.x < nthr;
+  const int c = g * cg + (int)(threadIdx.x % cg);
+  const int pbeg = active ? (int)(threadIdx.x / cg) : hw;
+  const long pix0 = (long)n * hw;
+  const float cnt = (float)((long)hw * cg);
+
+  float acc = 0.f;
+  for (int p = pbeg; p < hw; p += pstep) acc += src_load1<T>(s, pix0 + p, c);
+  const float mean = block_sum(acc, red) / cnt;
+  acc = 0.f;
+  for (int p = pbeg; p < hw; p += pstep) {
+    const float v = src_load1<T>(s, pix0 + p, c) - mean;
+    acc += v * v;
+  }
+  const float rstd = rsqrtf(block_sum(acc, red) / cnt + a.eps);
+  const float gam = a.gamma[c], bet = a.beta[c];
+
+  // dxhat at pixel p; xh gets xhat
+  auto dxhat = [&](int p, float& xh) {
+    const int y = p / s.W, x = p - y * s.W;
+    xh = (src_load1<T>(s, pix0 + p, c) - mean) * rstd;
+    const float yv = xh * gam + bet;
+    const float sig = 1.f / (1.f + expf(-yv));
+    return read_transposed<T>(a.d, a.resample, n, y, x, c) * (sig * (1.f + yv * (1.f - sig))) *
+           gam;
+  };
+  float s1 = 0.f, s2 = 0.f;
+  for (int p = pbeg; p < hw; p += pstep) {
+    float xh;
+    const float dh = dxhat(p, xh);
+    s1 += dh;
+    s2 += dh * xh;
+  }
+  const float m1 = block_sum(s1, red) / cnt;
+  const float m2 = block_sum(s2, red) / cnt;
+
+  float csum = 0.f;
+  for (int p = pbeg; p < hw; p += pstep) {
+    float xh;
+    float v = rstd * (dxhat(p, xh) - m1 - xh * m2);
+    csum += v;
+    if (a.add.p0 != nullptr) {
+      const int y = p / s.W, x = p - y * s.W;
+      v += a.add_scale * read_transposed<T>(a.add, a.resample, n, y, x, c);
+    }
+    const long pix = pix0 + p;
+    void* base = a.out0;
+    long idx = pix * a.oc0 + c;
+    if (c >= a.oc0) {
+      base = a.out1;
+      idx = pix * (C - a.oc0) + (c - a.oc0);
+    }
+    if (a.out_f32)
+      static_cast<float*>(base)[idx] = v;
+    else
+      static_cast<T*>(base)[idx] = from_f32<T>(v);
+  }
+  if (a.dsum != nullptr) {  // uniform across the block
+    part[threadIdx.x] = csum;
+    __syncthreads();
+    if (threadIdx.x < cg) {
+      float t = 0.f;
+      for (int j = threadIdx.x; j < nthr; j += cg) t += part[j];  // in thread order
+      a.dsum[(long)n * C + g * cg + threadIdx.x] = t;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_gn_bwd(const GnBwdArgs& a, int N, cudaStream_t st) {
+  const int C = a.x.c0 + a.x.c1;
+  if (C % a.G != 0 || C / a.G > NT) return cudaErrorInvalidValue;
+  gn_silu_bwd_kernel<T><<<dim3(a.G, N), NT, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t resblock_bwd(const void* x1, const void* x2, int c1, int c2, int N, int H, int W,
+                         int resample, const void* temb, const void* g, const float* gn1s,
+                         const float* gn1b, int g1, const void* w0, const float* b0,
+                         const float* gn2s, const float* gn2b, int g2, const void* w1t,
+                         const void* w0t, const void* wskipt, int cout, float eps, float oscale,
+                         void* act1, float* h1, float* da2, void* dc1, float* dh, float* dskip,
+                         float* ws, long ws_elems, float* dx1, float* dx2, float* dtemb,
+                         cudaStream_t st) {
+  const int cin = c1 + c2;
+  const int Ho = resample == RS_DOWN ? H / 2 : (resample == RS_UP ? H * 2 : H);
+  const int Wo = resample == RS_DOWN ? W / 2 : (resample == RS_UP ? W * 2 : W);
+  const int M = N * Ho * Wo;
+  const Src x = {x1, x2, c1, c2, H, W, 0};
+  const Src gsrc = {g, nullptr, cout, 0, Ho, Wo, 0};
+
+  // 1-2: recompute h1 = conv0(resample(silu(gn1(x)))) + b0 + temb, as the forward
+  const GnArgs gn1 = {x, g1, gn1s, gn1b, eps, 1, resample, act1, nullptr};
+  cudaError_t err = launch_gn_apply<T>(gn1, N, st);
+  if (err != cudaSuccess) return err;
+  GemmArgs a0 = {};
+  a0.M = M;
+  a0.Nc = cout;
+  a0.K = a0.Kmain = 9 * cin;
+  a0.Ho = Ho;
+  a0.Wo = Wo;
+  a0.taps = 9;
+  a0.src = Src{act1, nullptr, cin, 0, Ho, Wo, 0};
+  a0.w = w0;
+  a0.bias = b0;
+  a0.temb = temb;
+  a0.oscale = 1.f;
+  a0.out = h1;
+  a0.out_f32 = 1;
+  if ((err = launch_gemm<T>(a0, ws, ws_elems, st)) != cudaSuccess) return err;
+
+  // 3: d_a2 = conv1^T(g) * oscale
+  GemmArgs a1 = {};
+  a1.M = M;
+  a1.Nc = cout;
+  a1.K = a1.Kmain = 9 * cout;
+  a1.Ho = Ho;
+  a1.Wo = Wo;
+  a1.taps = 9;
+  a1.src = gsrc;
+  a1.w = w1t;
+  a1.oscale = oscale;
+  a1.out = da2;
+  a1.out_f32 = 1;
+  if ((err = launch_gemm<T>(a1, ws, ws_elems, st)) != cudaSuccess) return err;
+
+  // 4: through SiLU(GN2(h1)): d_c1 (T) and dtemb
+  const GnBwdArgs b2 = {Src{h1, nullptr, cout, 0, Ho, Wo, 1}, Src{da2, nullptr, cout, 0, Ho, Wo, 1},
+                        RS_NONE, g2, gn2s, gn2b, eps, Src{}, 0.f, dc1, nullptr, cout, 0, dtemb};
+  if ((err = launch_gn_bwd<T>(b2, N, st)) != cudaSuccess) return err;
+
+  // 5: d_h = conv0^T(d_c1), cin channels on the output grid
+  GemmArgs a2 = {};
+  a2.M = M;
+  a2.Nc = cin;
+  a2.K = a2.Kmain = 9 * cout;
+  a2.Ho = Ho;
+  a2.Wo = Wo;
+  a2.taps = 9;
+  a2.src = Src{dc1, nullptr, cout, 0, Ho, Wo, 0};
+  a2.w = w0t;
+  a2.oscale = 1.f;
+  a2.out = dh;
+  a2.out_f32 = 1;
+  if ((err = launch_gemm<T>(a2, ws, ws_elems, st)) != cudaSuccess) return err;
+
+  // 6: the skip adjoint, on the output grid
+  Src add = gsrc;
+  float add_scale = oscale;
+  if (wskipt != nullptr) {
+    GemmArgs a3 = {};
+    a3.M = M;
+    a3.Nc = cin;
+    a3.K = a3.Kmain = cout;
+    a3.Ho = Ho;
+    a3.Wo = Wo;
+    a3.taps = 1;
+    a3.src = gsrc;
+    a3.w = wskipt;
+    a3.oscale = oscale;
+    a3.out = dskip;
+    a3.out_f32 = 1;
+    if ((err = launch_gemm<T>(a3, ws, ws_elems, st)) != cudaSuccess) return err;
+    add = Src{dskip, nullptr, cin, 0, Ho, Wo, 1};
+    add_scale = 1.f;
+  }
+
+  // 7: dx = GN1+SiLU backward of resample^T(d_h) + resample^T(skip adjoint)
+  const GnBwdArgs b1 = {x,        Src{dh, nullptr, cin, 0, Ho, Wo, 1}, resample, g1, gn1s, gn1b,
+                        eps,      add, add_scale, dx1, dx2, c1, 1, nullptr};
+  return launch_gn_bwd<T>(b1, N, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 fp32, 1 bf16. x2 == NULL and c2 == 0 for a single input; then dx2
+// is unused and dx1 gets all cin channels. resample: 0 none, 1 down, 2 up.
+// g is d(loss)/d(out), (N, Ho, Wo, cout) in the compute dtype. w0/b0 as the
+// forward takes them; w1t is (cout, 9*cout) and w0t (cin, 9*cout), column
+// (3*dy + dx)*cout + o = w[o, c, 2 - dy, 2 - dx]; wskipt (cin, cout), or
+// NULL for an identity skip. oscale is the output's scale (1/sqrt(2)).
+// Scratch: act1 (N, Ho, Wo, cin) and dc1 (N, Ho, Wo, cout) in the compute
+// dtype; h1, da2 (N, Ho, Wo, cout), dh and dskip (N, Ho, Wo, cin) in fp32
+// (dskip only read with a projection); ws (ws_elems fp32) for split-K
+// partials. Outputs in fp32: dx1 (N, H, W, c1), dx2 (N, H, W, c2), dtemb
+// (N, cout). Returns cudaGetLastError() of the first failing launch.
+int diffpure_resblock_bwd(int dtype, const void* x1, const void* x2, int c1, int c2, int N,
+                          int H, int W, int resample, const void* temb, const void* g,
+                          const float* gn1s, const float* gn1b, int g1, const void* w0,
+                          const float* b0, const float* gn2s, const float* gn2b, int g2,
+                          const void* w1t, const void* w0t, const void* wskipt, int cout,
+                          float eps, float oscale, void* act1, float* h1, float* da2, void* dc1,
+                          float* dh, float* dskip, float* ws, long ws_elems, float* dx1,
+                          float* dx2, float* dtemb, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return resblock_bwd<bf16>(x1, x2, c1, c2, N, H, W, resample, temb, g, gn1s, gn1b, g1, w0, b0,
+                              gn2s, gn2b, g2, w1t, w0t, wskipt, cout, eps, oscale, act1, h1, da2,
+                              dc1, dh, dskip, ws, ws_elems, dx1, dx2, dtemb, st);
+  return resblock_bwd<float>(x1, x2, c1, c2, N, H, W, resample, temb, g, gn1s, gn1b, g1, w0, b0,
+                             gn2s, gn2b, g2, w1t, w0t, wskipt, cout, eps, oscale, act1, h1, da2,
+                             dc1, dh, dskip, ws, ws_elems, dx1, dx2, dtemb, st);
+}
+
+}  // extern "C"

@@ -1,11 +1,12 @@
-"""Defended model: purify, then classify (port of
-diffpure_tpu/eval/defended.py:35).
+"""Defended model: purify, then classify, as one differentiable function
+(port of diffpure_tpu/eval/defended.py:35), and the classifier-only
+``UndefendedModel`` (:114).
 
 [0, 1] NHWC in -> [-1, 1] -> forward-diffuse and reverse-integrate ->
 [0, 1] -> classifier logits. Every call takes its own noise (an integer
 seed or a noise source, see purify/runners.py): the defence is randomised
-by design. Forward only in this port so far: run it under
-``torch.inference_mode()``.
+by design. Attacks differentiate through it as ``purify_cfg.grad_mode``
+says; under ``torch.inference_mode()`` it runs forward only.
 """
 from __future__ import annotations
 
@@ -57,3 +58,21 @@ class DefendedModel:
     def reset_counter(self):
         self._counter = 0
         self._t0 = None
+
+
+@dataclasses.dataclass
+class UndefendedModel:
+    """Classifier-only wrapper with the same three modes: purify is the
+    identity (the BPDA driver's undefended baseline, ref
+    eval_sde_adv_bpda.py:31-50)."""
+
+    classifier: Callable[[Tensor], Tensor]
+
+    def purify(self, x01: Tensor, noise: Noise) -> Tensor:
+        return x01
+
+    def classify(self, x01: Tensor) -> Tensor:
+        return self.classifier(x01)
+
+    def __call__(self, x01: Tensor, noise: Noise) -> Tensor:
+        return self.classify(x01)

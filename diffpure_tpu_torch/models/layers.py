@@ -6,12 +6,17 @@ Parameter names are the reference PyTorch names (``GroupNorm_0``,
 so a ``checkpoint_8.pth`` state dict loads as it is. Activations are NHWC.
 
 The blocks are eval-only and always go through the fused-block wrappers,
-which run the plain version on CPU tensors and the CUDA kernel on CUDA
+which run the plain version on CPU tensors and the CUDA kernels on CUDA
 tensors. That is the JAX gate of layers.py:516-539 with every condition
 fixed true by what the port builds (eval mode, swish, naive resampling, a
 temb row); the TPU's 128-lane condition does not apply on the GPU.
-Training mode, FIR resampling and the DDPM++ blocks wait for ROADMAP
-Slice 1 item 5.
+
+The blocks are differentiable with respect to their inputs (the attack
+path): the wrappers are autograd Functions whose backward is the CUDA
+backward kernel for the residual blocks and autograd of the plain version
+for the attention block, as in JAX. Weight gradients, when asked for, come
+from autograd of the plain version. Training mode, FIR resampling and the
+DDPM++ blocks wait for ROADMAP Slice 1 item 5.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch.nn.functional as F
 from diffpure_tpu_torch.ops.fused_attnblock import fused_attnblock, \
     pack_attnblock_params
 from diffpure_tpu_torch.ops.fused_resblock import fused_resblock, \
-    fused_resblock_cat, pack_resblock_params
+    fused_resblock_cat, pack_resblock_bwd_params, pack_resblock_params
 from diffpure_tpu_torch.ops.groupnorm import ncsn_num_groups
 
 Tensor = torch.Tensor
@@ -141,6 +146,7 @@ class ResnetBlockBigGANpp(nn.Module):
         self.resample = "up" if up else ("down" if down else "none")
         self.skip_rescale = skip_rescale
         self._kernel = _Derived(pack_resblock_params)
+        self._kernel_bwd = _Derived(pack_resblock_bwd_params)
         self._dense = _Derived(_cast)
 
     def _params(self):
@@ -157,17 +163,24 @@ class ResnetBlockBigGANpp(nn.Module):
         """x: an NHWC map, or the up path's (h, skip) pair, which is
         concatenated along channels (inside the kernel when the block
         projects and does not resample)."""
-        # the temb row stays a plain op, in the torso's dtype (DenseP)
-        w, b = self._dense.get((self.Dense_0.weight, self.Dense_0.bias),
-                               temb.dtype, temb.device)
+        # the temb row stays a plain op, in the torso's dtype (DenseP); a
+        # cast of weights that require grad is not cached (it is a graph node)
+        dense = (self.Dense_0.weight, self.Dense_0.bias)
+        if torch.is_grad_enabled() and dense[0].requires_grad:
+            w, b = _cast(dense, temb.dtype, temb.device)
+        else:
+            w, b = self._dense.get(dense, temb.dtype, temb.device)
         temb_row = F.linear(F.silu(temb), w, b)
         params = self._params()
         anchor = x[0] if isinstance(x, tuple) else x
-        packed = (self._kernel.get(params, anchor.dtype, anchor.device)
-                  if anchor.device.type == "cuda" else None)
+        on_card = anchor.device.type == "cuda"
         kw = dict(num_groups1=self.GroupNorm_0.num_groups,
                   num_groups2=self.GroupNorm_1.num_groups, eps=1e-6,
-                  rescale=self.skip_rescale, packed=packed)
+                  rescale=self.skip_rescale,
+                  packed=self._kernel.get(params, anchor.dtype, anchor.device)
+                  if on_card else None,
+                  packed_bwd=self._kernel_bwd.get(params, anchor.dtype, anchor.device)
+                  if on_card and torch.is_grad_enabled() else None)
         if isinstance(x, tuple):
             if self.has_proj and self.resample == "none":
                 return fused_resblock_cat(x[0], x[1], temb_row, params, **kw)

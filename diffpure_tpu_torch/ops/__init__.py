@@ -9,7 +9,8 @@ from diffpure_tpu_torch.ops.upfirdn2d import naive_downsample_2d, \
 # The wrappers of the hand-written kernels, each with its launch counter.
 # (Not re-exported under their own names: they would shadow the modules.)
 KERNEL_WRAPPERS = (_frb.fused_resblock, _frb.fused_resblock_cat,
-                   _fab.fused_attnblock)
+                   _fab.fused_attnblock, _frb.fused_resblock_bwd,
+                   _frb.fused_resblock_cat_bwd)
 
 
 def launch_counts() -> dict:

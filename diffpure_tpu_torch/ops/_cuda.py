@@ -87,6 +87,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         F, F, P, P, P, P,                 # eps, oscale, act1, xs, h1, act2
         P, L, P, P]                       # ws, ws_elems, out, stream
     lib.diffpure_resblock_fwd.restype = I
+    lib.diffpure_resblock_bwd.argtypes = [
+        I, P, P, I, I, I, I, I, I, P, P,  # dtype, x1, x2, c1, c2, N, H, W, resample, temb, g
+        P, P, I, P, P,                    # gn1s, gn1b, g1, w0, b0
+        P, P, I, P, P, P, I,              # gn2s, gn2b, g2, w1t, w0t, wskipt, cout
+        F, F, P, P, P, P, P, P,           # eps, oscale, act1, h1, da2, dc1, dh, dskip
+        P, L, P, P, P, P]                 # ws, ws_elems, dx1, dx2, dtemb, stream
+    lib.diffpure_resblock_bwd.restype = I
     lib.diffpure_attnblock_fwd.argtypes = [
         I, P, I, I, I, I,                 # dtype, x, N, H, W, C
         P, P, I, P, P, P, P,              # gns, gnb, G, wqkv, bqkv, wo, bo
@@ -152,12 +159,3 @@ def check_operand(t: torch.Tensor, name: str, device: torch.device,
         raise ValueError(f"{name} is too large for 32-bit indexing")
     return t.data_ptr()
 
-
-def refuse_grad(*tensors) -> None:
-    """The kernels have no backward yet: refuse rather than route gradients
-    through the plain version."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "the fused NCSN++ block kernels are forward-only; run under "
-            "torch.inference_mode() (backward kernels: ROADMAP next slice)")

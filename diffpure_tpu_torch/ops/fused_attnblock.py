@@ -1,10 +1,13 @@
 """Fused NCSN++ attention block (AttnBlockpp, eval mode).
 
 Port of diffpure_tpu/ops/fused_attnblock.py: ``fused_attnblock_reference``
-(:151) in plain PyTorch, and ``fused_attnblock``, the wrapper of the CUDA
-kernel in ``csrc/fused_attnblock.cu`` that replaces
-``fused_attnblock_pallas`` (:106). On a CPU tensor the wrapper runs the
-plain version; on a CUDA tensor it launches the kernel or raises.
+(:151) in plain PyTorch, and ``fused_attnblock``, a
+``torch.autograd.Function`` whose forward is the CUDA kernel in
+``csrc/fused_attnblock.cu`` (replacing ``fused_attnblock_pallas``, :106) and
+whose backward is autograd of the plain version, as JAX's ``_fab_bwd``
+(:200-206) is: the TPU has no attention backward kernel either. On a CPU
+tensor the forward runs the plain version; on a CUDA tensor it launches the
+kernel or raises.
 
 The block: GN -> q, k, v = NIN(h) -> softmax(q k^T C^-1/2) in fp32 -> @ v
 -> NIN -> + x, times 1/sqrt(2) when rescaled. NIN weights are (in, out).
@@ -77,16 +80,8 @@ def pack_attnblock_params(params: Tuple, dtype: torch.dtype,
             wo=wo.t().detach().to(device, dtype).contiguous(), bo=f32(bo))
 
 
-def fused_attnblock(x: Tensor, params: Tuple, *, num_groups: int,
-                    eps: float = 1e-6, rescale: bool = True,
-                    packed: Optional[PackedAttnblock] = None) -> Tensor:
-    """The block on one NHWC map: plain on CPU, the CUDA kernel on CUDA."""
-    _cuda.refuse_grad(x, *params)
-    if x.device.type == "cpu":
-        return fused_attnblock_reference(x, params, num_groups=num_groups,
-                                         eps=eps, rescale=rescale)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_attnblock runs on cpu or cuda, not {x.device}")
+def _launch(x: Tensor, params: Tuple, num_groups: int, eps: float,
+            rescale: bool, packed: Optional[PackedAttnblock]) -> Tensor:
     dev, dtype = x.device, x.dtype
     if dtype not in _cuda.DTYPE_CODE:
         raise ValueError(f"fused_attnblock takes fp32 or bf16, not {dtype}")
@@ -111,8 +106,47 @@ def fused_attnblock(x: Tensor, params: Tuple, *, num_groups: int,
         _cuda.SPLITK_WORKSPACE, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(err, "fused_attnblock kernel")
-    fused_attnblock.launches += 1
     return out
+
+
+class _FusedAttnblock(torch.autograd.Function):
+    """Saves only its inputs; the backward recomputes the plain version."""
+
+    @staticmethod
+    def forward(ctx, cfg, x, *params):
+        num_groups, eps, rescale, packed = cfg
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, *params)
+        if x.device.type == "cpu":
+            return fused_attnblock_reference(x, params, num_groups=num_groups,
+                                             eps=eps, rescale=rescale)
+        if x.device.type != "cuda":
+            raise ValueError(f"fused_attnblock runs on cpu or cuda, not {x.device}")
+        out = _launch(x, params, num_groups, eps, rescale, packed)
+        fused_attnblock.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        num_groups, eps, rescale, _ = ctx.cfg
+        need = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            out = fused_attnblock_reference(
+                leaves[0], tuple(leaves[1:]), num_groups=num_groups, eps=eps,
+                rescale=rescale)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip(leaves, need) if n], g))
+        return (None, *[next(grads) if n else None for n in need])
+
+
+def fused_attnblock(x: Tensor, params: Tuple, *, num_groups: int,
+                    eps: float = 1e-6, rescale: bool = True,
+                    packed: Optional[PackedAttnblock] = None) -> Tensor:
+    """The block on one NHWC map, differentiable: plain on CPU, the CUDA
+    kernel on CUDA."""
+    return _FusedAttnblock.apply((num_groups, eps, rescale, packed), x, *params)
 
 
 # Kernel launches since the last reset (plain CPU calls do not count).

@@ -8,6 +8,12 @@ runner's stream layout: purification round ``it`` draws t* from stream
 of step i from (3*it + 2, i) (runners.py:114-117, em.py:42). An integer
 seed gives ``SeededNoise``; tests pass an object with the same three
 methods that returns the draws JAX made.
+
+Gradients (``cfg.grad_mode``, runners.py:121-138): ``'checkpoint'``
+backpropagates exactly through the solver, recomputing each step;
+``'adjoint'`` uses the O(1)-memory adjoint of solvers/adjoint.py; ``'none'``
+returns a result with no gradient (JAX's ``stop_gradient``; the solver runs
+without a graph). ``'reversible'`` waits for ROADMAP Slice 2 item 11.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch
 from diffpure_tpu_torch.diffusion.score import get_score_fn
 from diffpure_tpu_torch.diffusion.sde import VPSDE, batch_mul
 from diffpure_tpu_torch.purify.config import PurifyConfig
+from diffpure_tpu_torch.solvers.adjoint import sdeint_em_adjoint
 from diffpure_tpu_torch.solvers.em import brownian_increment, sdeint_em
 from diffpure_tpu_torch.utils.prng import fold_in, generator
 
@@ -83,10 +90,12 @@ def purify_sde(model_fn: ModelFn, x: Tensor, noise: Noise,
     if cfg.score_type != "score_sde":
         raise NotImplementedError(
             f"score_type={cfg.score_type!r} waits for ROADMAP Slice 3 item 15")
-    if cfg.grad_mode not in ("checkpoint", "none"):
+    if cfg.grad_mode == "reversible":
         raise NotImplementedError(
-            f"grad_mode={cfg.grad_mode!r} waits for the backward kernels "
-            "(ROADMAP next slice)")
+            "grad_mode='reversible' (reversible Heun) waits for ROADMAP "
+            "Slice 2 item 11")
+    if cfg.grad_mode not in ("checkpoint", "adjoint", "none"):
+        raise ValueError(f"unknown grad_mode {cfg.grad_mode!r}")
     noise = as_noise(noise)
     sde = VPSDE(beta_min=cfg.beta_min, beta_max=cfg.beta_max, N=cfg.N)
     score_fn = get_score_fn(sde, model_fn, continuous=True)
@@ -108,8 +117,17 @@ def purify_sde(model_fn: ModelFn, x: Tensor, noise: Noise,
         t0 = 1.0 - t_star / 1000.0
         t1 = 1.0 - cfg.epsilon_dt1
         dt = (t1 - t0) / n_steps
-        x0 = sdeint_em(drift, diffusion, xt, t0, t1, n_steps,
-                       lambda i, it=it, xt=xt: noise.brownian(it, i, xt, dt))
+        args = (drift, diffusion, xt, t0, t1, n_steps,
+                lambda i, it=it, xt=xt: noise.brownian(it, i, xt, dt))
+        if cfg.grad_mode == "adjoint":
+            params = (tuple(p for p in model_fn.parameters() if p.requires_grad)
+                      if isinstance(model_fn, torch.nn.Module) else ())
+            x0 = sdeint_em_adjoint(*args, params=params)
+        elif cfg.grad_mode == "none":
+            with torch.no_grad():
+                x0 = sdeint_em(*args)
+        else:
+            x0 = sdeint_em(*args, checkpoint=True)
         xs.append(x0)
     return torch.cat(xs, dim=0)
 

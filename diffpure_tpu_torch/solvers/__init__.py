@@ -1,1 +1,2 @@
+from diffpure_tpu_torch.solvers.adjoint import sdeint_em_adjoint
 from diffpure_tpu_torch.solvers.em import brownian_increment, sdeint_em

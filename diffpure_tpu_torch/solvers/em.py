@@ -4,6 +4,13 @@ A Python loop over a fixed number of steps. Brownian increments come from
 the caller, one per step, so parity tests can inject the increments JAX
 drew; the default source (``brownian_increment``) is counter-based, so any
 step's noise can be replayed from (seed, step) alone.
+
+Differentiable: with ``checkpoint=True`` each step runs under
+``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint`` on the
+scan body, diffpure_tpu/solvers/em.py:79-80): the backward recomputes one
+step at a time, replaying its Brownian increment by index, so memory is
+O(n_steps * state) and each step's drift runs twice. For O(1) memory see
+solvers/adjoint.py.
 """
 from __future__ import annotations
 
@@ -12,6 +19,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from diffpure_tpu_torch.utils.prng import generator
 
@@ -26,21 +34,38 @@ def brownian_increment(seed: int, i: int, like: Tensor, dt: float) -> Tensor:
                        dtype=like.dtype) * math.sqrt(abs(dt))
 
 
+def em_time(t0: float, dt: float, i: int) -> float:
+    """t_i = t0 + i * dt formed in float32, as the JAX scan forms it."""
+    return float(np.float32(t0) + np.float32(i) * np.float32(dt))
+
+
+def em_step(drift: Callable[[Tensor, Tensor], Tensor],
+            diffusion: Callable[[Tensor], Tensor], x: Tensor, t: float,
+            dt: float, dw: Tensor) -> Tensor:
+    """One Euler-Maruyama step x + drift(x, t) dt + diffusion(t) dW."""
+    tb = torch.full((x.shape[0],), t, dtype=x.dtype, device=x.device)
+    g = diffusion(tb)
+    g = g.reshape(g.shape + (1,) * (x.ndim - g.ndim))
+    return x + drift(x, tb) * dt + g * dw
+
+
 def sdeint_em(drift: Callable[[Tensor, Tensor], Tensor],
               diffusion: Callable[[Tensor], Tensor], x0: Tensor, t0: float,
-              t1: float, n_steps: int, dw: Callable[[int], Tensor]) -> Tensor:
+              t1: float, n_steps: int, dw: Callable[[int], Tensor], *,
+              checkpoint: bool = False) -> Tensor:
     """Integrate dx = drift(x, t) dt + diffusion(t) dW from t0 to t1 in
     ``n_steps`` steps; ``dw(i)`` is the Brownian increment of step i.
 
-    t_i = t0 + i * dt is formed in float32, as the JAX scan forms it.
+    ``checkpoint``: recompute each step in the backward instead of keeping
+    its activations (only when autograd records, otherwise a plain loop).
     """
     dt = (t1 - t0) / n_steps
-    t0_32, dt_32 = np.float32(t0), np.float32(dt)
+
+    def step(x: Tensor, i: int) -> Tensor:
+        return em_step(drift, diffusion, x, em_time(t0, dt, i), dt, dw(i))
+
+    remat = checkpoint and torch.is_grad_enabled()
     x = x0
     for i in range(n_steps):
-        t = float(t0_32 + np.float32(i) * dt_32)
-        tb = torch.full((x.shape[0],), t, dtype=x.dtype, device=x.device)
-        g = diffusion(tb)
-        g = g.reshape(g.shape + (1,) * (x.ndim - g.ndim))
-        x = x + drift(x, tb) * dt + g * dw(i)
+        x = _checkpoint(step, x, i, use_reentrant=False) if remat else step(x, i)
     return x

@@ -20,16 +20,31 @@ sys.meta_path.insert(0, Block())
 import diffpure_tpu_torch
 for m in pkgutil.walk_packages(diffpure_tpu_torch.__path__, 'diffpure_tpu_torch.'):
     importlib.import_module(m.name)
+print(sorted(k for k in sys.modules if k.startswith('diffpure_tpu_torch.')))
 print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'diffpure_tpu')))
 """
+# modules of the gradient slice, which the walk must reach
+GRADIENT_PATH = ["diffpure_tpu_torch.solvers.adjoint", "diffpure_tpu_torch.attacks.apgd",
+                 "diffpure_tpu_torch.attacks.autoattack", "diffpure_tpu_torch.attacks.eot",
+                 "diffpure_tpu_torch.attacks.losses", "diffpure_tpu_torch.eval.drivers"]
 
 
-def test_import_leaves_jax_out():
+def _probe():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+    return out.stdout.strip().splitlines()
+
+
+def test_import_leaves_jax_out():
+    assert _probe()[-1] == "[]"
+
+
+def test_gradient_path_modules_import_without_jax():
+    imported = _probe()[-2]
+    missing = [m for m in GRADIENT_PATH if repr(m) not in imported]
+    assert missing == []
 
 
 def test_no_jax_import_statement():

@@ -88,11 +88,19 @@ def test_pack_layout():
 
 
 def test_refuses_gradients():
+    """What the wrapper refuses: a device other than cpu or cuda. Gradients
+    it does not refuse: dx and dtemb flow through the block's Function and
+    match autograd of the plain version."""
     rng = np.random.default_rng(4)
     p = resblock_params_torch(resblock_params(rng, 8, 8, proj=False))
     x = torch.randn(1, 4, 4, 8, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        frb.fused_resblock(x, torch.zeros(1, 8), p, num_groups1=2, num_groups2=2)
+    temb = torch.zeros(1, 8, requires_grad=True)
+    out = frb.fused_resblock(x, temb, p, num_groups1=2, num_groups2=2)
+    dx, dt = torch.autograd.grad(out.square().sum(), (x, temb))
+    ref = frb.fused_resblock_reference(x, temb, p, num_groups1=2, num_groups2=2)
+    want = torch.autograd.grad(ref.square().sum(), (x, temb))
+    assert_close(dx, want[0], 1e-5, "dx")
+    assert_close(dt, want[1], 1e-5, "dtemb")
     with pytest.raises(ValueError, match="cpu or cuda"):
         frb.fused_resblock(x.detach().to("meta"), torch.zeros(1, 8), p,
                            num_groups1=2, num_groups2=2)

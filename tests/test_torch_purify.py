@@ -140,7 +140,7 @@ def test_seeded_noise_replays_and_get_accuracy():
 def test_unported_paths_raise():
     x = torch.zeros(1, 8, 8, 3)
     for cfg in (PurifyConfig(diffusion_type="ode"),
-                PurifyConfig(grad_mode="adjoint"),
+                PurifyConfig(grad_mode="reversible"),
                 PurifyConfig(score_type="guided_diffusion")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             purify(lambda xx, t: xx, x, 0, cfg)
