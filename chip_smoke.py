@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CIFAR-10 defence once on one NVIDIA GPU.
+"""Drive the PyTorch port's CIFAR-10 and ImageNet-256 defences once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py          (from the root of the repository)
 
@@ -30,12 +31,27 @@ Phases, each fatal on failure:
      APGD-DLR with EOT) through the full-width bf16 defence at t*=100,
      batch 8; x_adv must lie in the eps-ball and in [0, 1], and every
      kernel of the path must have launched.
+  2c. (run after phase 2b) the ImageNet-256 kernels (tiled GroupNorm stats
+     and apply, halo conv, flash attention) against their plain versions at
+     every shape the full-width imagenet256_config ADM gives them at batch
+     4 (a census of the wrappers' calls over one evaluation), bf16 and
+     fp32; kernel, plain and bound times, and F.scaled_dot_product_attention
+     beside the flash kernel as a yardstick;
+  8. the ImageNet slice: DefendedModel(resize_to=256) with the
+     guided-diffusion purify_sde at t*=150 through that ADM (bf16 torso,
+     552,814,086 parameters) and ResNet-50, on 4 seeded 224x224 images under
+     inference_mode, cold then warm; the launch counters must read 150 x the
+     census for the four 256-px kernels and 0 for the CIFAR ones;
+  9. one full-width ADM evaluation at batch 1, fp32 and bf16, and a t*=3
+     fp32 purification, kernels (card) against plain (CPU), same noise.
 
 Needs the CUDA toolkit (nvcc) and one card; exits non-zero without them.
 Writes details (per-shape records, the compiler's report) to
 chip_smoke_out/. The second-to-last line of stdout is the kernels' JSON
-record, the last the device JSON. ``--stop-after 2b`` ends after phase 2b
-(a short first run of changed kernels; prints no result line).
+record, the last the device JSON. ``--stop-after 2b`` or ``2c`` ends after
+that phase (a short first run of changed kernels; prints no result line).
+``--profile-adm`` profiles the ImageNet ADM's evaluation after phase 1 and
+ends (device time by kernel family, idle share; profile_adm.json).
 """
 from __future__ import annotations
 
@@ -110,6 +126,33 @@ GRAD_MODES = ("checkpoint", "adjoint")
 # drift evaluation without a graph to reconstruct x_prev and one with a
 # graph at x_prev, whose backward is the step's only backward.
 GRAD_EVALS = {"checkpoint": (2, 1), "adjoint": (3, 1)}
+# The ImageNet-256 slice: the full-width imagenet256_config ADM (bf16 torso)
+# + ResNet-50 at t*=150, batch 4 (run_scripts/imagenet/run_in_rand_inf.sh).
+ADM_N = 4
+ADM_PARAMS = 552_814_086
+ADM_EVALS = 150
+# 256-px kernel wrapper -> (source, TPU kernel it replaces)
+ADM_KERNELS = {
+    "group_stats": ("diffpure_tpu_torch/csrc/tiled_groupnorm.cu",
+                    "diffpure_tpu/ops/tiled_groupnorm.py:52"),
+    "gn_film_silu_apply": ("diffpure_tpu_torch/csrc/tiled_groupnorm.cu",
+                           "diffpure_tpu/ops/tiled_groupnorm.py:136"),
+    "gn_silu_conv3x3_halo": ("diffpure_tpu_torch/csrc/halo_conv.cu",
+                             "diffpure_tpu/ops/halo_conv.py:168"),
+    "flash_attention": ("diffpure_tpu_torch/csrc/flash_attention.cu",
+                        "diffpure_tpu/ops/flash_attention.py:145"),
+}
+# Phase 9, card (kernels) against CPU (plain versions), max abs error over
+# max |CPU|. One full-width ADM evaluation: fp32 differs by summation order
+# only (the port's fp32 ADM and JAX's sit 1.5e-6 apart at the small ADM of
+# tests/test_torch_adm.py; the full width is deeper and wider, so ~100x
+# that). bf16: a CPU rehearsal of the plain bf16 ADM of this structure at
+# 64 channels landed 1.4e-2 from its fp32 self; card and CPU round at
+# other places (the halo kernel keeps the conv, bias and skip in fp32, the
+# flash kernel skips the dense path's bf16 logits) and each drifts about
+# that far: 3.5x. The t*=3 fp32 purification: as the CIFAR slice's.
+ADM_EVAL_REL = {"float32": 2e-4, "bfloat16": 5e-2}
+ADM_PURIFY_REL = 1e-4
 
 
 def log(*a):
@@ -313,6 +356,234 @@ def phase_bwd_kernels(torch, dev, shapes):
     return records
 
 
+def build_adm(torch, dev):
+    """The full-width imagenet256_config ADM (bf16 torso) with seeded
+    random-normal weights, built on the meta device and filled from numpy."""
+    from diffpure_tpu_torch.models import ADMUNet, imagenet256_config
+    from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
+
+    with torch.device("meta"):
+        adm = ADMUNet(**imagenet256_config())
+    sd = seeded_normal_state_dict(adm, SEED + 10)
+    adm.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, assign=True)
+    n_params = sum(p.numel() for p in adm.parameters())
+    if n_params != ADM_PARAMS:
+        raise AssertionError(f"ADM has {n_params} params, expected {ADM_PARAMS}")
+    return adm.eval().requires_grad_(False).to(dev)
+
+
+def adm_census(torch, adm, x):
+    """(kernel wrapper, shape key) -> calls over one ADM evaluation at x's
+    batch, recorded at the four wrappers as the model calls them."""
+    from collections import Counter
+    from diffpure_tpu_torch.ops import flash_attention as fla
+    from diffpure_tpu_torch.ops import halo_conv as halo
+    from diffpure_tpu_torch.ops import tiled_groupnorm as tgn
+
+    seen = Counter()
+
+    def key(name, a, k):
+        if name == "group_stats":
+            return a[0].shape[1], a[0].shape[3]
+        if name == "gn_film_silu_apply":
+            return a[0].shape[1], a[0].shape[3], bool(a[3] if len(a) > 3 else
+                                                      k.get("apply_silu", True))
+        if name == "gn_silu_conv3x3_halo":
+            skip, w_proj = k.get("skip"), k.get("w_proj")
+            kind = "none" if skip is None else ("identity" if w_proj is None else "proj")
+            return (a[0].shape[1], a[0].shape[3], a[3].shape[3], kind,
+                    0 if skip is None else skip.shape[3])
+        return tuple(a[0].shape)  # flash_attention: (BH, T, D)
+
+    def recorder(mod, name):
+        orig = getattr(mod, name)
+
+        def rec(*a, **k):
+            seen[(name, key(name, a, k))] += 1
+            return orig(*a, **k)
+        rec.launches = 0
+        return orig, rec
+
+    patched = [(m, n, *recorder(m, n)) for m, n in (
+        (tgn, "group_stats"), (tgn, "gn_film_silu_apply"),
+        (halo, "gn_silu_conv3x3_halo"), (fla, "flash_attention"))]
+    try:
+        for m, n, _, rec in patched:
+            setattr(m, n, rec)
+        with torch.inference_mode():
+            adm(x, torch.full((x.shape[0],), 149, dtype=torch.int32, device=x.device))
+    finally:
+        for m, n, orig, _ in patched:
+            setattr(m, n, orig)
+    return dict(seen)
+
+
+def adm_cost(name, shape, esize):
+    """(FLOPs, bytes) one call of an ADM kernel must do and move at batch
+    ADM_N: each input read once, each output written once (weights in the
+    compute dtype; the affines, biases and stats partials in fp32)."""
+    if name == "flash_attention":
+        bh, t, d = shape
+        return 4 * bh * t * t * d, 4 * bh * t * d * esize
+    if name == "gn_silu_conv3x3_halo":
+        H, cin, cout, kind, cr = shape
+        m = ADM_N * H * H
+        k = 9 * cin + (cr if kind == "proj" else 0)
+        nbytes = (m * (cin + cout + (cr if kind != "none" else 0)) + k * cout) * esize \
+            + (2 * ADM_N * cin + cout) * 4
+        return 2 * m * cout * k, nbytes
+    H, C = shape[:2]
+    elems = ADM_N * H * H * C
+    if name == "group_stats":  # sum and sum of squares; (N, tiles, C) partials out
+        from diffpure_tpu_torch.ops.tiled_groupnorm import _rows_per_tile
+        tiles = -(-H // _rows_per_tile(ADM_N, H, C))
+        return 3 * elems, elems * esize + 2 * ADM_N * tiles * C * 4
+    return 6 * elems, 2 * elems * esize + 2 * ADM_N * C * 4  # gn_film_silu_apply
+
+
+def phase_adm_kernels(torch, dev, census):
+    """Each 256-px kernel against its plain version on the card at every
+    census shape, bf16 and fp32, seeded inputs; per-shape records with
+    kernel, plain (and for flash attention the library call's) times and
+    the bound."""
+    import numpy as np
+    import torch.nn.functional as F
+    from diffpure_tpu_torch.ops import flash_attention as fla
+    from diffpure_tpu_torch.ops import halo_conv as halo
+    from diffpure_tpu_torch.ops import tiled_groupnorm as tgn
+
+    records = []
+    for i, ((name, shape), calls) in enumerate(sorted(census.items(), key=str)):
+        rng = np.random.default_rng(2000 + i)
+
+        def normal(*s, fan_in=None, scale=1.0, shift=0.0):
+            a = rng.standard_normal(s).astype(np.float32) * np.float32(scale)
+            if fan_in:
+                a /= np.float32(np.sqrt(fan_in))
+            return torch.from_numpy(a + np.float32(shift)).to(dev)
+
+        if name == "flash_attention":
+            bh, t, d = shape
+            q32, k32, v32 = normal(bh, t, d), normal(bh, t, d), normal(bh, t, d)
+        else:
+            H, C = shape[0], shape[1]
+            x32 = normal(ADM_N, H, H, C, shift=0.2)
+            A, B = normal(ADM_N, C, scale=0.3, shift=1.0), normal(ADM_N, C, scale=0.3)
+        if name == "group_stats":
+            gs, gb = normal(C, scale=0.1, shift=1.0), normal(C, scale=0.1)
+            fs, ft = normal(ADM_N, C, scale=0.1), normal(ADM_N, C, scale=0.1)
+        if name == "gn_silu_conv3x3_halo":
+            _, cin, cout, kind, cr = shape
+            w, b = normal(3, 3, cin, cout, fan_in=9 * cin), normal(cout, scale=0.1)
+            skip32 = None if kind == "none" else normal(ADM_N, H, H, cr)
+            wp = normal(cr, cout, fan_in=cr) if kind == "proj" else None
+        for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            esize = 2 if dtype_name == "bfloat16" else 4
+            lib = None
+            if name == "flash_attention":
+                q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+                sc = 1.0 / shape[2] ** 0.25
+                kern = lambda: fla.flash_attention(q, k, v, sc)  # noqa: E731
+                plain = lambda: fla._reference_attention(q, k, v, sc)  # noqa: E731
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, scale=shape[2] ** -0.5)
+                check = (kern, plain)
+            elif name == "group_stats":
+                x = x32.to(dtype)
+                kern = lambda: tgn.group_stats(x)  # noqa: E731
+                plain = lambda: tgn.group_sums_reference(x)  # noqa: E731
+                # the checked function: the per-(example, channel) affine
+                check = (lambda: tgn.group_stats_affine(x, gs, gb, 32, 1e-5, fs, ft),
+                         lambda: tgn.group_stats_affine_reference(x, gs, gb, 32, 1e-5, fs, ft))
+            elif name == "gn_film_silu_apply":
+                x = x32.to(dtype)
+                kern = lambda: tgn.gn_film_silu_apply(x, A, B, shape[2])  # noqa: E731
+                plain = lambda: tgn.gn_film_silu_apply_reference(x, A, B, shape[2])  # noqa: E731
+                check = (kern, plain)
+            else:
+                x = x32.to(dtype)
+                skip = None if skip32 is None else skip32.to(dtype)
+                pk = halo.pack_halo_weights(w, wp, dtype, dev)
+                kern = lambda: halo.gn_silu_conv3x3_halo(  # noqa: E731
+                    x, A, B, w, b, skip=skip, w_proj=wp, packed=pk)
+                plain = lambda: halo.gn_silu_conv3x3_reference(  # noqa: E731
+                    x, A, B, w, b, skip=skip, w_proj=wp)
+                check = (kern, plain)
+            got = check[0]()
+            torch.cuda.synchronize()
+            want = check[1]()
+            got, want = (got if isinstance(got, tuple) else (got,)), \
+                (want if isinstance(want, tuple) else (want,))
+            rels = [float((g.float() - w_.float()).abs().max() / w_.float().abs().max())
+                    for g, w_ in zip(got, want)]
+            err = max(float((g.float() - w_.float()).abs().max()) for g, w_ in zip(got, want))
+            ok = all(bool(torch.isfinite(g.float()).all()) for g in got) \
+                and max(rels) <= REL[dtype_name]
+            flops, nbytes = adm_cost(name, shape, esize)
+            t_ops = flops / PEAK_FLOPS[dtype_name]
+            t_bytes = nbytes / HBM_BYTES
+            big = flops > 1e11
+            reps, warm = (5, 1) if big and dtype_name == "float32" else (10, 2)
+            rec = dict(kernel=name, shape=list(shape), calls_per_eval=calls, dtype=dtype_name,
+                       max_abs_err=err, rel_err=max(rels), rel_tol=REL[dtype_name],
+                       ms=cuda_ms(torch, kern, reps, warm),
+                       plain_ms=cuda_ms(torch, plain, reps, warm),
+                       library_ms=None if lib is None else cuda_ms(torch, lib, reps, warm),
+                       flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes", ok=ok)
+            records.append(rec)
+            log(f"  {name:20s} {str(shape):32s} x{calls:<2d} {dtype_name:8s} rel err "
+                f"{max(rels):.2e} <= {REL[dtype_name]:.0e} kernel {rec['ms']:.4f} ms plain "
+                f"{rec['plain_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms"
+                + ("" if lib is None else f" library {rec['library_ms']:.4f} ms")
+                + f" {'ok' if ok else 'FAIL'}")
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} 256-px kernel checks failed: {bad}")
+    return records
+
+
+def profile_adm(torch, adm, dev, evals=3):
+    """torch.profiler over ``evals`` warm ADM evaluations (batch ADM_N,
+    bf16): device time by kernel family, and the device's idle share of
+    the window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(ADM_N, 256, 256, 3, device=dev)
+    t = torch.full((ADM_N,), 149, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        for _ in range(2):
+            adm(x, t)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            for _ in range(evals):
+                adm(x, t)
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t0) * 1e3
+    families = (("halo conv", "halo_"), ("group stats", "stats_kernel"),
+                ("GN apply", "apply_kernel"), ("flash attention", "flash_"),
+                ("convs and matmuls (cuDNN / cuBLAS)", ("conv", "gemm", "xmma", "cutlass",
+                                                         "sm90", "implicit")),
+                ("elementwise", "elementwise"), ("reductions", "reduce"))
+    by, kernels = {}, []
+    for e in prof.key_averages():
+        # the kernels' own events (the CPU ops that launched them carry
+        # their time again)
+        dev_us = getattr(e, "self_device_time_total", 0) or 0
+        if not str(e.device_type).endswith("CUDA") or dev_us <= 0:
+            continue
+        kernels.append((e.key, dev_us / 1e3 / evals, e.count // evals))
+        fam = next((f for f, keys in families if any(
+            k in e.key for k in ((keys,) if isinstance(keys, str) else keys))), "other")
+        by[fam] = by.get(fam, 0.0) + dev_us / 1e3 / evals
+    busy = sum(by.values())
+    kernels.sort(key=lambda r: -r[1])
+    return dict(wall_ms_per_eval=wall_ms / evals, device_ms_per_eval=busy,
+                idle_share=max(0.0, 1.0 - busy * evals / wall_ms), by_family=by,
+                top_kernels=kernels[:25])
+
+
 def input_grad(torch, model, x01, y, noise):
     """d/dx of the summed cross-entropy of model(x01, noise) (the APGD-CE
     objective); returns (gradient, logits)."""
@@ -402,8 +673,11 @@ class FixedNoise:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--stop-after", choices=("2b",), default=None,
+    ap.add_argument("--stop-after", choices=("2b", "2c"), default=None,
                     help="end after this phase (no result line)")
+    ap.add_argument("--profile-adm", action="store_true",
+                    help="after phase 1, profile warm ImageNet ADM evaluations "
+                         "(batch 4, bf16) and end (no result line)")
     args = ap.parse_args()
     import torch
 
@@ -450,6 +724,17 @@ def main() -> int:
     if build_log.exists():
         (OUT / "build.log").write_text(build_log.read_text())
     phase_done("1")
+    if args.profile_adm:
+        log(f"== profile: ImageNet ADM evaluations, batch {ADM_N}, bf16")
+        prof = profile_adm(torch, build_adm(torch, dev), dev)
+        (OUT / "profile_adm.json").write_text(json.dumps(dict(card=smi, **prof), indent=1))
+        log(f"  wall {prof['wall_ms_per_eval']:.2f} ms, device {prof['device_ms_per_eval']:.2f} "
+            f"ms per evaluation, idle share {prof['idle_share']:.3f} on {smi}")
+        for fam, ms in sorted(prof["by_family"].items(), key=lambda kv: -kv[1]):
+            log(f"  {fam:38s} {ms:8.3f} ms")
+        for name, ms, calls in prof["top_kernels"]:
+            log(f"  {ms:8.3f} ms x{calls:<4d} {name[:100]}")
+        return 3
 
     # ---- phase 2 ------------------------------------------------------------
     log("== phase 2: kernel against plain at the main-path shapes, batch 8")
@@ -473,7 +758,28 @@ def main() -> int:
     if args.stop_after == "2b":
         log("stopped after phase 2b as asked (partial run)")
         return 3
+
+    # ---- phase 2c -----------------------------------------------------------
+    log(f"== phase 2c: 256-px kernels against plain at the ImageNet ADM's shapes, "
+        f"batch {ADM_N}")
+    adm = build_adm(torch, dev)
+    x256 = torch.from_numpy(rng.standard_normal((ADM_N, 256, 256, 3)).astype(np.float32))
+    census = adm_census(torch, adm, x256.to(dev))
+    adm_per_eval = {k: sum(c for (n, _), c in census.items() if n == k) for k in ADM_KERNELS}
+    log(f"  launches per evaluation: {adm_per_eval}; {len(census)} shapes")
+    if min(adm_per_eval.values()) == 0:
+        raise AssertionError(f"a 256-px kernel is off the ADM's path: {adm_per_eval}")
+    adm_records = phase_adm_kernels(torch, dev, census)
+    phase_done("2c")
+    (OUT / "result.json").write_text(json.dumps(dict(
+        card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
+        shapes=records, bwd_shapes=bwd_records, adm_shapes=adm_records,
+        adm_per_eval=adm_per_eval, phase_s=phase_s), indent=1))
+    if args.stop_after == "2c":
+        log("stopped after phase 2c as asked (partial run)")
+        return 3
     zero_bwd = {k: 0 for k in BWD_KERNELS}
+    zero_adm = {k: 0 for k in ADM_KERNELS}
 
     # ---- phase 3 ------------------------------------------------------------
     log("== phase 3: DefendedModel, t*=100, bf16 NCSN++ + WRN-28-10, batch 8")
@@ -500,7 +806,7 @@ def main() -> int:
         runs.append(dict(wall_s=wall, images_per_s=N / wall, counts=counts))
         log(f"run {run}: {wall:.3f} s, {N / wall:.3f} images/s, accuracy {acc:.3f} "
             f"(random weights), launches {counts}")
-        want = {**{k: v[2] * EVALS for k, v in KERNELS.items()}, **zero_bwd}
+        want = {**{k: v[2] * EVALS for k, v in KERNELS.items()}, **zero_bwd, **zero_adm}
         if counts != want:
             raise AssertionError(f"launch counts {counts} != {want}")
     out = logits[-1]
@@ -547,7 +853,8 @@ def main() -> int:
         dmg = DefendedModel(score, clf, PurifyConfig(t=EVALS, grad_mode=mode), log_every=0)
         fwd, bwd = GRAD_EVALS[mode]
         want = {**{k: v[2] * EVALS * fwd for k, v in KERNELS.items()},
-                **{k: KERNELS[v[2]][2] * EVALS * bwd for k, v in BWD_KERNELS.items()}}
+                **{k: KERNELS[v[2]][2] * EVALS * bwd for k, v in BWD_KERNELS.items()},
+                **zero_adm}
         for run in ("cold", "warm"):
             reset_launch_counts()
             torch.cuda.synchronize()
@@ -638,10 +945,91 @@ def main() -> int:
         raise AssertionError("x_adv leaves the eps-ball or [0, 1]")
     if not all(0.0 <= a <= 1.0 for a in accs):
         raise AssertionError(f"robust accuracies {accs} are not fractions")
-    idle = [k for k, v in attack_counts.items() if v == 0]
+    idle = [k for k, v in attack_counts.items() if v == 0 and k not in ADM_KERNELS]
     if idle:
         raise AssertionError(f"kernels of the attack path never launched: {idle}")
     phase_done("7")
+
+    # ---- phase 8 ------------------------------------------------------------
+    log(f"== phase 8: ImageNet DefendedModel(resize_to=256), guided-diffusion t*={ADM_EVALS}, "
+        f"bf16 ADM + ResNet-50, batch {ADM_N}")
+    from diffpure_tpu_torch.classifiers import get_classifier
+    from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
+    rn50 = get_classifier("imagenet-resnet50").eval()
+    rn50.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in
+                          seeded_normal_state_dict(rn50, SEED + 11).items()})
+    rn50.requires_grad_(False).to(dev)
+    adm.dtype = torch.bfloat16
+    guided = dict(score_type="guided_diffusion", grad_mode="none")
+    dm8 = DefendedModel(adm, rn50, PurifyConfig(t=ADM_EVALS, **guided), log_every=0,
+                        resize_to=256)
+    x224 = torch.from_numpy(rng.uniform(size=(ADM_N, 224, 224, 3)).astype(np.float32)).to(dev)
+    want8 = {**{k: 0 for k in KERNELS}, **zero_bwd,
+             **{k: v * ADM_EVALS for k, v in adm_per_eval.items()}}
+    adm_runs = []
+    for run in ("cold", "warm"):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with torch.inference_mode():
+            logits8 = dm8(x224, SEED + 12)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts8 = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        adm_runs.append(dict(run=run, wall_s=wall, images_per_s=ADM_N / wall,
+                             counts=counts8, peak_gib=peak))
+        log(f"  {run}: {wall:.3f} s, {ADM_N / wall:.4f} images/s on {smi}; peak device "
+            f"memory {peak:.2f} GiB; launches {counts8}")
+        if counts8 != want8:
+            raise AssertionError(f"launch counts {counts8} != {want8}")
+        if tuple(logits8.shape) != (ADM_N, 1000) or not bool(torch.isfinite(logits8).all()):
+            raise AssertionError(f"bad logits: shape {tuple(logits8.shape)}")
+    adm_counts = adm_runs[0]["counts"]
+    log(f"ImageNet slice (warm run): {adm_runs[1]['images_per_s']:.4f} images/s on {smi}")
+    phase_done("8")
+
+    # ---- phase 9 ------------------------------------------------------------
+    log("== phase 9: full-width ADM evaluation (batch 1) and t*=3 fp32 purification, "
+        "kernels (GPU) against plain (CPU)")
+    x9 = torch.from_numpy(rng.standard_normal((1, 256, 256, 3)).astype(np.float32) * 0.5)
+    t9 = torch.tensor([149], dtype=torch.int32)
+    x9p = torch.from_numpy(rng.uniform(size=(1, 256, 256, 3)).astype(np.float32))
+    cfg9 = PurifyConfig(t=3, **guided)
+    dtypes9 = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+    card9, cpu9 = {}, {}
+    for where, out9, device in (("card", card9, dev), ("cpu", cpu9, torch.device("cpu"))):
+        if where == "cpu":
+            adm.cpu()
+        t0 = time.time()
+        with torch.inference_mode():
+            for dtype_name, dtype in dtypes9:
+                adm.dtype = dtype
+                out9[dtype_name] = adm(x9.to(device), t9.to(device)).float().cpu()
+            adm.dtype = torch.float32
+            out9["purify"] = DefendedModel(adm, rn50, cfg9, log_every=0).purify(
+                x9p.to(device), FixedNoise(SEED + 13)).cpu()
+        log(f"  {where}: {time.time() - t0:.1f} s")
+    adm_checks = {}
+    for what, bound in (("float32", ADM_EVAL_REL["float32"]),
+                        ("bfloat16", ADM_EVAL_REL["bfloat16"]), ("purify", ADM_PURIFY_REL)):
+        got, want = card9[what], cpu9[what]
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        ok = bool(torch.isfinite(got).all()) and err <= bound * scale
+        adm_checks[what] = dict(max_abs_err=err, rel_err=err / scale, rel_tol=bound, ok=ok)
+        log(f"  {what:8s}: max |card - cpu| {err:.3e} (rel {err / scale:.2e} <= {bound:.0e}) "
+            f"{'ok' if ok else 'FAIL'}")
+    # how far each side's bf16 evaluation lies from the CPU's fp32 one
+    for where, out9 in (("card", card9), ("cpu", cpu9)):
+        gap = float((out9["bfloat16"] - cpu9["float32"]).abs().max()
+                    / cpu9["float32"].abs().max())
+        adm_checks[f"{where}_bf16_vs_cpu_fp32"] = gap
+        log(f"  {where} bf16 against CPU fp32: rel {gap:.2e}")
+    bad = [k for k, v in adm_checks.items() if isinstance(v, dict) and not v["ok"]]
+    if bad:
+        raise AssertionError(f"ImageNet card against CPU: {bad} disagree")
+    phase_done("9")
 
     # ---- report -------------------------------------------------------------
     kernels = []
@@ -662,13 +1050,32 @@ def main() -> int:
             bound_ms=bound, bound_by=bound_by,
             # no single PyTorch call computes any of these blocks
             library_ms=None))
+    for name, (source, replaces) in ADM_KERNELS.items():
+        # per ADM evaluation at batch 4, bf16: the kernel's calls at each shape
+        mine = [r for r in adm_records if r["kernel"] == name and r["dtype"] == "bfloat16"]
+        by = {"operations": 0.0, "bytes": 0.0}
+        for r in mine:
+            by[r["bound_by"]] += r["bound_ms"] * r["calls_per_eval"]
+        lib_ms = [r["library_ms"] for r in mine]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=adm_counts[name],  # the ImageNet serving path (phase 8)
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=sum(r["ms"] * r["calls_per_eval"] for r in mine),
+            plain_ms=sum(r["plain_ms"] * r["calls_per_eval"] for r in mine),
+            bound_ms=sum(by.values()), bound_by=max(by, key=by.get),
+            # F.scaled_dot_product_attention for the flash kernel; no single
+            # PyTorch call computes the other three
+            library_ms=None if None in lib_ms else sum(
+                m * r["calls_per_eval"] for m, r in zip(lib_ms, mine))))
     (OUT / "result.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
         shapes=records, bwd_shapes=bwd_records, slice_runs=runs, slice_checks=slice_checks,
         grad_runs=grad_runs, grad_checks=grad_checks,
         attack=dict(seconds=attack_s, counts=attack_counts, classifier_robust_acc=accs[0],
                     defended_robust_acc=accs[1], max_dist=dist),
-        phase_s=phase_s, kernels=kernels), indent=1))
+        adm_shapes=adm_records, adm_per_eval=adm_per_eval, adm_runs=adm_runs,
+        adm_checks=adm_checks, phase_s=phase_s, kernels=kernels), indent=1))
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

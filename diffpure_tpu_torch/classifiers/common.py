@@ -26,3 +26,16 @@ class BatchNormInference(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight
         return x * inv + (self.bias - self.running_mean * inv)
+
+
+# the ImageNet normalisation of the torchvision classifiers
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def normalize(x: Tensor, mean, std) -> Tensor:
+    """(x - mean) / std with per-channel constants over NHWC (port of
+    diffpure_tpu/classifiers/common.py:36)."""
+    m = torch.tensor(mean, dtype=x.dtype, device=x.device)
+    s = torch.tensor(std, dtype=x.dtype, device=x.device)
+    return (x - m) / s

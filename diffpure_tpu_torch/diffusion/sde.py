@@ -51,6 +51,13 @@ class VPSDE:
         std = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * lmc), min=0.0))
         return mean, std
 
+    def alphas_cumprod_cont(self, t):
+        """Continuous alpha-bar exp(-1/2 (bmax - bmin) t^2 - bmin t)
+        (ref runners/diffpure_sde.py:76)."""
+        t = torch.as_tensor(t)
+        return torch.exp(-0.5 * (self.beta_max - self.beta_min) * t ** 2
+                         - self.beta_min * t)
+
     @property
     def discrete_betas(self) -> np.ndarray:
         return np.linspace(self.beta_min / self.N, self.beta_max / self.N,

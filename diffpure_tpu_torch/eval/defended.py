@@ -2,8 +2,10 @@
 (port of diffpure_tpu/eval/defended.py:35), and the classifier-only
 ``UndefendedModel`` (:114).
 
-[0, 1] NHWC in -> [-1, 1] -> forward-diffuse and reverse-integrate ->
-[0, 1] -> classifier logits. Every call takes its own noise (an integer
+[0, 1] NHWC in -> (ImageNet: bilinear resize to ``resize_to``) -> [-1, 1]
+-> forward-diffuse and reverse-integrate -> [0, 1] -> classifier logits.
+The purified image goes to the classifier at the purifier's size, as in
+JAX. Every call takes its own noise (an integer
 seed or a noise source, see purify/runners.py): the defence is randomised
 by design. Attacks differentiate through it as ``purify_cfg.grad_mode``
 says; under ``torch.inference_mode()`` it runs forward only.
@@ -12,14 +14,23 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from diffpure_tpu_torch.purify.config import PurifyConfig
 from diffpure_tpu_torch.purify.runners import Noise, purify
 
 Tensor = torch.Tensor
+
+
+def bilinear_resize(x: Tensor, size: int) -> Tensor:
+    """NHWC images to size x size, as jax.image.resize(..., 'bilinear')
+    upsamples (half-pixel centres; its antialiasing acts only when
+    downsampling)."""
+    return F.interpolate(x.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
+                         align_corners=False, antialias=False).permute(0, 2, 3, 1).contiguous()
 
 
 @dataclasses.dataclass
@@ -31,12 +42,15 @@ class DefendedModel:
     purify_cfg: PurifyConfig
     log_every: int = 5
     tag: str = "defended"
+    resize_to: Optional[int] = None  # ImageNet: classifier 224, purifier 256
 
     def __post_init__(self):
         self.reset_counter()
 
     def purify(self, x01: Tensor, noise: Noise) -> Tensor:
         """[0, 1] -> purified [0, 1]."""
+        if self.resize_to is not None and x01.shape[1] != self.resize_to:
+            x01 = bilinear_resize(x01, self.resize_to)
         x = (x01 - 0.5) * 2.0
         x_pure = purify(self.score_model, x, noise, self.purify_cfg)
         return (x_pure + 1.0) * 0.5

@@ -1,2 +1,3 @@
-from diffpure_tpu_torch.models.factories import ncsnpp_from_config
+from diffpure_tpu_torch.models.adm_unet import ADMUNet, imagenet256_config
+from diffpure_tpu_torch.models.factories import create_model, ncsnpp_from_config
 from diffpure_tpu_torch.models.ncsnpp import NCSNpp

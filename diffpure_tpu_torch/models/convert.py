@@ -1,13 +1,14 @@
 """flax params -> PyTorch state dict: the inverse of
 diffpure_tpu/models/convert.py (``_leaf`` :73, ``ncsnpp_key`` :107,
-``translate_ncsnpp`` :182), so weights held by the JAX package load into
-the port with ``load_state_dict(strict=True)``.
+``translate_ncsnpp`` :182, ``translate_adm`` :195), so weights held by the
+JAX package load into the port with ``load_state_dict(strict=True)``.
 
 Leaves: conv kernel HWIO -> weight OIHW; Dense kernel (in, out) -> weight
 (out, in); norm ``scale`` -> ``weight``; NIN ``W``/``b`` unchanged.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
@@ -61,4 +62,39 @@ def ncsnpp_state_dict_from_flax(params: Mapping, *, sigma_min: float = 0.01,
         sd[".".join(["all_modules", head[1:], *mods, name])] = to_tensor(arr)
     sd["sigmas"] = torch.tensor(get_sigmas(sigma_min, sigma_max, num_scales),
                                 dtype=torch.float32)
+    return sd
+
+
+_MERGED = re.compile(r"^(.+?)((?:_\d+)+)$")
+
+
+def split_module(name: str):
+    """'input_blocks_4_0' -> ['input_blocks', '4', '0']: undo the JAX
+    translators' merge of a module name with the digits after it."""
+    m = _MERGED.match(name)
+    if m is None:
+        return [name]
+    return [m.group(1)] + m.group(2).lstrip("_").split("_")
+
+
+# ADM modules that are conv1d in guided-diffusion and Dense in flax
+_CONV1D = ("qkv", "proj_out")
+
+
+def adm_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ADM params -> the port's (guided-diffusion's) state dict; the
+    inverse of ``translate_adm`` (diffpure_tpu/models/convert.py:195).
+    ``qkv``/``proj_out`` Dense kernels (in, out) become conv1d (out, in, 1),
+    ``label_emb/embedding`` becomes ``label_emb.weight``."""
+    sd = {}
+    for path, v in flatten_params(params):
+        *mods, leaf = path
+        key = ".".join(p for m in mods for p in split_module(m))
+        if leaf == "embedding":
+            name, arr = "weight", v
+        elif leaf == "kernel" and v.ndim == 2 and mods[-1] in _CONV1D:
+            name, arr = "weight", v.transpose(1, 0)[:, :, None]
+        else:
+            name, arr = torch_leaf(leaf, v)
+        sd[f"{key}.{name}"] = to_tensor(arr)
     return sd

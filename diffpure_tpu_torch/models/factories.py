@@ -1,7 +1,12 @@
-"""Model construction from the YAML configs (port of
-diffpure_tpu/models/factories.py:259 ncsnpp_from_config)."""
+"""Model construction (port of diffpure_tpu/models/factories.py:50-98 and
+:259 ncsnpp_from_config)."""
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
+import torch
+
+from diffpure_tpu_torch.models.adm_unet import ADMUNet
 from diffpure_tpu_torch.models.ncsnpp import NCSNpp
 
 
@@ -38,3 +43,44 @@ def ncsnpp_from_config(config, dtype=None) -> NCSNpp:
         num_scales=g(m, "num_scales", 1000),
         dtype=dtype,
     )
+
+
+def channel_mult_for_image_size(image_size: int) -> Tuple[float, ...]:
+    """ref script_util.py:156-168."""
+    mults = {512: (0.5, 1, 1, 2, 2, 4, 4), 256: (1, 1, 2, 2, 4, 4),
+             128: (1, 1, 2, 3, 4), 64: (1, 2, 3, 4)}
+    if image_size not in mults:
+        raise ValueError(f"unsupported image size: {image_size}")
+    return mults[image_size]
+
+
+def create_model(image_size: int, num_channels: int, num_res_blocks: int,
+                 channel_mult: str = "", learn_sigma: bool = False,
+                 class_cond: bool = False, use_checkpoint: bool = False,
+                 attention_resolutions: str = "16", num_heads: int = 1,
+                 num_head_channels: int = -1, num_heads_upsample: int = -1,
+                 use_scale_shift_norm: bool = False, dropout: float = 0.0,
+                 resblock_updown: bool = False, use_fp16: bool = False,
+                 use_new_attention_order: bool = False,
+                 num_classes: Optional[int] = None) -> ADMUNet:
+    """ref script_util.py:138-192; ``use_fp16`` gives a bf16 torso. As in
+    JAX, ``use_flash`` is not passed, so a model built here never takes the
+    flash kernel (``imagenet256_config`` does). ``use_checkpoint`` is a
+    training-memory option with no effect on the eval forward."""
+    if channel_mult == "":
+        mult = channel_mult_for_image_size(image_size)
+    else:
+        mult = tuple(float(m) for m in channel_mult.split(","))
+    attention_ds = tuple(image_size // int(res)
+                         for res in attention_resolutions.split(","))
+    return ADMUNet(
+        image_size=image_size, in_channels=3, model_channels=num_channels,
+        out_channels=(6 if learn_sigma else 3), num_res_blocks=num_res_blocks,
+        attention_resolutions=attention_ds, dropout=dropout, channel_mult=mult,
+        num_classes=(num_classes if class_cond else None), num_heads=num_heads,
+        num_head_channels=num_head_channels,
+        num_heads_upsample=num_heads_upsample,
+        use_scale_shift_norm=use_scale_shift_norm,
+        resblock_updown=resblock_updown,
+        use_new_attention_order=use_new_attention_order,
+        dtype=torch.bfloat16 if use_fp16 else None)

@@ -52,6 +52,22 @@ def get_timestep_embedding(timesteps: Tensor, embedding_dim: int,
     return emb
 
 
+def adm_timestep_embedding(timesteps: Tensor, dim: int,
+                           max_period: int = 10000) -> Tensor:
+    """ADM sinusoidal embedding [cos, sin] with frequency factor 1/half, in
+    fp32 (port of diffpure_tpu/models/layers.py:117; ref
+    guided_diffusion/nn.py:110-128): another order and denominator than
+    NCSN++'s ``get_timestep_embedding``."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device) / half)
+    args = timesteps.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
 class NIN(nn.Module):
     """1x1 'network-in-network' with the reference's (in, out) weight ``W``
     (ref score_sde/models/layers.py:546-556)."""

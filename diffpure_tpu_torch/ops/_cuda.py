@@ -100,6 +100,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         F, F, P, P, P,                    # eps, oscale, h, qkv, att
         P, L, P, P]                       # ws, ws_elems, out, stream
     lib.diffpure_attnblock_fwd.restype = I
+    lib.diffpure_group_stats.argtypes = [
+        I, P, I, I, I, I, I, P, P, P]     # dtype, x, N, H, W, C, rows, sums, sqs, stream
+    lib.diffpure_group_stats.restype = I
+    lib.diffpure_gn_apply.argtypes = [
+        I, P, P, P, I, I, I, I, I, P, P]  # dtype, x, A, B, N, H, W, C, silu, out, stream
+    lib.diffpure_gn_apply.restype = I
+    lib.diffpure_halo_conv.argtypes = [
+        I, P, I, I, I, I, P, P,           # dtype, x, N, H, W, cin, A, B
+        P, P, P, I, P, I, P, P]           # w, bias, skip, cr, wproj, cout, out, stream
+    lib.diffpure_halo_conv.restype = I
+    lib.diffpure_flash_attention.argtypes = [
+        I, P, P, P, I, I, I, F, P, P]     # dtype, q, k, v, BH, T, D, sm_scale, out, stream
+    lib.diffpure_flash_attention.restype = I
     lib.diffpure_error_string.argtypes = [I]
     lib.diffpure_error_string.restype = ctypes.c_char_p
     return lib
@@ -140,6 +153,21 @@ def scratch(device, *nbytes: int):
     buf = torch.empty(total + 4 * SPLITK_WORKSPACE, device=device, dtype=torch.uint8)
     base = buf.data_ptr()
     return buf, [base + o for o in offsets], base + total
+
+
+def refuse_card_grad(what: str, *tensors) -> None:
+    """Raise where autograd would need the gradient of a forward-only kernel
+    on the card (the 256-px kernels: their backward is the next slice)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: the kernel's gradient on the card is not ported yet "
+            f"(ROADMAP, next slice: the ImageNet gradient path); run it under "
+            f"torch.no_grad() or torch.inference_mode()")
+
+
+def stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check_operand(t: torch.Tensor, name: str, device: torch.device,

@@ -1,8 +1,10 @@
 """Reverse VP-SDE purification (port of diffpure_tpu/purify/runners.py:66-141
 and the ``purify`` dispatcher :391, ``diffusion_type='sde'``).
 
-Images are NHWC in [-1, 1]. ``model_fn(x, t_labels)`` is the epsilon model
-(an ``NCSNpp``). Randomness comes from a noise source with the JAX
+Images are NHWC in [-1, 1]. ``model_fn(x, t_labels)`` is the epsilon model:
+an ``NCSNpp`` with ``score_type='score_sde'`` (continuous labels t*999), an
+``ADMUNet`` with ``score_type='guided_diffusion'`` (integer steps t*N,
+runners.py:45-63). Randomness comes from a noise source with the JAX
 runner's stream layout: purification round ``it`` draws t* from stream
 3*it, the forward-diffusion noise from 3*it + 1 and the Brownian increment
 of step i from (3*it + 2, i) (runners.py:114-117, em.py:42). An integer
@@ -22,7 +24,8 @@ from typing import Callable, Union
 import numpy as np
 import torch
 
-from diffpure_tpu_torch.diffusion.score import get_score_fn
+from diffpure_tpu_torch.diffusion.score import get_score_fn, \
+    make_guided_score_fn
 from diffpure_tpu_torch.diffusion.sde import VPSDE, batch_mul
 from diffpure_tpu_torch.purify.config import PurifyConfig
 from diffpure_tpu_torch.solvers.adjoint import sdeint_em_adjoint
@@ -82,14 +85,21 @@ def _sample_t(noise, it: int, cfg: PurifyConfig) -> int:
     return cfg.t + noise.t_offset(it, cfg.t_delta)
 
 
+def _make_score_fn(model_fn: ModelFn, cfg: PurifyConfig, sde: VPSDE):
+    """score(x, t) from the epsilon model, by ``cfg.score_type``
+    (runners.py:45-63)."""
+    if cfg.score_type == "guided_diffusion":
+        return make_guided_score_fn(model_fn, sde, cfg.learn_sigma)
+    if cfg.score_type == "score_sde":
+        return get_score_fn(sde, model_fn, continuous=True)
+    raise NotImplementedError(f"unknown score_type {cfg.score_type!r}")
+
+
 def purify_sde(model_fn: ModelFn, x: Tensor, noise: Noise,
                cfg: PurifyConfig) -> Tensor:
     """Integrate the reverse VP-SDE in flipped time t' = 1 - s from
     1 - t*/1000 to 1 - 1e-5 with Euler-Maruyama:
     drift'(x, t') = -[f(x, s) - g(s)^2 score(x, s)], diffusion' = g(s)."""
-    if cfg.score_type != "score_sde":
-        raise NotImplementedError(
-            f"score_type={cfg.score_type!r} waits for ROADMAP Slice 3 item 15")
     if cfg.grad_mode == "reversible":
         raise NotImplementedError(
             "grad_mode='reversible' (reversible Heun) waits for ROADMAP "
@@ -98,7 +108,7 @@ def purify_sde(model_fn: ModelFn, x: Tensor, noise: Noise,
         raise ValueError(f"unknown grad_mode {cfg.grad_mode!r}")
     noise = as_noise(noise)
     sde = VPSDE(beta_min=cfg.beta_min, beta_max=cfg.beta_max, N=cfg.N)
-    score_fn = get_score_fn(sde, model_fn, continuous=True)
+    score_fn = _make_score_fn(model_fn, cfg, sde)
 
     def drift(xx: Tensor, t_flip: Tensor) -> Tensor:
         s = 1.0 - t_flip

@@ -27,6 +27,10 @@ print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'diffp
 GRADIENT_PATH = ["diffpure_tpu_torch.solvers.adjoint", "diffpure_tpu_torch.attacks.apgd",
                  "diffpure_tpu_torch.attacks.autoattack", "diffpure_tpu_torch.attacks.eot",
                  "diffpure_tpu_torch.attacks.losses", "diffpure_tpu_torch.eval.drivers"]
+# modules of the ImageNet-256 slice
+IMAGENET_PATH = ["diffpure_tpu_torch.models.adm_unet", "diffpure_tpu_torch.ops.tiled_groupnorm",
+                 "diffpure_tpu_torch.ops.halo_conv", "diffpure_tpu_torch.ops.flash_attention",
+                 "diffpure_tpu_torch.classifiers.resnet", "diffpure_tpu_torch.models.factories"]
 
 
 def _probe():
@@ -47,8 +51,14 @@ def test_gradient_path_modules_import_without_jax():
     assert missing == []
 
 
+def test_imagenet_path_modules_import_without_jax():
+    imported = _probe()[-2]
+    missing = [m for m in IMAGENET_PATH if repr(m) not in imported]
+    assert missing == []
+
+
 def test_no_jax_import_statement():
     pattern = re.compile(r"^\s*(import|from) (jax|flax|diffpure_tpu)\b", re.M)
-    offenders = [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")
-                 if pattern.search(p.read_text())]
+    files = [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]
+    offenders = [str(p.relative_to(REPO)) for p in files if pattern.search(p.read_text())]
     assert offenders == []

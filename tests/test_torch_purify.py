@@ -141,6 +141,6 @@ def test_unported_paths_raise():
     x = torch.zeros(1, 8, 8, 3)
     for cfg in (PurifyConfig(diffusion_type="ode"),
                 PurifyConfig(grad_mode="reversible"),
-                PurifyConfig(score_type="guided_diffusion")):
+                PurifyConfig(diffusion_type="ddpm")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             purify(lambda xx, t: xx, x, 0, cfg)
