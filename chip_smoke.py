@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CIFAR-10 and ImageNet-256 defences once on one
-NVIDIA GPU.
+"""Drive the PyTorch port's CIFAR-10 (NCSN++ and DDPM) and ImageNet-256
+defences once on one NVIDIA GPU.
 
     python3 chip_smoke.py          (from the root of the repository)
 
@@ -43,15 +43,30 @@ Phases, each fatal on failure:
      inference_mode, cold then warm; the launch counters must read 150 x the
      census for the four 256-px kernels and 0 for the CIFAR ones;
   9. one full-width ADM evaluation at batch 1, fp32 and bf16, and a t*=3
-     fp32 purification, kernels (card) against plain (CPU), same noise.
+     fp32 purification, kernels (card) against plain (CPU), same noise;
+  2d. (run after phase 2c) GroupNorm+SiLU (#10) against its plain version
+     at every shape the full-width score_sde DDPM gives it at batch 8 (a
+     census of its GNSiLU calls over one evaluation), and fused bias +
+     leaky ReLU (#11, on no path) at the DDPM's feature-map shapes and an
+     odd one, bf16 and fp32; kernel, plain and bound times;
+  10. the DDPM slice: DefendedModel (full-width DDPM, fp32, 35,218,947
+     parameters + WRN-28-10) on 8 seeded images at t*=100 through
+     get_accuracy under inference_mode, cold then warm; the launch
+     counters must read 100 x the census for #10 and the attention block,
+     0 for every other kernel;
+  11. the t*=5 DDPM purification, and one evaluation of NCSN++ with
+     resblock_type='ddpm' (2 blocks per level, fp32 and bf16), kernels
+     (card) against plain (CPU), same noise.
 
 Needs the CUDA toolkit (nvcc) and one card; exits non-zero without them.
 Writes details (per-shape records, the compiler's report) to
 chip_smoke_out/. The second-to-last line of stdout is the kernels' JSON
-record, the last the device JSON. ``--stop-after 2b`` or ``2c`` ends after
-that phase (a short first run of changed kernels; prints no result line).
-``--profile-adm`` profiles the ImageNet ADM's evaluation after phase 1 and
-ends (device time by kernel family, idle share; profile_adm.json).
+record, the last the device JSON. ``--stop-after 2b``, ``2c`` or ``2d`` ends
+after that phase (a short first run of changed kernels; prints no result
+line).
+``--profile-adm`` (``--profile-ddpm``) profiles the ImageNet ADM's (the
+score_sde DDPM's) evaluation after phase 1 and ends (device time by kernel
+family, idle share; profile_adm.json, profile_ddpm.json).
 """
 from __future__ import annotations
 
@@ -153,6 +168,28 @@ ADM_KERNELS = {
 # that far: 3.5x. The t*=3 fp32 purification: as the CIFAR slice's.
 ADM_EVAL_REL = {"float32": 2e-4, "bfloat16": 5e-2}
 ADM_PURIFY_REL = 1e-4
+# The score_sde DDPM slice: the full-width CIFAR-10 DDPM (fp32; the widths
+# of score_sde's configs/vp/ddpm/cifar10_continuous.py) + WRN-28-10 at
+# t*=100, batch 8.
+DDPM_PARAMS = 35_218_947
+# kernel wrapper -> (source, TPU kernel it replaces)
+DDPM_KERNELS = {
+    "group_norm_silu_fused": ("diffpure_tpu_torch/csrc/group_norm_silu.cu",
+                              "diffpure_tpu/ops/groupnorm.py:81"),
+    "fused_leaky_relu": ("diffpure_tpu_torch/csrc/fused_act.cu",
+                         "diffpure_tpu/ops/fused_act.py:47"),
+}
+# #11 lies on no path: it is held at the DDPM's feature-map shapes, without
+# a bias at one, and at a shape whose element and channel counts are no
+# multiple of the 16-byte vector width. (shape, bias)
+FLR_CASES = (((N, 32, 32, 128), True), ((N, 16, 16, 256), True), ((N, 16, 16, 256), False),
+             ((N, 8, 8, 512), True), ((N, 4, 4, 256), True), ((7, 9, 11, 13), True))
+# Phase 11, card against CPU, max abs error over max |CPU|: the t*=5 fp32
+# DDPM purification as the CIFAR slice's; one NCSN++ 'ddpm' evaluation as
+# phase 9's ADM one (fp32: summation order; bf16: card and CPU round at
+# other places, #10 once where the plain chain rounds before the SiLU).
+DDPM_PURIFY_REL = 1e-4
+NCSN_DDPM_REL = {"float32": 2e-4, "bfloat16": 5e-2}
 
 
 def log(*a):
@@ -543,26 +580,25 @@ def phase_adm_kernels(torch, dev, census):
     return records
 
 
-def profile_adm(torch, adm, dev, evals=3):
-    """torch.profiler over ``evals`` warm ADM evaluations (batch ADM_N,
-    bf16): device time by kernel family, and the device's idle share of
-    the window's wall time."""
+def profile_eval(torch, model, x, t, evals=3):
+    """torch.profiler over ``evals`` warm evaluations model(x, t): device
+    time by kernel family, and the device's idle share of the window's
+    wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    x = torch.randn(ADM_N, 256, 256, 3, device=dev)
-    t = torch.full((ADM_N,), 149, dtype=torch.int32, device=dev)
     with torch.inference_mode():
         for _ in range(2):
-            adm(x, t)
+            model(x, t)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
             for _ in range(evals):
-                adm(x, t)
+                model(x, t)
             torch.cuda.synchronize()
             wall_ms = (time.time() - t0) * 1e3
     families = (("halo conv", "halo_"), ("group stats", "stats_kernel"),
                 ("GN apply", "apply_kernel"), ("flash attention", "flash_"),
+                ("GN+SiLU (#10)", "gn_silu_kernel"), ("attention block (#3)", "attn_kernel"),
                 ("convs and matmuls (cuDNN / cuBLAS)", ("conv", "gemm", "xmma", "cutlass",
                                                          "sm90", "implicit")),
                 ("elementwise", "elementwise"), ("reductions", "reduce"))
@@ -582,6 +618,110 @@ def profile_adm(torch, adm, dev, evals=3):
     return dict(wall_ms_per_eval=wall_ms / evals, device_ms_per_eval=busy,
                 idle_share=max(0.0, 1.0 - busy * evals / wall_ms), by_family=by,
                 top_kernels=kernels[:25])
+
+
+def build_ddpm(torch, dev):
+    """The full-width score_sde DDPM (fp32) from the model registry, with
+    seeded random-normal weights, built on the meta device."""
+    from diffpure_tpu_torch.models.registry import create_model
+    from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
+
+    with torch.device("meta"):
+        ddpm = create_model("ddpm")
+    sd = seeded_normal_state_dict(ddpm, SEED + 20)
+    ddpm.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, assign=True)
+    n_params = sum(p.numel() for p in ddpm.parameters())
+    if n_params != DDPM_PARAMS:
+        raise AssertionError(f"DDPM has {n_params} params, expected {DDPM_PARAMS}")
+    return ddpm.eval().requires_grad_(False).to(dev)
+
+
+def ddpm_census(torch, ddpm, x):
+    """(H, C) -> calls over one DDPM evaluation at x's batch, of GNSiLU (#10)
+    and of the attention block (#3), from forward pre-hooks; and the
+    evaluation's FLOPs: the convs and matmuls PyTorch runs, as
+    FlopCounterMode counts them, plus the attention blocks' (block_cost)."""
+    from collections import Counter
+    from torch.utils.flop_counter import FlopCounterMode
+    from diffpure_tpu_torch.models.layers import AttnBlockpp, GNSiLU
+
+    gn, attn = Counter(), Counter()
+
+    def hook(mod, args):
+        h = args[0]
+        (attn if isinstance(mod, AttnBlockpp) else gn)[(h.shape[1], h.shape[3])] += 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in ddpm.modules()
+               if isinstance(m, (GNSiLU, AttnBlockpp))]
+    try:
+        with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+            ddpm(x, torch.full((x.shape[0],), 99.9, device=x.device))
+    finally:
+        for h in handles:
+            h.remove()
+    flops = counter.get_total_flops() + sum(
+        n * block_cost("fused_attnblock", "none", H, C, 0, C, x.shape[0], 4)[0]
+        for (H, C), n in attn.items())
+    return dict(gn), dict(attn), flops
+
+
+def phase_gn_act_kernels(torch, dev, gn_shapes):
+    """#10 at every (H, C) of the DDPM census, batch N, and #11 at
+    FLR_CASES, each against its plain version on the card, bf16 and fp32;
+    per-shape records with kernel, plain and bound times. Both compute in
+    fp32 (FMA units) whatever the dtype; #10 does ~10 operations per
+    element (sum, squared deviation, normalise, affine, SiLU), #11 3."""
+    import numpy as np
+    from diffpure_tpu_torch.ops import fused_act, groupnorm
+
+    cases = [("group_norm_silu_fused", (N, H, H, C), True, calls)
+             for (H, C), calls in sorted(gn_shapes.items())]
+    cases += [("fused_leaky_relu", shape, bias, 0) for shape, bias in FLR_CASES]
+    records = []
+    for i, (name, shape, with_bias, calls) in enumerate(cases):
+        rng = np.random.default_rng(3000 + i)
+        C = shape[-1]
+        x32 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 2 + 0.5).to(dev)
+        s = torch.from_numpy(1 + 0.1 * rng.standard_normal(C).astype(np.float32)).to(dev)
+        b = torch.from_numpy(0.1 * rng.standard_normal(C).astype(np.float32)).to(dev)
+        for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            esize = 2 if dtype_name == "bfloat16" else 4
+            x = x32.to(dtype)
+            elems = x.numel()
+            if name == "group_norm_silu_fused":
+                kern = lambda: groupnorm.group_norm_silu_fused(x, s, b, 32, 1e-6)  # noqa: E731
+                plain = lambda: groupnorm.group_norm_silu_fused_reference(  # noqa: E731
+                    x, s, b, 32, 1e-6)
+                flops, nbytes = 10 * elems, 2 * elems * esize + 2 * C * 4
+            else:
+                bias = b.to(dtype) if with_bias else None
+                kern = lambda: fused_act.fused_leaky_relu(x, bias)  # noqa: E731
+                plain = lambda: fused_act.fused_leaky_relu_reference(x, bias)  # noqa: E731
+                flops = 3 * elems
+                nbytes = 2 * elems * esize + (C * esize if with_bias else 0)
+            got = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            ok = bool(torch.isfinite(got.float()).all()) and got.dtype == dtype \
+                and err <= REL[dtype_name] * scale
+            t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES
+            rec = dict(kernel=name, shape=list(shape), bias=with_bias, calls_per_eval=calls,
+                       dtype=dtype_name, max_abs_err=err, rel_err=err / scale,
+                       rel_tol=REL[dtype_name], ms=cuda_ms(torch, kern, 50, 5),
+                       plain_ms=cuda_ms(torch, plain, 50, 5), library_ms=None, flops=flops,
+                       bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes", ok=ok)
+            records.append(rec)
+            log(f"  {name:21s} {str(shape):18s} {'' if with_bias else 'no bias ':8s}"
+                f"x{calls:<2d} {dtype_name:8s} rel err {err / scale:.2e} <= "
+                f"{REL[dtype_name]:.0e} kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} "
+                f"ms bound {rec['bound_ms']:.4f} ms {'ok' if ok else 'FAIL'}")
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} GroupNorm+SiLU / leaky ReLU checks failed: {bad}")
+    return records
 
 
 def input_grad(torch, model, x01, y, noise):
@@ -673,11 +813,14 @@ class FixedNoise:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--stop-after", choices=("2b", "2c"), default=None,
+    ap.add_argument("--stop-after", choices=("2b", "2c", "2d"), default=None,
                     help="end after this phase (no result line)")
     ap.add_argument("--profile-adm", action="store_true",
                     help="after phase 1, profile warm ImageNet ADM evaluations "
                          "(batch 4, bf16) and end (no result line)")
+    ap.add_argument("--profile-ddpm", action="store_true",
+                    help="after phase 1, profile warm score_sde DDPM evaluations "
+                         "(batch 8, fp32) and end (no result line)")
     args = ap.parse_args()
     import torch
 
@@ -724,10 +867,19 @@ def main() -> int:
     if build_log.exists():
         (OUT / "build.log").write_text(build_log.read_text())
     phase_done("1")
-    if args.profile_adm:
-        log(f"== profile: ImageNet ADM evaluations, batch {ADM_N}, bf16")
-        prof = profile_adm(torch, build_adm(torch, dev), dev)
-        (OUT / "profile_adm.json").write_text(json.dumps(dict(card=smi, **prof), indent=1))
+    if args.profile_adm or args.profile_ddpm:
+        if args.profile_adm:
+            what, tag, n = "ImageNet ADM", "adm", ADM_N
+            model = build_adm(torch, dev)
+            x, t = (torch.randn(n, 256, 256, 3, device=dev),
+                    torch.full((n,), 149, dtype=torch.int32, device=dev))
+        else:
+            what, tag, n = "score_sde DDPM", "ddpm", N
+            model = build_ddpm(torch, dev)
+            x, t = torch.randn(n, 32, 32, 3, device=dev), torch.full((n,), 99.9, device=dev)
+        log(f"== profile: {what} evaluations, batch {n}, {'bf16' if tag == 'adm' else 'fp32'}")
+        prof = profile_eval(torch, model, x, t)
+        (OUT / f"profile_{tag}.json").write_text(json.dumps(dict(card=smi, **prof), indent=1))
         log(f"  wall {prof['wall_ms_per_eval']:.2f} ms, device {prof['device_ms_per_eval']:.2f} "
             f"ms per evaluation, idle share {prof['idle_share']:.3f} on {smi}")
         for fam, ms in sorted(prof["by_family"].items(), key=lambda kv: -kv[1]):
@@ -778,8 +930,33 @@ def main() -> int:
     if args.stop_after == "2c":
         log("stopped after phase 2c as asked (partial run)")
         return 3
+
+    # ---- phase 2d -----------------------------------------------------------
+    log(f"== phase 2d: GroupNorm+SiLU at the score_sde DDPM's shapes and fused bias + "
+        f"leaky ReLU, batch {N}")
+    ddpm = build_ddpm(torch, dev)
+    gn_census, attn_census, ddpm_flops = ddpm_census(torch, ddpm, x01 * 2 - 1)
+    log(f"  GNSiLU calls per evaluation: {sum(gn_census.values())} at {len(gn_census)} "
+        f"shapes {gn_census}; attention blocks {attn_census}; {ddpm_flops / 1e9:.2f} GFLOP "
+        f"per evaluation at batch {N}")
+    if not gn_census or not attn_census:
+        raise AssertionError("the DDPM's census found no GNSiLU or no attention block")
+    gn_act_records = phase_gn_act_kernels(torch, dev, gn_census)
+    ddpm_shapes = {kind: {f"{H}x{H}x{C}": n for (H, C), n in census.items()}
+                   for kind, census in (("gn_silu", gn_census), ("attention", attn_census))}
+    ddpm_shapes["flops_per_eval"] = ddpm_flops
+    phase_done("2d")
+    if args.stop_after == "2d":
+        (OUT / "result.json").write_text(json.dumps(dict(
+            card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
+            shapes=records, bwd_shapes=bwd_records, adm_shapes=adm_records,
+            gn_act_shapes=gn_act_records, ddpm_census=ddpm_shapes, phase_s=phase_s),
+            indent=1))
+        log("stopped after phase 2d as asked (partial run)")
+        return 3
     zero_bwd = {k: 0 for k in BWD_KERNELS}
     zero_adm = {k: 0 for k in ADM_KERNELS}
+    zero_ddpm = {k: 0 for k in DDPM_KERNELS}
 
     # ---- phase 3 ------------------------------------------------------------
     log("== phase 3: DefendedModel, t*=100, bf16 NCSN++ + WRN-28-10, batch 8")
@@ -806,7 +983,8 @@ def main() -> int:
         runs.append(dict(wall_s=wall, images_per_s=N / wall, counts=counts))
         log(f"run {run}: {wall:.3f} s, {N / wall:.3f} images/s, accuracy {acc:.3f} "
             f"(random weights), launches {counts}")
-        want = {**{k: v[2] * EVALS for k, v in KERNELS.items()}, **zero_bwd, **zero_adm}
+        want = {**{k: v[2] * EVALS for k, v in KERNELS.items()}, **zero_bwd, **zero_adm,
+                **zero_ddpm}
         if counts != want:
             raise AssertionError(f"launch counts {counts} != {want}")
     out = logits[-1]
@@ -854,7 +1032,7 @@ def main() -> int:
         fwd, bwd = GRAD_EVALS[mode]
         want = {**{k: v[2] * EVALS * fwd for k, v in KERNELS.items()},
                 **{k: KERNELS[v[2]][2] * EVALS * bwd for k, v in BWD_KERNELS.items()},
-                **zero_adm}
+                **zero_adm, **zero_ddpm}
         for run in ("cold", "warm"):
             reset_launch_counts()
             torch.cuda.synchronize()
@@ -945,7 +1123,8 @@ def main() -> int:
         raise AssertionError("x_adv leaves the eps-ball or [0, 1]")
     if not all(0.0 <= a <= 1.0 for a in accs):
         raise AssertionError(f"robust accuracies {accs} are not fractions")
-    idle = [k for k, v in attack_counts.items() if v == 0 and k not in ADM_KERNELS]
+    idle = [k for k, v in attack_counts.items()
+            if v == 0 and k not in ADM_KERNELS and k not in DDPM_KERNELS]
     if idle:
         raise AssertionError(f"kernels of the attack path never launched: {idle}")
     phase_done("7")
@@ -964,7 +1143,7 @@ def main() -> int:
     dm8 = DefendedModel(adm, rn50, PurifyConfig(t=ADM_EVALS, **guided), log_every=0,
                         resize_to=256)
     x224 = torch.from_numpy(rng.uniform(size=(ADM_N, 224, 224, 3)).astype(np.float32)).to(dev)
-    want8 = {**{k: 0 for k in KERNELS}, **zero_bwd,
+    want8 = {**{k: 0 for k in KERNELS}, **zero_bwd, **zero_ddpm,
              **{k: v * ADM_EVALS for k, v in adm_per_eval.items()}}
     adm_runs = []
     for run in ("cold", "warm"):
@@ -1031,6 +1210,92 @@ def main() -> int:
         raise AssertionError(f"ImageNet card against CPU: {bad} disagree")
     phase_done("9")
 
+    # ---- phase 10 -----------------------------------------------------------
+    log("== phase 10: DefendedModel, t*=100, score_sde DDPM (fp32) + WRN-28-10, batch 8")
+    dm10 = DefendedModel(ddpm, clf, PurifyConfig(t=EVALS, grad_mode="none"), log_every=0)
+    logits10 = []
+
+    def model_fn10(xb, seed):
+        out = dm10(xb, seed)
+        logits10.append(out)
+        return out
+
+    want10 = {**{k: 0 for k in launch_counts()},
+              "group_norm_silu_fused": EVALS * sum(gn_census.values()),
+              "fused_attnblock": EVALS * sum(attn_census.values())}
+    ddpm_runs = []
+    for run in ("cold", "warm"):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with torch.inference_mode():
+            acc = get_accuracy(model_fn10, x01, y, seed=SEED + 21, bs=N)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts10 = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ddpm_runs.append(dict(run=run, wall_s=wall, images_per_s=N / wall, counts=counts10,
+                              peak_gib=peak))
+        log(f"  {run}: {wall:.3f} s, {N / wall:.3f} images/s on {smi}, accuracy {acc:.3f} "
+            f"(random weights); peak device memory {peak:.2f} GiB; launches {counts10}")
+        if counts10 != want10:
+            raise AssertionError(f"launch counts {counts10} != {want10}")
+    out10 = logits10[-1]
+    if tuple(out10.shape) != (N, 10) or not bool(torch.isfinite(out10).all()):
+        raise AssertionError(f"bad logits: shape {tuple(out10.shape)}")
+    ddpm_counts = ddpm_runs[0]["counts"]
+    log(f"DDPM slice (warm run): {ddpm_runs[1]['images_per_s']:.3f} images/s on {smi}")
+    phase_done("10")
+
+    # ---- phase 11 -----------------------------------------------------------
+    log("== phase 11: DDPM purification t*=5 (fp32) and an NCSN++ 'ddpm' evaluation "
+        "(fp32, bf16), kernels (GPU) against plain (CPU)")
+    from diffpure_tpu_torch.models import NCSNpp
+    from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
+    ncsn_ddpm = NCSNpp(resblock_type="ddpm", num_res_blocks=2).eval()
+    ncsn_ddpm.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in
+                               seeded_normal_state_dict(ncsn_ddpm, SEED + 23).items()})
+    ncsn_ddpm.requires_grad_(False).to(dev)
+    x11 = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32) * 0.5)
+    t11 = torch.tensor([99.9, 500.0])
+    card11, cpu11 = {}, {}
+    for where, out11, device in (("card", card11, dev), ("cpu", cpu11, torch.device("cpu"))):
+        t0 = time.time()
+        for m in (ddpm, ncsn_ddpm):
+            m.to(device)
+        with torch.inference_mode():
+            out11["purify"] = DefendedModel(ddpm, clf, cfg5, log_every=0).purify(
+                x01[:2].to(device), FixedNoise(SEED + 22)).cpu()
+            for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                ncsn_ddpm.dtype = dtype
+                reset_launch_counts()
+                out11[dtype_name] = ncsn_ddpm(x11.to(device), t11.to(device)).float().cpu()
+                out11[f"{dtype_name}_gn_silu_launches"] = launch_counts()["group_norm_silu_fused"]
+        log(f"  {where}: {time.time() - t0:.1f} s")
+    for m in (ddpm, ncsn_ddpm):
+        m.to(dev)
+    if not (card11["float32_gn_silu_launches"] > 0 and card11["bfloat16_gn_silu_launches"] > 0):
+        raise AssertionError("NCSN++ 'ddpm' on the card did not launch GroupNorm+SiLU")
+    ddpm_checks = {}
+    for what, bound in (("purify", DDPM_PURIFY_REL), ("float32", NCSN_DDPM_REL["float32"]),
+                        ("bfloat16", NCSN_DDPM_REL["bfloat16"])):
+        got, want = card11[what], cpu11[what]
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        ok = bool(torch.isfinite(got).all()) and tuple(got.shape) == tuple(want.shape) \
+            and err <= bound * scale
+        ddpm_checks[what] = dict(max_abs_err=err, rel_err=err / scale, rel_tol=bound, ok=ok)
+        log(f"  {what:8s}: max |card - cpu| {err:.3e} (rel {err / scale:.2e} <= {bound:.0e}) "
+            f"{'ok' if ok else 'FAIL'}")
+    gap = float((card11["bfloat16"] - cpu11["float32"]).abs().max() / cpu11["float32"].abs().max())
+    ddpm_checks["card_bf16_vs_cpu_fp32"] = gap
+    log(f"  card bf16 against CPU fp32: rel {gap:.2e}; #10 launches per NCSN++ 'ddpm' "
+        f"evaluation on the card: {card11['bfloat16_gn_silu_launches']}")
+    bad = [k for k, v in ddpm_checks.items() if isinstance(v, dict) and not v["ok"]]
+    if bad:
+        raise AssertionError(f"DDPM card against CPU: {bad} disagree")
+    phase_done("11")
+
     # ---- report -------------------------------------------------------------
     kernels = []
     for name, (source, replaces, *_) in {**KERNELS, **BWD_KERNELS}.items():
@@ -1068,6 +1333,23 @@ def main() -> int:
             # PyTorch call computes the other three
             library_ms=None if None in lib_ms else sum(
                 m * r["calls_per_eval"] for m, r in zip(lib_ms, mine))))
+    for name, (source, replaces) in DDPM_KERNELS.items():
+        # fp32, the DDPM's dtype. #10: per DDPM evaluation at batch 8 (its
+        # calls at each census shape); #11, on no path: one call at each of
+        # its shapes
+        mine = [r for r in gn_act_records if r["kernel"] == name and r["dtype"] == "float32"]
+        calls = [r["calls_per_eval"] if name == "group_norm_silu_fused" else 1 for r in mine]
+        by = {"operations": 0.0, "bytes": 0.0}
+        for r, c in zip(mine, calls):
+            by[r["bound_by"]] += r["bound_ms"] * c
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=ddpm_counts[name],  # the DDPM serving path (phase 10)
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=sum(r["ms"] * c for r, c in zip(mine, calls)),
+            plain_ms=sum(r["plain_ms"] * c for r, c in zip(mine, calls)),
+            bound_ms=sum(by.values()), bound_by=max(by, key=by.get),
+            library_ms=None))  # no single PyTorch call computes either
     (OUT / "result.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
         shapes=records, bwd_shapes=bwd_records, slice_runs=runs, slice_checks=slice_checks,
@@ -1075,7 +1357,9 @@ def main() -> int:
         attack=dict(seconds=attack_s, counts=attack_counts, classifier_robust_acc=accs[0],
                     defended_robust_acc=accs[1], max_dist=dist),
         adm_shapes=adm_records, adm_per_eval=adm_per_eval, adm_runs=adm_runs,
-        adm_checks=adm_checks, phase_s=phase_s, kernels=kernels), indent=1))
+        adm_checks=adm_checks, gn_act_shapes=gn_act_records, ddpm_census=ddpm_shapes,
+        ddpm_runs=ddpm_runs, ddpm_checks=ddpm_checks, phase_s=phase_s, kernels=kernels),
+        indent=1))
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

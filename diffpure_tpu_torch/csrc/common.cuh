@@ -68,6 +68,63 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
+// VW consecutive elements (VW = 1, 4 or 8) as fp32: one 16-byte access for
+// 4 fp32 or 8 bf16 values, 8 bytes for 4 bf16. p is VW-element aligned.
+template <int VW>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[VW]) {
+  if constexpr (VW == 1) {
+    v[0] = *p;
+  } else {
+#pragma unroll
+    for (int k = 0; k < VW; k += 4) {
+      const float4 a = load4(p + k);
+      v[k] = a.x; v[k + 1] = a.y; v[k + 2] = a.z; v[k + 3] = a.w;
+    }
+  }
+}
+template <int VW>
+__device__ __forceinline__ void load_vec(const bf16* p, float (&v)[VW]) {
+  if constexpr (VW == 1) {
+    v[0] = __bfloat162float(*p);
+  } else if constexpr (VW == 4) {
+    const float4 a = load4(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+    static_assert(VW == 8, "bf16 vectors are 1, 4 or 8 wide");
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      v[2 * k] = f.x; v[2 * k + 1] = f.y;
+    }
+  }
+}
+template <int VW>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[VW]) {
+  if constexpr (VW == 1) {
+    *p = v[0];
+  } else {
+#pragma unroll
+    for (int k = 0; k < VW; k += 4) store4(p + k, make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]));
+  }
+}
+template <int VW>
+__device__ __forceinline__ void store_vec(bf16* p, const float (&v)[VW]) {
+  if constexpr (VW == 1) {
+    *p = __float2bfloat16(v[0]);
+  } else if constexpr (VW == 4) {
+    store4(p, make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+    static_assert(VW == 8, "bf16 vectors are 1, 4 or 8 wide");
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+}
+
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
 
 // An NHWC map of H x W pixels whose channels are c0 from p0 then c1 from p1

@@ -1,7 +1,9 @@
 """flax params -> PyTorch state dict: the inverse of
 diffpure_tpu/models/convert.py (``_leaf`` :73, ``ncsnpp_key`` :107,
 ``translate_ncsnpp`` :182, ``translate_adm`` :195), so weights held by the
-JAX package load into the port with ``load_state_dict(strict=True)``.
+JAX package load into the port with ``load_state_dict(strict=True)``. The
+score_sde DDPM's tree has NCSN++'s ``m{i}`` walk (``translate_ncsnpp``
+carries it too).
 
 Leaves: conv kernel HWIO -> weight OIHW; Dense kernel (in, out) -> weight
 (out, in); norm ``scale`` -> ``weight``; NIN ``W``/``b`` unchanged.
@@ -47,21 +49,42 @@ def to_tensor(v: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(v, order="C", copy=True))
 
 
-def ncsnpp_state_dict_from_flax(params: Mapping, *, sigma_min: float = 0.01,
-                                sigma_max: float = 50.0,
-                                num_scales: int = 1000
-                                ) -> Dict[str, torch.Tensor]:
-    """``m{i}/...`` -> ``all_modules.{i}....``. The ``sigmas`` buffer, which
-    the JAX translator drops, is rebuilt from the model's noise scales."""
+def _all_modules_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``m{i}/...`` -> ``all_modules.{i}....`` (the score_sde module walk of
+    NCSN++, in either block type, and of the DDPM)."""
     sd = {}
     for path, v in flatten_params(params):
         head, *mods, leaf = path
         if not head.startswith("m") or not head[1:].isdigit():
-            raise ValueError(f"unexpected NCSN++ param path {'/'.join(path)}")
+            raise ValueError(f"unexpected score_sde param path {'/'.join(path)}")
         name, arr = torch_leaf(leaf, v)
         sd[".".join(["all_modules", head[1:], *mods, name])] = to_tensor(arr)
-    sd["sigmas"] = torch.tensor(get_sigmas(sigma_min, sigma_max, num_scales),
-                                dtype=torch.float32)
+    return sd
+
+
+def _sigmas(sigma_min: float, sigma_max: float, num_scales: int) -> torch.Tensor:
+    return torch.tensor(get_sigmas(sigma_min, sigma_max, num_scales), dtype=torch.float32)
+
+
+def ncsnpp_state_dict_from_flax(params: Mapping, *, sigma_min: float = 0.01,
+                                sigma_max: float = 50.0,
+                                num_scales: int = 1000
+                                ) -> Dict[str, torch.Tensor]:
+    """NCSN++ (``resblock_type`` 'biggan' or 'ddpm'). The ``sigmas`` buffer,
+    which the JAX translator drops, is rebuilt from the model's noise scales."""
+    sd = _all_modules_state_dict(params)
+    sd["sigmas"] = _sigmas(sigma_min, sigma_max, num_scales)
+    return sd
+
+
+def ddpm_state_dict_from_flax(params: Mapping, *, scale_by_sigma: bool = False,
+                              sigma_min: float = 0.01, sigma_max: float = 50.0,
+                              num_scales: int = 1000) -> Dict[str, torch.Tensor]:
+    """The score_sde DDPM (``models/ddpm_v1.DDPM``); it holds a ``sigmas``
+    buffer only with ``scale_by_sigma``."""
+    sd = _all_modules_state_dict(params)
+    if scale_by_sigma:
+        sd["sigmas"] = _sigmas(sigma_min, sigma_max, num_scales)
     return sd
 
 

@@ -1,22 +1,26 @@
-"""NCSN++ layers for the CIFAR-10 configuration (port of the matching parts
-of diffpure_tpu/models/layers.py).
+"""NCSN++ and DDPM layers (port of the matching parts of
+diffpure_tpu/models/layers.py).
 
 Parameter names are the reference PyTorch names (``GroupNorm_0``,
 ``Conv_0``, ``Dense_0``, ``NIN_0`` ...; ref score_sde/models/layerspp.py),
 so a ``checkpoint_8.pth`` state dict loads as it is. Activations are NHWC.
 
-The blocks are eval-only and always go through the fused-block wrappers,
-which run the plain version on CPU tensors and the CUDA kernels on CUDA
-tensors. That is the JAX gate of layers.py:516-539 with every condition
-fixed true by what the port builds (eval mode, swish, naive resampling, a
-temb row); the TPU's 128-lane condition does not apply on the GPU.
+The BigGAN and attention blocks are eval-only and always go through the
+fused-block wrappers, which run the plain version on CPU tensors and the
+CUDA kernels on CUDA tensors. That is the JAX gate of layers.py:516-539
+with every condition fixed true by what the port builds (eval mode, swish,
+naive resampling, a temb row); the TPU's 128-lane condition does not apply
+on the GPU. They are differentiable with respect to their inputs (the
+attack path): the wrappers are autograd Functions whose backward is the
+CUDA backward kernel for the residual blocks and autograd of the plain
+version for the attention block, as in JAX. Weight gradients, when asked
+for, come from autograd of the plain version.
 
-The blocks are differentiable with respect to their inputs (the attack
-path): the wrappers are autograd Functions whose backward is the CUDA
-backward kernel for the residual blocks and autograd of the plain version
-for the attention block, as in JAX. Weight gradients, when asked for, come
-from autograd of the plain version. Training mode, FIR resampling and the
-DDPM++ blocks wait for ROADMAP Slice 1 item 5.
+The DDPM++ residual block (``ResnetBlockDDPMpp``) and the standalone
+``UpsampleLayer`` / ``DownsampleLayer`` are plain tensor code around
+``GNSiLU``, whose CUDA kernel (``ops/groupnorm.group_norm_silu_fused``) is
+forward only. FIR resampling waits for ROADMAP Slice 1 item 5, training mode
+(dropout) for item 19.
 """
 from __future__ import annotations
 
@@ -27,13 +31,20 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from diffpure_tpu_torch.ops.conv import conv2d_nhwc
 from diffpure_tpu_torch.ops.fused_attnblock import fused_attnblock, \
     pack_attnblock_params
 from diffpure_tpu_torch.ops.fused_resblock import fused_resblock, \
     fused_resblock_cat, pack_resblock_bwd_params, pack_resblock_params
-from diffpure_tpu_torch.ops.groupnorm import ncsn_num_groups
+from diffpure_tpu_torch.ops.groupnorm import group_norm, group_norm_silu, \
+    group_norm_silu_fused, ncsn_num_groups
+from diffpure_tpu_torch.ops.upfirdn2d import naive_downsample_2d, \
+    naive_upsample_2d
 
 Tensor = torch.Tensor
+
+INV_SQRT2 = 1.0 / math.sqrt(2.0)
+_FIR = "FIR resampling is not ported yet: ROADMAP Slice 1 item 5"
 
 
 def get_timestep_embedding(timesteps: Tensor, embedding_dim: int,
@@ -112,6 +123,39 @@ def _cast(tensors, dtype, device):
     return tuple(t.to(device=device, dtype=dtype) for t in tensors)
 
 
+def _cast_cached(cache: _Derived, tensors, dtype, device):
+    """The tensors in dtype on device, from ``cache`` unless autograd needs
+    the cast (a cast of weights that require grad is a graph node)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _cast(tensors, dtype, device)
+    return cache.get(tensors, dtype, device)
+
+
+class GroupNormTorch(nn.GroupNorm):
+    """GroupNorm over NHWC maps with fp32 statistics, its scale and bias
+    rounded to the map's dtype first (layers.py:135)."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        return group_norm(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                          self.num_groups, self.eps)
+
+
+class GNSiLU(nn.GroupNorm):
+    """GroupNorm + SiLU with GroupNormTorch's parameters (layers.py:71).
+
+    On a CPU tensor the plain ``group_norm_silu`` (JAX's default path: the
+    GroupNorm is cast to the map's dtype before the SiLU); on a CUDA tensor
+    kernel #10, ``group_norm_silu_fused`` (one rounding, as JAX's Pallas
+    path). JAX's gates of that path, ``set_fused_gn_silu`` and the map
+    fitting VMEM, are dropped: the port has no global kernel switches
+    (ROADMAP item 3), and the kernel takes every map size.
+    """
+
+    def forward(self, x: Tensor) -> Tensor:
+        fn = group_norm_silu if x.device.type == "cpu" else group_norm_silu_fused
+        return fn(x, self.weight, self.bias, self.num_groups, self.eps)
+
+
 class AttnBlockpp(nn.Module):
     """NCSN++ self-attention block over spatial positions
     (ref layerspp.py:62-91)."""
@@ -179,13 +223,9 @@ class ResnetBlockBigGANpp(nn.Module):
         """x: an NHWC map, or the up path's (h, skip) pair, which is
         concatenated along channels (inside the kernel when the block
         projects and does not resample)."""
-        # the temb row stays a plain op, in the torso's dtype (DenseP); a
-        # cast of weights that require grad is not cached (it is a graph node)
-        dense = (self.Dense_0.weight, self.Dense_0.bias)
-        if torch.is_grad_enabled() and dense[0].requires_grad:
-            w, b = _cast(dense, temb.dtype, temb.device)
-        else:
-            w, b = self._dense.get(dense, temb.dtype, temb.device)
+        # the temb row stays a plain op, in the torso's dtype (DenseP)
+        w, b = _cast_cached(self._dense, (self.Dense_0.weight, self.Dense_0.bias),
+                            temb.dtype, temb.device)
         temb_row = F.linear(F.silu(temb), w, b)
         params = self._params()
         anchor = x[0] if isinstance(x, tuple) else x
@@ -202,3 +242,101 @@ class ResnetBlockBigGANpp(nn.Module):
                 return fused_resblock_cat(x[0], x[1], temb_row, params, **kw)
             x = torch.cat(x, dim=-1)
         return fused_resblock(x, temb_row, params, resample=self.resample, **kw)
+
+
+class ResnetBlockDDPMpp(nn.Module):
+    """DDPM-style residual block (layers.py:423-462; ref layerspp.py:166-209),
+    eval mode: dropout is the identity (training waits for ROADMAP item 19).
+
+    The convs and ``Dense_0`` compute in the torso's dtype, which is temb's:
+    NCSN++ casts temb to its ``dtype`` as JAX does, and without one flax
+    promotes against the fp32 parameters, which is temb's fp32. The NIN skip
+    keeps x's dtype, and ``x + h`` promotes, as in JAX.
+    """
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None,
+                 temb_dim: Optional[int] = None, conv_shortcut: bool = False,
+                 skip_rescale: bool = False):
+        super().__init__()
+        out_ch = out_ch or in_ch
+        self.GroupNorm_0 = GNSiLU(ncsn_num_groups(in_ch), in_ch, eps=1e-6)
+        self.Conv_0 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        if temb_dim is not None:
+            self.Dense_0 = nn.Linear(temb_dim, out_ch)
+        self.GroupNorm_1 = GNSiLU(ncsn_num_groups(out_ch), out_ch, eps=1e-6)
+        self.Conv_1 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        # the skip: identity, Conv_2 (3x3) or NIN_0 (1x1)
+        self.skip = None if in_ch == out_ch else ("conv" if conv_shortcut else "nin")
+        if self.skip == "conv":
+            self.Conv_2 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        elif self.skip == "nin":
+            self.NIN_0 = NIN(in_ch, out_ch)
+        self.skip_rescale = skip_rescale
+        self._weights = _Derived(_cast)
+
+    def forward(self, x: Union[Tensor, Tuple[Tensor, Tensor]],
+                temb: Optional[Tensor] = None) -> Tensor:
+        """x: an NHWC map, or the up path's (h, skip) pair, concatenated."""
+        if isinstance(x, tuple):
+            x = torch.cat(x, dim=-1)
+        cdt = temb.dtype if temb is not None else torch.promote_types(x.dtype, torch.float32)
+        convs = [self.Conv_0, self.Conv_1] + ([self.Conv_2] if self.skip == "conv" else [])
+        tensors = [t for c in convs for t in (c.weight, c.bias)]
+        if temb is not None:
+            tensors += [self.Dense_0.weight, self.Dense_0.bias]
+        w = _cast_cached(self._weights, tensors, cdt, x.device)
+        h = conv2d_nhwc(self.GroupNorm_0(x).to(cdt), *w[0:2])
+        if temb is not None:
+            h = h + F.linear(F.silu(temb), *w[-2:])[:, None, None, :]
+        h = conv2d_nhwc(self.GroupNorm_1(h).to(cdt), *w[2:4])
+        if self.skip == "conv":
+            x = conv2d_nhwc(x.to(cdt), *w[4:6])
+        elif self.skip == "nin":
+            x = self.NIN_0(x)
+        return x + h if not self.skip_rescale else (x + h) * INV_SQRT2
+
+
+class UpsampleLayer(nn.Module):
+    """NCSN++ Upsample without FIR (layers.py:369-392): nearest 2x, then
+    ``Conv_0`` with ``with_conv``. The conv has no dtype of its own: it
+    computes in the promotion of x's dtype and its fp32 parameters, as
+    flax's ``nn.Conv(dtype=None)``."""
+
+    def __init__(self, channels: int, with_conv: bool = False, fir: bool = False):
+        super().__init__()
+        if fir:
+            raise NotImplementedError(_FIR)
+        if with_conv:
+            self.Conv_0 = nn.Conv2d(channels, channels, 3, padding=1)
+        self.with_conv = with_conv
+
+    def forward(self, x: Tensor) -> Tensor:
+        h = naive_upsample_2d(x)
+        if not self.with_conv:
+            return h
+        c = self.Conv_0
+        cdt = torch.promote_types(x.dtype, c.weight.dtype)
+        return conv2d_nhwc(h.to(cdt), c.weight.to(cdt), c.bias.to(cdt))
+
+
+class DownsampleLayer(nn.Module):
+    """NCSN++ Downsample without FIR (layers.py:395-420): with ``with_conv``
+    the asymmetric pad (bottom and right by one), then ``Conv_0`` stride 2
+    VALID, in the promoted dtype as ``UpsampleLayer``'s; else a 2x2 mean."""
+
+    def __init__(self, channels: int, with_conv: bool = False, fir: bool = False):
+        super().__init__()
+        if fir:
+            raise NotImplementedError(_FIR)
+        if with_conv:
+            self.Conv_0 = nn.Conv2d(channels, channels, 3, stride=2)
+        self.with_conv = with_conv
+
+    def forward(self, x: Tensor) -> Tensor:
+        if not self.with_conv:
+            return naive_downsample_2d(x)
+        c = self.Conv_0
+        cdt = torch.promote_types(x.dtype, c.weight.dtype)
+        # NHWC: F.pad lists the last axis first -> (C), (W: right 1), (H: bottom 1)
+        x = F.pad(x, (0, 0, 0, 1, 0, 1)).to(cdt)
+        return conv2d_nhwc(x, c.weight.to(cdt), c.bias.to(cdt), stride=2, padding=0)

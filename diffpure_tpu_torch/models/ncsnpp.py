@@ -4,12 +4,16 @@ Same construction walk as the reference (ref score_sde/models/ncsnpp.py):
 ``all_modules[i]`` here is ``m{i}`` in the flax model, so the two load the
 same weights (models/convert.py). Input, output and activations are NHWC.
 
-Ported: ``resblock_type='biggan'``, ``progressive='none'``,
+Ported: ``resblock_type='biggan'`` and ``'ddpm'`` (DDPM++ blocks with the
+standalone up/down layers), ``progressive='none'``,
 ``progressive_input='none'``, positional embedding, conditional, naive
 resampling, centered data, no sigma scaling, eval mode. With
 ``dtype=torch.bfloat16`` the torso runs in bf16 (parameters stay fp32;
 GroupNorm statistics and softmax stay fp32 inside the ops) and the output
-head in fp32, as ``NCSNpp(dtype=jnp.bfloat16)`` does.
+head in fp32, as ``NCSNpp(dtype=jnp.bfloat16)`` does. In the ``'ddpm'``
+variant the up/down layers' convs take no dtype, so, as in JAX, they
+promote a bf16 map to fp32 and the residual stream after the first
+downsample is fp32 (the blocks' convs stay bf16).
 """
 from __future__ import annotations
 
@@ -20,8 +24,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffpure_tpu_torch.models.layers import AttnBlockpp, \
-    ResnetBlockBigGANpp, get_timestep_embedding
+from diffpure_tpu_torch.models.layers import AttnBlockpp, DownsampleLayer, \
+    ResnetBlockBigGANpp, ResnetBlockDDPMpp, UpsampleLayer, get_timestep_embedding
+from diffpure_tpu_torch.models.registry import register_model
 from diffpure_tpu_torch.ops.conv import conv2d_nhwc
 from diffpure_tpu_torch.ops.groupnorm import group_norm_silu, ncsn_num_groups
 
@@ -36,8 +41,9 @@ def get_sigmas(sigma_min: float, sigma_max: float, num_scales: int) -> np.ndarra
 _NOT_PORTED = "not ported yet: ROADMAP Slice 1 item 5 (NCSN++ building blocks)"
 
 
+@register_model(name="ncsnpp")
 class NCSNpp(nn.Module):
-    """NCSN++ score network, CIFAR-10 family (configs/cifar10.yml)."""
+    """NCSN++ / DDPM++ score network, CIFAR-10 family (configs/cifar10.yml)."""
 
     def __init__(self, image_size: int = 32, num_channels: int = 3,
                  nf: int = 128, ch_mult: Tuple[int, ...] = (1, 2, 2, 2),
@@ -56,11 +62,12 @@ class NCSNpp(nn.Module):
                  num_scales: int = 1000,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        # dropout (training only), resamp_with_conv (DDPM++ blocks only),
-        # fir_kernel, progressive_combine, fourier_scale and init_scale do
-        # not change this configuration's eval forward.
+        # dropout (training only), fir_kernel, progressive_combine,
+        # fourier_scale and init_scale do not change this configuration's
+        # eval forward.
+        if resblock_type not in ("biggan", "ddpm"):
+            raise ValueError(f"resblock_type {resblock_type!r}")
         for name, value, want in (
-                ("resblock_type", resblock_type, "biggan"),
                 ("progressive", progressive, "none"),
                 ("progressive_input", progressive_input, "none"),
                 ("embedding_type", embedding_type, "positional"),
@@ -75,12 +82,24 @@ class NCSNpp(nn.Module):
         self.attn_resolutions = tuple(attn_resolutions)
         self.ch_mult = tuple(ch_mult)
         self.dtype = dtype
+        self.resblock_type = resblock_type
         self.register_buffer("sigmas", torch.tensor(
             get_sigmas(sigma_min, sigma_max, num_scales), dtype=torch.float32))
 
         temb_dim = nf * 4
-        block = lambda i, o=None, **kw: ResnetBlockBigGANpp(  # noqa: E731
-            i, o, temb_dim=temb_dim, skip_rescale=skip_rescale, **kw)
+        ddpm = resblock_type == "ddpm"
+
+        def block(i, o=None):
+            cls = ResnetBlockDDPMpp if ddpm else ResnetBlockBigGANpp
+            return cls(i, o, temb_dim=temb_dim, skip_rescale=skip_rescale)
+
+        def resample(ch, up):
+            if ddpm:
+                layer = UpsampleLayer if up else DownsampleLayer
+                return layer(ch, with_conv=resamp_with_conv)
+            return ResnetBlockBigGANpp(ch, temb_dim=temb_dim, up=up, down=not up,
+                                       skip_rescale=skip_rescale)
+
         modules = [nn.Linear(nf, temb_dim), nn.Linear(temb_dim, temb_dim),
                    nn.Conv2d(num_channels, nf, 3, padding=1)]
         hs_c = [nf]
@@ -94,7 +113,7 @@ class NCSNpp(nn.Module):
                     modules.append(AttnBlockpp(in_ch, skip_rescale))
                 hs_c.append(in_ch)
             if i_level != len(ch_mult) - 1:
-                modules.append(block(in_ch, down=True))
+                modules.append(resample(in_ch, up=False))
                 hs_c.append(in_ch)
         modules += [block(in_ch), AttnBlockpp(in_ch, skip_rescale), block(in_ch)]
         for i_level in reversed(range(len(ch_mult))):
@@ -105,7 +124,7 @@ class NCSNpp(nn.Module):
             if self.all_resolutions[i_level] in self.attn_resolutions:
                 modules.append(AttnBlockpp(in_ch, skip_rescale))
             if i_level != 0:
-                modules.append(block(in_ch, up=True))
+                modules.append(resample(in_ch, up=True))
         assert not hs_c
         modules += [nn.GroupNorm(ncsn_num_groups(in_ch), in_ch, eps=1e-6),
                     nn.Conv2d(in_ch, num_channels, 3, padding=1)]
@@ -123,6 +142,9 @@ class NCSNpp(nn.Module):
             x = x.to(self.dtype)
             temb = temb.to(self.dtype)
         cdt = x.dtype
+        # the DDPM++ variant's up/down layers take no temb
+        resample = (lambda m, h: m(h)) if self.resblock_type == "ddpm" \
+            else (lambda m, h: m(h, temb))
         stem = next(modules)
         hs = [conv2d_nhwc(x, stem.weight.to(cdt), stem.bias.to(cdt))]
         for i_level, res in enumerate(self.all_resolutions):
@@ -132,7 +154,7 @@ class NCSNpp(nn.Module):
                     h = next(modules)(h)
                 hs.append(h)
             if i_level != len(self.all_resolutions) - 1:
-                hs.append(next(modules)(hs[-1], temb))
+                hs.append(resample(next(modules), hs[-1]))
 
         h = next(modules)(hs[-1], temb)
         h = next(modules)(h)
@@ -144,7 +166,7 @@ class NCSNpp(nn.Module):
             if self.all_resolutions[i_level] in self.attn_resolutions:
                 h = next(modules)(h)
             if i_level != 0:
-                h = next(modules)(h, temb)
+                h = resample(next(modules), h)
         assert not hs
 
         h = h.to(input_dtype)

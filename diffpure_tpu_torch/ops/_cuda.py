@@ -113,6 +113,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.diffpure_flash_attention.argtypes = [
         I, P, P, P, I, I, I, F, P, P]     # dtype, q, k, v, BH, T, D, sm_scale, out, stream
     lib.diffpure_flash_attention.restype = I
+    lib.diffpure_gn_silu.argtypes = [
+        I, P, P, P, I, I, I, I, F, P, P]  # dtype, x, gamma, beta, N, HW, C, G, eps, out, stream
+    lib.diffpure_gn_silu.restype = I
+    lib.diffpure_fused_leaky_relu.argtypes = [
+        I, P, P, L, I, F, F, P, P]        # dtype, x, bias, total, C, slope, scale, out, stream
+    lib.diffpure_fused_leaky_relu.restype = I
     lib.diffpure_error_string.argtypes = [I]
     lib.diffpure_error_string.restype = ctypes.c_char_p
     return lib

@@ -67,7 +67,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NCSNpp(fir=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NCSNpp(resblock_type="ddpm")
+        NCSNpp(progressive="output_skip")
 
 
 def test_block_caches_follow_weight_edits():
