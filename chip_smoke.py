@@ -6,7 +6,9 @@ defences once on one NVIDIA GPU.
 
 Phases, each fatal on failure:
   1. versions, the card's name and power limit, and the build of the CUDA
-     kernels from diffpure_tpu_torch/csrc (timed);
+     kernels from diffpure_tpu_torch/csrc (timed); the count of wgmma
+     (HGMMA) instructions in the SASS of the halo conv and flash attention,
+     which must be non-zero for their bf16 kernels;
   2. each hand-written kernel against its plain PyTorch version on the card,
      at every shape the CIFAR-10 NCSN++ gives it, batch 8, bf16 and fp32,
      with seeded random-normal weights; kernel and plain times per shape;
@@ -35,8 +37,10 @@ Phases, each fatal on failure:
      and apply, halo conv, flash attention) against their plain versions at
      every shape the full-width imagenet256_config ADM gives them at batch
      4 (a census of the wrappers' calls over one evaluation), bf16 and
-     fp32; kernel, plain and bound times, and F.scaled_dot_product_attention
-     beside the flash kernel as a yardstick;
+     fp32; kernel, plain and bound times, TFLOP/s and share of the bound;
+     beside the flash kernel, F.scaled_dot_product_attention on 4-D views
+     under each backend that takes the inputs, the fastest that agrees with
+     the plain version as its library time (a yardstick on no path);
   8. the ImageNet slice: DefendedModel(resize_to=256) with the
      guided-diffusion purify_sde at t*=150 through that ADM (bf16 torso,
      552,814,086 parameters) and ResNet-50, on 4 seeded 224x224 images under
@@ -157,6 +161,8 @@ ADM_KERNELS = {
     "flash_attention": ("diffpure_tpu_torch/csrc/flash_attention.cu",
                         "diffpure_tpu/ops/flash_attention.py:145"),
 }
+# The bf16 kernels that must run on wgmma: HGMMA in their SASS (phase 1).
+WGMMA_KERNELS = ("halo_wgmma_kernel", "flash_wgmma_kernel")
 # Phase 9, card (kernels) against CPU (plain versions), max abs error over
 # max |CPU|. One full-width ADM evaluation: fp32 differs by summation order
 # only (the port's fp32 ADM and JAX's sit 1.5e-6 apart at the small ADM of
@@ -478,13 +484,62 @@ def adm_cost(name, shape, esize):
     return 6 * elems, 2 * elems * esize + 2 * ADM_N * C * 4  # gn_film_silu_apply
 
 
+def sass_wgmma(torch, lib_path):
+    """{kernel function: count of HGMMA (wgmma) instructions} in the built
+    library's SASS, by cuobjdump from the toolkit that built it."""
+    from diffpure_tpu_torch.ops._cuda import _nvcc
+
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def sdpa_yardstick(torch, q, k, v, want, rel, reps, warm):
+    """F.scaled_dot_product_attention on 4-D views (1, BH, T, D) of q, k, v,
+    once under each backend that accepts them: its time and its error
+    against the plain version (``want``). The fastest backend that agrees
+    within ``rel`` is the flash kernel's library_ms. On no path of the port."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q4, k4, v4 = q[None], k[None], v[None]
+    scale = q.shape[-1] ** -0.5
+    backends = {}
+    for b in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"):
+        backend = getattr(SDPBackend, b, None)
+        if backend is None:
+            continue
+
+        def call():
+            return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        with sdpa_kernel(backend):  # entered once: its own cost stays out of the time
+            try:
+                out = call()[0]
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                backends[b] = dict(refused=str(e).splitlines()[0][:200])
+                continue
+            err = float((out.float() - want.float()).abs().max() / want.float().abs().max())
+            backends[b] = dict(ms=cuda_ms(torch, call, reps, warm), rel_err=err, ok=err <= rel)
+    agree = {b: r["ms"] for b, r in backends.items() if r.get("ok")}
+    best = min(agree, key=agree.get) if agree else None
+    return dict(library_ms=agree.get(best), library_backend=best, library_backends=backends)
+
+
 def phase_adm_kernels(torch, dev, census):
     """Each 256-px kernel against its plain version on the card at every
     census shape, bf16 and fp32, seeded inputs; per-shape records with
     kernel, plain (and for flash attention the library call's) times and
     the bound."""
     import numpy as np
-    import torch.nn.functional as F
     from diffpure_tpu_torch.ops import flash_attention as fla
     from diffpure_tpu_torch.ops import halo_conv as halo
     from diffpure_tpu_torch.ops import tiled_groupnorm as tgn
@@ -516,14 +571,11 @@ def phase_adm_kernels(torch, dev, census):
             wp = normal(cr, cout, fan_in=cr) if kind == "proj" else None
         for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             esize = 2 if dtype_name == "bfloat16" else 4
-            lib = None
             if name == "flash_attention":
                 q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
                 sc = 1.0 / shape[2] ** 0.25
                 kern = lambda: fla.flash_attention(q, k, v, sc)  # noqa: E731
                 plain = lambda: fla._reference_attention(q, k, v, sc)  # noqa: E731
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    q, k, v, scale=shape[2] ** -0.5)
                 check = (kern, plain)
             elif name == "group_stats":
                 x = x32.to(dtype)
@@ -564,15 +616,20 @@ def phase_adm_kernels(torch, dev, census):
             rec = dict(kernel=name, shape=list(shape), calls_per_eval=calls, dtype=dtype_name,
                        max_abs_err=err, rel_err=max(rels), rel_tol=REL[dtype_name],
                        ms=cuda_ms(torch, kern, reps, warm),
-                       plain_ms=cuda_ms(torch, plain, reps, warm),
-                       library_ms=None if lib is None else cuda_ms(torch, lib, reps, warm),
+                       plain_ms=cuda_ms(torch, plain, reps, warm), library_ms=None,
                        flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
                        bound_by="operations" if t_ops >= t_bytes else "bytes", ok=ok)
+            rec["tflops"] = flops / rec["ms"] / 1e9
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            if name == "flash_attention":
+                rec.update(sdpa_yardstick(torch, q, k, v, want[0], REL[dtype_name], reps, warm))
             records.append(rec)
+            lib = rec["library_ms"]
             log(f"  {name:20s} {str(shape):32s} x{calls:<2d} {dtype_name:8s} rel err "
-                f"{max(rels):.2e} <= {REL[dtype_name]:.0e} kernel {rec['ms']:.4f} ms plain "
+                f"{max(rels):.2e} <= {REL[dtype_name]:.0e} kernel {rec['ms']:.4f} ms "
+                f"({rec['tflops']:.1f} TFLOP/s, {rec['bound_share']:.3f} of bound) plain "
                 f"{rec['plain_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms"
-                + ("" if lib is None else f" library {rec['library_ms']:.4f} ms")
+                + ("" if lib is None else f" library {lib:.4f} ms ({rec['library_backend']})")
                 + f" {'ok' if ok else 'FAIL'}")
     bad = [r for r in records if not r["ok"]]
     if bad:
@@ -866,6 +923,13 @@ def main() -> int:
     build_log = _cuda.BUILD_DIR / "build.log"
     if build_log.exists():
         (OUT / "build.log").write_text(build_log.read_text())
+    wgmma = sass_wgmma(torch, _cuda.build())
+    for fn, n in sorted(wgmma.items()):
+        if "halo" in fn or "flash" in fn:
+            log(f"  SASS: {n:5d} HGMMA in {fn}")
+    no_wgmma = [k for k in WGMMA_KERNELS if not any(k in fn and n for fn, n in wgmma.items())]
+    if no_wgmma:
+        raise AssertionError(f"no wgmma (HGMMA) in the SASS of {no_wgmma}")
     phase_done("1")
     if args.profile_adm or args.profile_ddpm:
         if args.profile_adm:
@@ -906,7 +970,7 @@ def main() -> int:
     phase_done("2b")
     (OUT / "result.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-        shapes=records, bwd_shapes=bwd_records, phase_s=phase_s), indent=1))
+        wgmma=wgmma, shapes=records, bwd_shapes=bwd_records, phase_s=phase_s), indent=1))
     if args.stop_after == "2b":
         log("stopped after phase 2b as asked (partial run)")
         return 3
@@ -925,7 +989,7 @@ def main() -> int:
     phase_done("2c")
     (OUT / "result.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-        shapes=records, bwd_shapes=bwd_records, adm_shapes=adm_records,
+        wgmma=wgmma, shapes=records, bwd_shapes=bwd_records, adm_shapes=adm_records,
         adm_per_eval=adm_per_eval, phase_s=phase_s), indent=1))
     if args.stop_after == "2c":
         log("stopped after phase 2c as asked (partial run)")
@@ -1352,7 +1416,7 @@ def main() -> int:
             library_ms=None))  # no single PyTorch call computes either
     (OUT / "result.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-        shapes=records, bwd_shapes=bwd_records, slice_runs=runs, slice_checks=slice_checks,
+        wgmma=wgmma, shapes=records, bwd_shapes=bwd_records, slice_runs=runs, slice_checks=slice_checks,
         grad_runs=grad_runs, grad_checks=grad_checks,
         attack=dict(seconds=attack_s, counts=attack_counts, classifier_robust_acc=accs[0],
                     defended_robust_acc=accs[1], max_dist=dist),

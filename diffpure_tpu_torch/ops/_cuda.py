@@ -108,7 +108,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.diffpure_gn_apply.restype = I
     lib.diffpure_halo_conv.argtypes = [
         I, P, I, I, I, I, P, P,           # dtype, x, N, H, W, cin, A, B
-        P, P, P, I, P, I, P, P]           # w, bias, skip, cr, wproj, cout, out, stream
+        P, P, P, I, P, I, P,              # w, bias, skip, cr, wproj, cout, out
+        I, I, P]                          # tile_rows, tile_n, stream
     lib.diffpure_halo_conv.restype = I
     lib.diffpure_flash_attention.argtypes = [
         I, P, P, P, I, I, I, F, P, P]     # dtype, q, k, v, BH, T, D, sm_scale, out, stream
@@ -170,6 +171,17 @@ def refuse_card_grad(what: str, *tensors) -> None:
             f"{what}: the kernel's gradient on the card is not ported yet "
             f"(ROADMAP, next slice: the ImageNet gradient path); run it under "
             f"torch.no_grad() or torch.inference_mode()")
+
+
+_sms = {}
+
+
+def num_sms(device) -> int:
+    """The card's streaming multiprocessor count (the halo plan fills it)."""
+    idx = torch.device(device).index or 0
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def stream(device) -> int:

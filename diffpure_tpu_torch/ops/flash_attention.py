@@ -26,6 +26,15 @@ def _reference_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tenso
     return torch.einsum("bts,bsd->btd", p, v.float()).to(q.dtype)
 
 
+def check_flash_shape(dtype: torch.dtype, T: int, D: int) -> None:
+    """Raise on what the kernel does not take: D == 64, and T a multiple of
+    its query block (128 bf16, 64 fp32)."""
+    block = 128 if dtype == torch.bfloat16 else 64
+    if D != 64 or T % block:
+        raise ValueError(f"the flash kernel takes D == 64 and T % {block} == 0 "
+                         f"({dtype}); got T={T}, D={D}")
+
+
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     """softmax(q k^T scale^2) v without the T x T scores: plain on CPU, the
     CUDA kernel on CUDA."""
@@ -39,9 +48,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
         raise ValueError(f"flash_attention takes (BH, T, D) fp32 or bf16, not "
                          f"{dtype} {tuple(q.shape)}")
     BH, T, D = q.shape
-    if D != 64 or T % 64:
-        raise ValueError(f"the flash kernel takes D == 64 and T % 64 == 0; "
-                         f"got T={T}, D={D}")
+    check_flash_shape(dtype, T, D)
     ptrs = [_cuda.check_operand(t, n, dev, dtype, (BH, T, D))
             for t, n in ((q, "q"), (k, "k"), (v, "v"))]
     out = torch.empty_like(q)

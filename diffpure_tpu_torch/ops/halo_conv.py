@@ -9,11 +9,13 @@ its plain version ``gn_silu_conv3x3_reference`` (:241) on a CPU tensor.
 ``gn_silu_conv_block`` (:298) is the two-kernel stage: the GroupNorm stats
 pass (ops/tiled_groupnorm.py) gives A, B with GN scale/bias and the FiLM
 scale-shift folded in, then the halo conv. SAME padding pads the
-activation. The kernel takes every shape of the ImageNet-256 path
-(H % 4 == 0, W % 32 == 0, cin and cr % 32 == 0, cout % 64 == 0) and raises
-on others: the TPU wrapper's fallback to the XLA reference, which exists
-for the TPU's 16 MB of VMEM (``_pick_tile_halo``, :37-70, 185-192), is not
-ported. Forward only on the card, as ops/tiled_groupnorm.py.
+activation. The kernel takes every shape of the ImageNet-256 path (bf16:
+W % 32 == 0, cin and cr % 64 == 0, cout % 128 == 0 and H even, tiled as
+``halo_plan`` says; fp32: H % 4 == 0, W % 32 == 0, cin and cr % 32 == 0,
+cout % 64 == 0) and raises on others: the TPU wrapper's fallback to the
+XLA reference, which exists for the TPU's 16 MB of VMEM
+(``_pick_tile_halo``, :37-70, 185-192), is not ported. Forward only on the
+card, as ops/tiled_groupnorm.py.
 
 Weights keep the JAX layouts at these functions: w (3, 3, cin, cout) HWIO,
 w_proj (cr, cout).
@@ -82,15 +84,81 @@ def gn_conv_block_reference(x: Tensor, gn_scale: Tensor, gn_bias: Tensor,
     return _conv_skip(h, w, bias, skip, w_proj, _compute_dtype(x)).to(x.dtype)
 
 
+# The bf16 kernel's K chunk: 64 input channels, one 128-byte row of a
+# weight stage.
+KC = 64
+# SMs of the card the plan fills (NVIDIA H100 SXM).
+SMS = 132
+# bf16 tiles (rows of 32 pixels, output channels), largest first; of two
+# the same size, the wider in channels (it activates each window element
+# once for more output channels: 2 x 256 beats 4 x 128 at every 32^2 shape
+# of the ADM census on an H100).
+TILES = ((4, 256), (2, 256), (4, 128), (2, 128))
+# The least share of its waves' SM slots a grid must fill.
+MIN_FILL = 0.9
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloPlan:
+    """The bf16 kernel's tile for one shape: ``rows`` x 32 output pixels x
+    ``bn`` output channels, ``tiles`` tiles, walked by one persistent block
+    per SM; ``reason`` says why there are fewer tiles than SMs, where there
+    are."""
+    rows: int
+    bn: int
+    tiles: int
+    reason: str = ""
+
+
+def halo_plan(N: int, H: int, W: int, cin: int, cr: int, cout: int,
+              sms: int = SMS) -> HaloPlan:
+    """The largest tile of TILES whose tiles fill their waves of ``sms``
+    to at least MIN_FILL (larger tiles activate each window element for
+    more output channels and read the weights for more pixels); where none
+    does, the tile that gives the most tiles. Raises on a shape the bf16
+    kernel does not take. No split-K: the result stays deterministic."""
+    if W % 32 or cin % KC or cr % KC or cin <= 0:
+        raise ValueError(f"the bf16 halo conv takes W % 32 == 0 and cin, cr % {KC} == 0; "
+                         f"got W={W}, cin={cin}, cr={cr}")
+    fits = [(r, bn, N * (H // r) * (W // 32) * (cout // bn)) for r, bn in TILES
+            if H % r == 0 and cout % bn == 0]
+    if not fits:
+        raise ValueError(f"the bf16 halo conv takes H % 2 == 0 and cout % 128 == 0; "
+                         f"got H={H}, cout={cout}")
+    pixels = f"{N * H * W} output pixels x {cout} channels"
+    for r, bn, tiles in fits:
+        if tiles / (-(-tiles // sms) * sms) >= MIN_FILL:
+            return HaloPlan(r, bn, tiles, "" if tiles >= sms else
+                            f"{pixels}: {tiles} tiles of {r * 32} x {bn} fill {tiles} "
+                            f"of {sms} SMs in one wave; a smaller tile doubles the waves")
+    r, bn, tiles = max(fits, key=lambda f: f[2])
+    return HaloPlan(r, bn, tiles, f"{pixels} make at most {tiles} tiles of "
+                                  f"{r * 32} x {bn}" if tiles < sms else "")
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedHalo:
-    """Conv weights in the kernel's layout for one dtype: bf16 w (cout,
-    9 cin) and w_proj (cout, cr), each output channel's row contiguous;
-    fp32 w (9 cin, cout) and w_proj (cr, cout)."""
+    """Conv weights in the kernel's layout for one dtype. bf16: w (steps,
+    cout, 64), step (c // 64) * 9 + tap for input channel c of the conv,
+    then the projection's steps 9 cin / 64 + c // 64; each row of 64
+    channels in the 128-byte swizzle of wgmma's shared-memory operand
+    (16-byte group g of row n stored at g ^ (n % 8)), so that one TMA bulk
+    copy per step lands it ready for the tensor cores; w_proj is the view
+    of the projection's steps. fp32: w (9 cin, cout) and w_proj (cr,
+    cout)."""
     w: Tensor
     w_proj: Optional[Tensor]
     cin: int
     cout: int
+
+
+def _swizzle128(wk: Tensor) -> Tensor:
+    """(steps, cout, 64) with each row's 16-byte groups g stored at g ^ (n % 8)."""
+    steps, cout, _ = wk.shape
+    g = torch.arange(8, device=wk.device)
+    src = g[None, :] ^ (torch.arange(cout, device=wk.device)[:, None] % 8)  # (cout, 8)
+    idx = src[None, :, :, None].expand(steps, cout, 8, 8)
+    return torch.gather(wk.reshape(steps, cout, 8, 8), 2, idx).reshape(steps, cout, KC)
 
 
 def pack_halo_weights(w: Tensor, w_proj: Optional[Tensor], dtype: torch.dtype,
@@ -100,35 +168,60 @@ def pack_halo_weights(w: Tensor, w_proj: Optional[Tensor], dtype: torch.dtype,
     with torch.no_grad():
         w = w.detach().to(device, dtype)
         wp = None if w_proj is None else w_proj.detach().to(device, dtype)
-        if dtype == torch.bfloat16:
-            wk = w.permute(3, 0, 1, 2).reshape(cout, 9 * cin)
-            wp = None if wp is None else wp.t()
-        else:
-            wk = w.reshape(9 * cin, cout)
-        return PackedHalo(wk.contiguous(), None if wp is None else wp.contiguous(),
-                          cin, cout)
+        if dtype != torch.bfloat16:
+            return PackedHalo(w.reshape(9 * cin, cout).contiguous(),
+                              None if wp is None else wp.contiguous(), cin, cout)
+        cr = 0 if wp is None else wp.shape[0]
+        if cin % KC or cr % KC:
+            raise ValueError(f"the bf16 halo pack takes cin, cr % {KC} == 0; "
+                             f"got cin={cin}, cr={cr}")
+        # (chunk, tap, n, c): step chunk * 9 + tap
+        steps = [w.reshape(9, cin // KC, KC, cout).permute(1, 0, 3, 2)
+                 .reshape(9 * cin // KC, cout, KC)]
+        if wp is not None:
+            steps.append(wp.reshape(cr // KC, KC, cout).permute(0, 2, 1))
+        wk = _swizzle128(torch.cat(steps).contiguous()).contiguous()
+        return PackedHalo(wk, None if wp is None else wk[9 * cin // KC:], cin, cout)
+
+
+def check_halo_shape(dtype: torch.dtype, x_shape, w_shape, cr: int, proj: bool,
+                     sms: int = SMS) -> Optional[HaloPlan]:
+    """Raise on what the kernel for ``dtype`` does not take; the bf16 plan.
+    x (N, H, W, cin), w (3, 3, cin, cout), a skip of cr channels (0: none),
+    projected or not."""
+    if dtype not in _cuda.DTYPE_CODE or len(x_shape) != 4:
+        raise ValueError(f"the halo conv takes NHWC fp32 or bf16, not {dtype} "
+                         f"{tuple(x_shape)}")
+    N, H, W, cin = x_shape
+    cout = w_shape[-1]
+    if tuple(w_shape) != (3, 3, cin, cout):
+        raise ValueError(f"the halo conv takes a (3, 3, {cin}, cout) kernel, not "
+                         f"{tuple(w_shape)}")
+    if cr and not proj and cr != cout:
+        raise ValueError(f"an identity skip needs {cout} channels, not {cr}")
+    if proj and not cr:
+        raise ValueError("w_proj needs a skip")
+    if dtype == torch.bfloat16:
+        return halo_plan(N, H, W, cin, cr, cout, sms)
+    if H % 4 or W % 32 or cin % 32 or cout % 64 or cr % 32:
+        raise ValueError(f"the fp32 halo conv takes H % 4 == 0, W % 32 == 0, cin and "
+                         f"cr % 32 == 0, cout % 64 == 0; got x {tuple(x_shape)}, "
+                         f"cout {cout}, skip channels {cr}")
+    return None
 
 
 def _launch(x: Tensor, A: Tensor, B: Tensor, w: Tensor, bias: Tensor,
             skip: Optional[Tensor], w_proj: Optional[Tensor],
             packed: Optional[PackedHalo]) -> Tensor:
     dev, dtype = x.device, x.dtype
-    if dtype not in _cuda.DTYPE_CODE or x.ndim != 4:
-        raise ValueError(f"the halo conv takes NHWC fp32 or bf16, not {dtype} "
-                         f"{tuple(x.shape)}")
+    if w_proj is not None and skip is not None and tuple(w_proj.shape) != (skip.shape[-1],
+                                                                          w.shape[-1]):
+        raise ValueError("w_proj needs the shape (cr, cout)")
     N, H, W, cin = x.shape
     cout = w.shape[-1]
     cr = skip.shape[-1] if skip is not None else 0
-    if tuple(w.shape) != (3, 3, cin, cout) or H % 4 or W % 32 or cin % 32 \
-            or cout % 64 or cr % 32:
-        raise ValueError(f"the halo conv takes H % 4 == 0, W % 32 == 0, cin and "
-                         f"cr % 32 == 0, cout % 64 == 0 and a (3, 3, cin, cout) "
-                         f"kernel; got x {tuple(x.shape)}, w {tuple(w.shape)}, "
-                         f"skip channels {cr}")
-    if skip is not None and w_proj is None and cr != cout:
-        raise ValueError(f"an identity skip needs {cout} channels, not {cr}")
-    if w_proj is not None and (skip is None or tuple(w_proj.shape) != (cr, cout)):
-        raise ValueError("w_proj needs a skip and the shape (cr, cout)")
+    plan = check_halo_shape(dtype, x.shape, w.shape, cr, w_proj is not None,
+                            sms=_cuda.num_sms(dev))
     pk = packed or pack_halo_weights(w, w_proj, dtype, dev)
     if pk.cin != cin or pk.cout != cout or pk.w.dtype != dtype or pk.w.device != dev \
             or (pk.w_proj is None) != (w_proj is None):
@@ -144,7 +237,8 @@ def _launch(x: Tensor, A: Tensor, B: Tensor, w: Tensor, bias: Tensor,
     err = _cuda.lib().diffpure_halo_conv(
         _cuda.DTYPE_CODE[dtype], p_x, N, H, W, cin, p_a, p_b, pk.w.data_ptr(),
         p_bias, p_skip, cr, 0 if pk.w_proj is None else pk.w_proj.data_ptr(),
-        cout, out.data_ptr(), _cuda.stream(dev))
+        cout, out.data_ptr(), plan.rows if plan else 0, plan.bn if plan else 0,
+        _cuda.stream(dev))
     _cuda.check(err, "halo conv kernel")
     return out
 

@@ -49,3 +49,19 @@ def test_flash_attention_has_no_fallback_off_the_cpu():
     q = torch.empty(2, 64, 64, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         fa.flash_attention(q, q, q, 0.5)
+
+
+@pytest.mark.parametrize("dtype,T,D,ok", [
+    (torch.bfloat16, 1024, 64, True), (torch.float32, 1024, 64, True),
+    (torch.bfloat16, 256, 64, True), (torch.float32, 192, 64, True),
+    (torch.bfloat16, 192, 64, False), (torch.float32, 96, 64, False),
+    (torch.bfloat16, 1024, 32, False), (torch.float32, 1024, 128, False),
+])
+def test_flash_shape_gate(dtype, T, D, ok):
+    """The kernel's gate: D == 64, T a multiple of 128 (bf16) or 64 (fp32);
+    the ADM-256 shape (T = 1024) passes in both dtypes."""
+    if ok:
+        fa.check_flash_shape(dtype, T, D)
+    else:
+        with pytest.raises(ValueError, match="D == 64"):
+            fa.check_flash_shape(dtype, T, D)
