@@ -7,15 +7,20 @@ defences once on one NVIDIA GPU.
 Phases, each fatal on failure:
   1. versions, the card's name and power limit, and the build of the CUDA
      kernels from diffpure_tpu_torch/csrc (timed); the count of wgmma
-     (HGMMA) instructions in the SASS of the halo conv and flash attention,
-     which must be non-zero for their bf16 kernels;
+     (HGMMA) instructions in the SASS of the halo conv, flash attention and
+     the CIFAR block GEMM, which must be non-zero for their bf16 kernels;
   2. each hand-written kernel against its plain PyTorch version on the card,
      at every shape the CIFAR-10 NCSN++ gives it, batch 8, bf16 and fp32,
-     with seeded random-normal weights; kernel and plain times per shape;
+     and the bf16 blocks again at batch 128, with seeded random-normal
+     weights; per shape the wrappers' CUDA-event time, the kernels' device
+     time (profiler), the plain time, and for the bf16 blocks TFLOP/s, the
+     share of the bound and cuDNN's convs as a yardstick;
   3. the slice: DefendedModel (full-width configs/cifar10.yml NCSN++ with a
      bf16 torso + WRN-28-10, seeded random weights) on 8 seeded images at
      t*=100 through get_accuracy under inference_mode; the kernel launch
      counters must read exactly 40, 36 and 10 per score evaluation;
+  3b. the same at batch 128 (the CIFAR batch of the JAX bench), cold and
+     warm, with the same counters per evaluation;
   4. the same purification at t*=5 once through the kernels (on the card)
      and once through the plain versions (on the CPU, where the wrappers
      take them), with the same noise; the purified images must agree;
@@ -70,7 +75,11 @@ after that phase (a short first run of changed kernels; prints no result
 line).
 ``--profile-adm`` (``--profile-ddpm``) profiles the ImageNet ADM's (the
 score_sde DDPM's) evaluation after phase 1 and ends (device time by kernel
-family, idle share; profile_adm.json, profile_ddpm.json).
+family, idle share; profile_adm.json, profile_ddpm.json);
+``--profile-cifar`` the CIFAR NCSN++'s at batch 8 and 128, with the block
+chains' steps and the host time per block call (profile_cifar.json).
+``--timing-only`` runs the timing phases 1, 2, 3, 3b and 5 and ends (no
+result line): the runs to set beside another commit's in one call.
 """
 from __future__ import annotations
 
@@ -87,6 +96,7 @@ N = 8
 SEED = 0
 CIFAR_PARAMS = 106_632_579
 EVALS = 100  # t* = 100 Euler steps, one score evaluation each
+CIFAR_BIG_N = 128  # the CIFAR batch of the JAX bench (bench.py:38 BATCH)
 # kernel -> (source, TPU kernel it replaces, launches per score evaluation)
 KERNELS = {
     "fused_resblock": ("diffpure_tpu_torch/csrc/fused_resblock.cu",
@@ -162,7 +172,7 @@ ADM_KERNELS = {
                         "diffpure_tpu/ops/flash_attention.py:145"),
 }
 # The bf16 kernels that must run on wgmma: HGMMA in their SASS (phase 1).
-WGMMA_KERNELS = ("halo_wgmma_kernel", "flash_wgmma_kernel")
+WGMMA_KERNELS = ("halo_wgmma_kernel", "flash_wgmma_kernel", "rb_wgmma_kernel")
 # Phase 9, card (kernels) against CPU (plain versions), max abs error over
 # max |CPU|. One full-width ADM evaluation: fp32 differs by summation order
 # only (the port's fp32 ADM and JAX's sit 1.5e-6 apart at the small ADM of
@@ -256,9 +266,9 @@ def bound_ms(records, dtype_name="bfloat16"):
     return total, max(by, key=by.get)
 
 
-def block_inputs(torch, dev, i, name, rs, H, c1, c2, cout):
-    """Seeded random-normal block weights and fp32 inputs (x, temb) for the
-    i-th shape of the census, on dev."""
+def block_inputs(torch, dev, i, name, rs, H, c1, c2, cout, n=N):
+    """Seeded random-normal block weights and fp32 inputs (x, temb) at batch
+    n for the i-th shape of the census, on dev."""
     import numpy as np
 
     def normal(*shape, fan_in=None, scale=1.0, shift=0.0):
@@ -281,23 +291,84 @@ def block_inputs(torch, dev, i, name, rs, H, c1, c2, cout):
                   normal(cout, cout, 3, 3, fan_in=9 * cout), normal(cout, scale=0.1),
                   normal(cout, cin, fan_in=cin) if proj else None,
                   normal(cout, scale=0.1) if proj else None]
-    return tuple(params), normal(N, H, H, cin), normal(N, cout, scale=0.3), normal
+    return tuple(params), normal(n, H, H, cin), normal(n, cout, scale=0.3), normal
 
 
-def phase_kernels(torch, dev, shapes):
+def device_ms(torch, fn, reps=10):
+    """The kernels' own device time per call of fn, from the profiler over
+    ``reps`` back-to-back calls (without the host's gaps between them): the
+    total, and its GEMM, GroupNorm and split-K shares (CHAIN_KINDS)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler session now and then records no kernel: take another
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by = {"total": 0.0, "gemm": 0.0, "gn": 0.0, "splitk": 0.0}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0) or 0
+            if not str(e.device_type).endswith("CUDA") or us <= 0:
+                continue
+            by["total"] += us / 1e3 / reps
+            kind = next((k for k, frags in CHAIN_KINDS if any(f in e.key for f in frags)), None)
+            if kind in by:
+                by[kind] += us / 1e3 / reps
+        if by["total"] > 0:
+            return by
+    raise AssertionError("three profiler sessions recorded no device time")
+
+
+def conv_yardstick(torch, params, rs, H, cin, cout, n):
+    """cuDNN's F.conv2d on channels_last bf16 for a block's two 3x3 convs and
+    its 1x1 projection (on the output grid), at batch n: a yardstick for the
+    block's GEMMs only (not the same function: no GroupNorm, no epilogue),
+    on no path of the port. Returns (CUDA-event ms, device ms) per call."""
+    import torch.nn.functional as F
+
+    Ho = {"none": H, "down": H // 2, "up": 2 * H}[rs]
+    cl = dict(memory_format=torch.channels_last)
+    bf = torch.bfloat16
+
+    def act(c):
+        return torch.randn(n, c, Ho, Ho, device=params[2].device, dtype=bf).contiguous(**cl)
+    a1, a2 = act(cin), act(cout)
+    w0 = params[2].to(bf).contiguous(**cl)
+    w1 = params[6].to(bf).contiguous(**cl)
+    wp = None if params[8] is None else params[8].to(bf)[:, :, None, None].contiguous(**cl)
+    xs = act(cin) if wp is not None else None
+
+    def call():
+        F.conv2d(a1, w0, padding=1)
+        F.conv2d(a2, w1, padding=1)
+        if wp is not None:
+            F.conv2d(xs, wp)
+    return cuda_ms(torch, call), device_ms(torch, call)["total"]
+
+
+def phase_kernels(torch, dev, shapes, n=N, dtypes=("bfloat16", "float32")):
     """Kernel against plain at every main-path shape ``shapes``:
-    (kernel, resample, H, c1, c2, cout) -> calls per evaluation; returns the
-    per-shape records."""
+    (kernel, resample, H, c1, c2, cout) -> calls per evaluation, at batch
+    n; returns the per-shape records: CUDA-event ms of back-to-back wrapper
+    calls (which measure the host where the kernels take less) and the
+    kernels' device ms (profiler), plain ms; for the bf16 blocks also the
+    GEMMs' share of the device time, TFLOP/s and share of the bound, and
+    cuDNN's convs as a yardstick (conv_library_ms)."""
     from diffpure_tpu_torch.ops import fused_attnblock as fab
     from diffpure_tpu_torch.ops import fused_resblock as frb
     from diffpure_tpu_torch.ops.groupnorm import ncsn_num_groups
 
     records = []
     for i, ((name, rs, H, c1, c2, cout), calls) in enumerate(sorted(shapes.items())):
-        params, x32, temb32, _ = block_inputs(torch, dev, i, name, rs, H, c1, c2, cout)
+        if n != N and name == "fused_attnblock":
+            continue
+        params, x32, temb32, _ = block_inputs(torch, dev, i, name, rs, H, c1, c2, cout, n)
         cin = c1 + c2
         g1, g2 = ncsn_num_groups(cin), ncsn_num_groups(cout)
-        for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        for dtype_name in dtypes:
+            dtype = getattr(torch, dtype_name)
             x, temb = x32.to(dtype), temb32.to(dtype)
             if name == "fused_attnblock":
                 pk = fab.pack_attnblock_params(params, dtype, dev)
@@ -319,21 +390,40 @@ def phase_kernels(torch, dev, shapes):
                     resample=rs, packed=pk)
                 plain = lambda: frb.fused_resblock_reference(  # noqa: E731
                     x, temb, params, num_groups1=g1, num_groups2=g2, resample=rs)
-            got = kern()
-            torch.cuda.synchronize()
-            want = plain()
-            err = float((got.float() - want.float()).abs().max())
-            scale = float(want.float().abs().max())
-            ok = bool(torch.isfinite(got.float()).all()) and err <= REL[dtype_name] * scale
-            rec = dict(kernel=name, resample=rs, H=H, c1=c1, c2=c2, cout=cout,
-                       calls_per_eval=calls, dtype=dtype_name, max_abs_err=err,
-                       rel_err=err / scale, rel_tol=REL[dtype_name],
-                       ms=cuda_ms(torch, kern), plain_ms=cuda_ms(torch, plain), ok=ok)
+            with torch.inference_mode():
+                got = kern()
+                torch.cuda.synchronize()
+                want = plain()
+                err = float((got.float() - want.float()).abs().max())
+                scale = float(want.float().abs().max())
+                ok = bool(torch.isfinite(got.float()).all()) and err <= REL[dtype_name] * scale
+                dev_ms = device_ms(torch, kern)
+                rec = dict(kernel=name, resample=rs, H=H, c1=c1, c2=c2, cout=cout, batch=n,
+                           calls_per_eval=calls, dtype=dtype_name, max_abs_err=err,
+                           rel_err=err / scale, rel_tol=REL[dtype_name],
+                           ms=cuda_ms(torch, kern), device_ms=dev_ms["total"],
+                           device_ms_by=dev_ms,
+                           plain_ms=cuda_ms(torch, plain, reps=20 if n == N else 5), ok=ok)
+                line = ""
+                if name != "fused_attnblock" and dtype_name == "bfloat16":
+                    flops, nbytes = block_cost(name, rs, H, c1, c2, cout, n, 2)
+                    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES
+                    lib_ms, lib_dev = conv_yardstick(torch, params, rs, H, cin, cout, n)
+                    rec.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
+                               bound_by="operations" if t_ops >= t_bytes else "bytes",
+                               tflops=flops / rec["device_ms"] / 1e9,
+                               gemm_tflops=flops / max(dev_ms["gemm"], 1e-9) / 1e9,
+                               conv_library_ms=lib_ms, conv_library_device_ms=lib_dev)
+                    rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+                    line = (f" ({rec['tflops']:.1f} TFLOP/s, GEMM {rec['gemm_tflops']:.1f}, "
+                            f"{rec['bound_share']:.3f} of bound) cuDNN convs {lib_ms:.4f} ms "
+                            f"(device {lib_dev:.4f})")
             records.append(rec)
             log(f"  {name:18s} {rs:4s} {H:2d}x{H:<2d} {c1:3d}+{c2:<3d}->{cout:3d} "
-                f"{dtype_name:8s} err {err:.3e} (rel {err / scale:.2e} <= "
-                f"{REL[dtype_name]:.0e}) kernel {rec['ms']:.4f} ms plain "
-                f"{rec['plain_ms']:.4f} ms {'ok' if ok else 'FAIL'}")
+                f"b{n:<3d} {dtype_name:8s} rel err {err / scale:.2e} <= {REL[dtype_name]:.0e} "
+                f"kernel {rec['ms']:.4f} ms device {rec['device_ms']:.4f} ms (GEMM "
+                f"{dev_ms['gemm']:.4f}, GN {dev_ms['gn']:.4f}) plain {rec['plain_ms']:.4f} ms"
+                f"{line} {'ok' if ok else 'FAIL'}")
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel checks failed: {bad}")
@@ -674,7 +764,115 @@ def profile_eval(torch, model, x, t, evals=3):
     kernels.sort(key=lambda r: -r[1])
     return dict(wall_ms_per_eval=wall_ms / evals, device_ms_per_eval=busy,
                 idle_share=max(0.0, 1.0 - busy * evals / wall_ms), by_family=by,
-                top_kernels=kernels[:25])
+                top_kernels=kernels[:25], chain_steps=chain_steps(prof, evals))
+
+
+# Kernel-name fragments of the CIFAR block chains' launches (#1/#2 and #3):
+# the GroupNorm pass, the GEMM (the mma.sync one and the wgmma one), the
+# split-K pass, the attention core.
+CHAIN_KINDS = (("gn", ("gn_apply_kernel", "rb_gn_kernel")), ("gemm", ("igemm_", "rb_wgmma_kernel")),
+               ("splitk", ("splitk_",)), ("attn", ("attn_kernel",)))
+
+
+def chain_steps(prof, evals):
+    """Device ms per evaluation of each step of the NCSN++ block chains, from
+    the profiler's kernels in launch order. A block call's launches follow
+    each other with no other kernel between: a run of chain kernels splits
+    at each GroupNorm pass into segments; a segment with the attention core
+    is an attention block (#3); the others alternate GN1 + conv0 and GN2 +
+    conv1 (a resblock's chain never shares a run with another resblock: the
+    temb row's plain ops come first)."""
+    from collections import Counter
+
+    evs = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+                 key=lambda e: e.time_range.start)
+    steps, run = Counter(), []
+
+    def flush():
+        segs = []
+        for kind, dur in run:
+            if kind == "gn" and (not segs or segs[-1][-1][0] != "gn"):
+                segs.append([])
+            if segs:
+                segs[-1].append((kind, dur))
+        n_res = 0
+        for seg in segs:
+            if any(k == "attn" for k, _ in seg):
+                steps["attention block (#3)"] += sum(d for _, d in seg)
+                continue
+            first = n_res % 2 == 0
+            n_res += 1
+            for k, d in seg:
+                steps[{"gn": "GN1 pass" if first else "GN2 pass",
+                       "gemm": "conv0" if first else "conv1",
+                       "splitk": "split-K pass"}[k]] += d
+        run.clear()
+
+    for e in evs:
+        kind = next((k for k, frags in CHAIN_KINDS if any(f in e.name for f in frags)), None)
+        if kind is None:
+            flush()
+        else:
+            run.append((kind, e.time_range.end - e.time_range.start))
+    flush()
+    return {k: v / 1e3 / evals for k, v in steps.items()}
+
+
+def host_us_per_call(torch, dev):
+    """Host microseconds per resblock call at batch 8, bf16: back-to-back
+    calls timed on the host clock up to the last enqueue, once through
+    ops/fused_resblock._launch and once through the public wrapper under
+    inference_mode; beside them the CUDA-event ms per call (the device
+    keeps up with the host where it is below the host's time)."""
+    from diffpure_tpu_torch.ops import fused_resblock as frb
+    from diffpure_tpu_torch.ops.groupnorm import ncsn_num_groups
+
+    out = {}
+    for rs, H, c, cout in (("none", 4, 256, 256), ("none", 32, 128, 128)):
+        params, x32, temb32, _ = block_inputs(torch, dev, 0, "fused_resblock", rs, H, c, 0, cout)
+        x, temb = x32.to(torch.bfloat16), temb32.to(torch.bfloat16)
+        g1, g2 = ncsn_num_groups(c), ncsn_num_groups(cout)
+        pk = frb.pack_resblock_params(params, torch.bfloat16, dev)
+        calls = {
+            "_launch": lambda: frb._launch(x, None, temb, pk, g1, g2, 1e-6, True, rs),
+            "fused_resblock": lambda: frb.fused_resblock(
+                x, temb, params, num_groups1=g1, num_groups2=g2, resample=rs, packed=pk)}
+        for what, fn in calls.items():
+            reps = 150
+            with torch.inference_mode():
+                ms = cuda_ms(torch, fn, reps=reps, warmup=10)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                host = (time.perf_counter() - t0) / reps * 1e6
+                torch.cuda.synchronize()
+            out[f"{what} {H}x{H} {c}->{cout}"] = dict(host_us=host, cuda_event_ms=ms)
+    return out
+
+
+def profile_cifar(torch, dev, smi):
+    """--profile-cifar: warm evaluations of the full-width NCSN++ (bf16
+    torso) at batch 8 and 128 under the profiler (device ms by kernel, the
+    block chains' steps, idle share), and the host time per block call."""
+    score, _ = build_models(torch, dev, torch.bfloat16)
+    res = dict(card=smi)
+    for n in (N, CIFAR_BIG_N):
+        log(f"== profile: CIFAR NCSN++ evaluations, batch {n}, bf16")
+        x, t = torch.randn(n, 32, 32, 3, device=dev), torch.full((n,), 99.9, device=dev)
+        prof = profile_eval(torch, score, x, t)
+        res[f"batch_{n}"] = prof
+        log(f"  wall {prof['wall_ms_per_eval']:.3f} ms, device {prof['device_ms_per_eval']:.3f} "
+            f"ms per evaluation, idle share {prof['idle_share']:.3f} on {smi}")
+        for step, ms in sorted(prof["chain_steps"].items(), key=lambda kv: -kv[1]):
+            log(f"  chain step {step:24s} {ms:8.3f} ms")
+        for name, ms, calls in prof["top_kernels"][:12]:
+            log(f"  {ms:8.3f} ms x{calls:<4d} {name[:100]}")
+    res["host_us"] = host_us_per_call(torch, dev)
+    for k, v in res["host_us"].items():
+        log(f"  host {k:36s} {v['host_us']:8.1f} us per call (CUDA events "
+            f"{v['cuda_event_ms'] * 1e3:8.1f} us)")
+    (OUT / "profile_cifar.json").write_text(json.dumps(res, indent=1))
 
 
 def build_ddpm(torch, dev):
@@ -878,6 +1076,13 @@ def main() -> int:
     ap.add_argument("--profile-ddpm", action="store_true",
                     help="after phase 1, profile warm score_sde DDPM evaluations "
                          "(batch 8, fp32) and end (no result line)")
+    ap.add_argument("--profile-cifar", action="store_true",
+                    help="after phase 1, profile warm CIFAR NCSN++ evaluations (batch 8 "
+                         "and 128, bf16; the block chains' steps) and the host time per "
+                         "block call, and end (no result line)")
+    ap.add_argument("--timing-only", action="store_true",
+                    help="run only the timing phases 1, 2, 3, 3b and 5 (the runs to set "
+                         "beside another commit's in one call) and end (no result line)")
     args = ap.parse_args()
     import torch
 
@@ -925,12 +1130,15 @@ def main() -> int:
         (OUT / "build.log").write_text(build_log.read_text())
     wgmma = sass_wgmma(torch, _cuda.build())
     for fn, n in sorted(wgmma.items()):
-        if "halo" in fn or "flash" in fn:
+        if any(k in fn for k in ("halo", "flash", "rb_wgmma")):
             log(f"  SASS: {n:5d} HGMMA in {fn}")
     no_wgmma = [k for k in WGMMA_KERNELS if not any(k in fn and n for fn, n in wgmma.items())]
     if no_wgmma:
         raise AssertionError(f"no wgmma (HGMMA) in the SASS of {no_wgmma}")
     phase_done("1")
+    if args.profile_cifar:
+        profile_cifar(torch, dev, smi)
+        return 3
     if args.profile_adm or args.profile_ddpm:
         if args.profile_adm:
             what, tag, n = "ImageNet ADM", "adm", ADM_N
@@ -962,65 +1170,69 @@ def main() -> int:
     if per_eval != {k: v[2] for k, v in KERNELS.items()}:
         raise AssertionError(f"block calls per evaluation {per_eval}")
     records = phase_kernels(torch, dev, shapes)
+    log(f"== phase 2 at batch {CIFAR_BIG_N} (bench.py's CIFAR batch), bf16 blocks")
+    big_records = phase_kernels(torch, dev, shapes, n=CIFAR_BIG_N, dtypes=("bfloat16",))
     phase_done("2")
-
-    # ---- phase 2b -----------------------------------------------------------
-    log("== phase 2b: backward kernel against plain at the main-path shapes, batch 8")
-    bwd_records = phase_bwd_kernels(torch, dev, shapes)
-    phase_done("2b")
-    (OUT / "result.json").write_text(json.dumps(dict(
-        card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-        wgmma=wgmma, shapes=records, bwd_shapes=bwd_records, phase_s=phase_s), indent=1))
-    if args.stop_after == "2b":
-        log("stopped after phase 2b as asked (partial run)")
-        return 3
-
-    # ---- phase 2c -----------------------------------------------------------
-    log(f"== phase 2c: 256-px kernels against plain at the ImageNet ADM's shapes, "
-        f"batch {ADM_N}")
-    adm = build_adm(torch, dev)
-    x256 = torch.from_numpy(rng.standard_normal((ADM_N, 256, 256, 3)).astype(np.float32))
-    census = adm_census(torch, adm, x256.to(dev))
-    adm_per_eval = {k: sum(c for (n, _), c in census.items() if n == k) for k in ADM_KERNELS}
-    log(f"  launches per evaluation: {adm_per_eval}; {len(census)} shapes")
-    if min(adm_per_eval.values()) == 0:
-        raise AssertionError(f"a 256-px kernel is off the ADM's path: {adm_per_eval}")
-    adm_records = phase_adm_kernels(torch, dev, census)
-    phase_done("2c")
-    (OUT / "result.json").write_text(json.dumps(dict(
-        card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-        wgmma=wgmma, shapes=records, bwd_shapes=bwd_records, adm_shapes=adm_records,
-        adm_per_eval=adm_per_eval, phase_s=phase_s), indent=1))
-    if args.stop_after == "2c":
-        log("stopped after phase 2c as asked (partial run)")
-        return 3
-
-    # ---- phase 2d -----------------------------------------------------------
-    log(f"== phase 2d: GroupNorm+SiLU at the score_sde DDPM's shapes and fused bias + "
-        f"leaky ReLU, batch {N}")
-    ddpm = build_ddpm(torch, dev)
-    gn_census, attn_census, ddpm_flops = ddpm_census(torch, ddpm, x01 * 2 - 1)
-    log(f"  GNSiLU calls per evaluation: {sum(gn_census.values())} at {len(gn_census)} "
-        f"shapes {gn_census}; attention blocks {attn_census}; {ddpm_flops / 1e9:.2f} GFLOP "
-        f"per evaluation at batch {N}")
-    if not gn_census or not attn_census:
-        raise AssertionError("the DDPM's census found no GNSiLU or no attention block")
-    gn_act_records = phase_gn_act_kernels(torch, dev, gn_census)
-    ddpm_shapes = {kind: {f"{H}x{H}x{C}": n for (H, C), n in census.items()}
-                   for kind, census in (("gn_silu", gn_census), ("attention", attn_census))}
-    ddpm_shapes["flops_per_eval"] = ddpm_flops
-    phase_done("2d")
-    if args.stop_after == "2d":
-        (OUT / "result.json").write_text(json.dumps(dict(
-            card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-            shapes=records, bwd_shapes=bwd_records, adm_shapes=adm_records,
-            gn_act_shapes=gn_act_records, ddpm_census=ddpm_shapes, phase_s=phase_s),
-            indent=1))
-        log("stopped after phase 2d as asked (partial run)")
-        return 3
     zero_bwd = {k: 0 for k in BWD_KERNELS}
     zero_adm = {k: 0 for k in ADM_KERNELS}
     zero_ddpm = {k: 0 for k in DDPM_KERNELS}
+
+    if not args.timing_only:  # 2b, 2c, 2d check kernels: no timings to compare
+        # ---- phase 2b -------------------------------------------------------
+        log("== phase 2b: backward kernel against plain at the main-path shapes, batch 8")
+        bwd_records = phase_bwd_kernels(torch, dev, shapes)
+        phase_done("2b")
+        (OUT / "result.json").write_text(json.dumps(dict(
+            card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
+            wgmma=wgmma, shapes=records, big_shapes=big_records, bwd_shapes=bwd_records,
+            phase_s=phase_s), indent=1))
+        if args.stop_after == "2b":
+            log("stopped after phase 2b as asked (partial run)")
+            return 3
+
+        # ---- phase 2c -------------------------------------------------------
+        log(f"== phase 2c: 256-px kernels against plain at the ImageNet ADM's shapes, "
+            f"batch {ADM_N}")
+        adm = build_adm(torch, dev)
+        x256 = torch.from_numpy(rng.standard_normal((ADM_N, 256, 256, 3)).astype(np.float32))
+        census = adm_census(torch, adm, x256.to(dev))
+        adm_per_eval = {k: sum(c for (n, _), c in census.items() if n == k) for k in ADM_KERNELS}
+        log(f"  launches per evaluation: {adm_per_eval}; {len(census)} shapes")
+        if min(adm_per_eval.values()) == 0:
+            raise AssertionError(f"a 256-px kernel is off the ADM's path: {adm_per_eval}")
+        adm_records = phase_adm_kernels(torch, dev, census)
+        phase_done("2c")
+        (OUT / "result.json").write_text(json.dumps(dict(
+            card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
+            wgmma=wgmma, shapes=records, bwd_shapes=bwd_records, adm_shapes=adm_records,
+            adm_per_eval=adm_per_eval, phase_s=phase_s), indent=1))
+        if args.stop_after == "2c":
+            log("stopped after phase 2c as asked (partial run)")
+            return 3
+
+        # ---- phase 2d -------------------------------------------------------
+        log(f"== phase 2d: GroupNorm+SiLU at the score_sde DDPM's shapes and fused bias + "
+            f"leaky ReLU, batch {N}")
+        ddpm = build_ddpm(torch, dev)
+        gn_census, attn_census, ddpm_flops = ddpm_census(torch, ddpm, x01 * 2 - 1)
+        log(f"  GNSiLU calls per evaluation: {sum(gn_census.values())} at {len(gn_census)} "
+            f"shapes {gn_census}; attention blocks {attn_census}; {ddpm_flops / 1e9:.2f} GFLOP "
+            f"per evaluation at batch {N}")
+        if not gn_census or not attn_census:
+            raise AssertionError("the DDPM's census found no GNSiLU or no attention block")
+        gn_act_records = phase_gn_act_kernels(torch, dev, gn_census)
+        ddpm_shapes = {kind: {f"{H}x{H}x{C}": n for (H, C), n in census.items()}
+                       for kind, census in (("gn_silu", gn_census), ("attention", attn_census))}
+        ddpm_shapes["flops_per_eval"] = ddpm_flops
+        phase_done("2d")
+        if args.stop_after == "2d":
+            (OUT / "result.json").write_text(json.dumps(dict(
+                card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
+                shapes=records, bwd_shapes=bwd_records, adm_shapes=adm_records,
+                gn_act_shapes=gn_act_records, ddpm_census=ddpm_shapes, phase_s=phase_s),
+                indent=1))
+            log("stopped after phase 2d as asked (partial run)")
+            return 3
 
     # ---- phase 3 ------------------------------------------------------------
     log("== phase 3: DefendedModel, t*=100, bf16 NCSN++ + WRN-28-10, batch 8")
@@ -1058,30 +1270,58 @@ def main() -> int:
     log(f"slice (warm run): {runs[1]['images_per_s']:.3f} images/s on {smi}")
     phase_done("3")
 
-    # ---- phase 4 ------------------------------------------------------------
-    log("== phase 4: purification t*=5, kernels (GPU) against plain (CPU)")
-    cfg5 = PurifyConfig(t=5, grad_mode="none")
-    x5 = x01[:2]
-    slice_checks = {}
-    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        score.dtype = dtype
+    # ---- phase 3b -----------------------------------------------------------
+    log(f"== phase 3b: DefendedModel, t*=100, bf16 NCSN++ + WRN-28-10, batch {CIFAR_BIG_N}")
+    x128 = torch.from_numpy(rng.uniform(size=(CIFAR_BIG_N, 32, 32, 3)).astype(np.float32)).to(dev)
+    y128 = torch.from_numpy(rng.integers(0, 10, CIFAR_BIG_N)).to(dev)
+    big_runs = []
+    for run in ("cold", "warm"):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
         with torch.inference_mode():
-            got = DefendedModel(score, clf, cfg5, log_every=0).purify(x5, FixedNoise(SEED + 4))
-        score.cpu()
-        with torch.inference_mode():
-            want = DefendedModel(score, clf, cfg5, log_every=0).purify(
-                x5.cpu(), FixedNoise(SEED + 4))
-        score.to(dev)
-        err = float((got.cpu() - want).abs().max())
-        scale = float(want.abs().max())
-        ok = bool(torch.isfinite(got).all()) and err <= SLICE_REL[dtype_name] * scale
-        slice_checks[dtype_name] = dict(max_abs_err=err, rel_err=err / scale,
-                                        rel_tol=SLICE_REL[dtype_name], ok=ok)
-        log(f"  {dtype_name}: max |kernel - plain| {err:.3e} (rel {err / scale:.2e} <= "
-            f"{SLICE_REL[dtype_name]:.0e}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"slice {dtype_name}: kernel and plain disagree")
-    phase_done("4")
+            acc = get_accuracy(model_fn, x128, y128, seed=SEED + 8, bs=CIFAR_BIG_N)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        big_runs.append(dict(run=run, wall_s=wall, images_per_s=CIFAR_BIG_N / wall,
+                             counts=counts, peak_gib=peak))
+        log(f"  {run}: {wall:.3f} s, {CIFAR_BIG_N / wall:.3f} images/s on {smi}, accuracy "
+            f"{acc:.3f} (random weights); peak device memory {peak:.2f} GiB; launches {counts}")
+        if counts != want:  # one defended call of 100 evaluations: as phase 3's
+            raise AssertionError(f"launch counts {counts} != {want}")
+    out = logits[-1]
+    if tuple(out.shape) != (CIFAR_BIG_N, 10) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"bad logits: shape {tuple(out.shape)}")
+    phase_done("3b")
+
+    if not args.timing_only:
+        # ---- phase 4 --------------------------------------------------------
+        log("== phase 4: purification t*=5, kernels (GPU) against plain (CPU)")
+        cfg5 = PurifyConfig(t=5, grad_mode="none")
+        x5 = x01[:2]
+        slice_checks = {}
+        for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            score.dtype = dtype
+            with torch.inference_mode():
+                got = DefendedModel(score, clf, cfg5, log_every=0).purify(x5, FixedNoise(SEED + 4))
+            score.cpu()
+            with torch.inference_mode():
+                want = DefendedModel(score, clf, cfg5, log_every=0).purify(
+                    x5.cpu(), FixedNoise(SEED + 4))
+            score.to(dev)
+            err = float((got.cpu() - want).abs().max())
+            scale = float(want.abs().max())
+            ok = bool(torch.isfinite(got).all()) and err <= SLICE_REL[dtype_name] * scale
+            slice_checks[dtype_name] = dict(max_abs_err=err, rel_err=err / scale,
+                                            rel_tol=SLICE_REL[dtype_name], ok=ok)
+            log(f"  {dtype_name}: max |kernel - plain| {err:.3e} (rel {err / scale:.2e} <= "
+                f"{SLICE_REL[dtype_name]:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"slice {dtype_name}: kernel and plain disagree")
+        phase_done("4")
 
     # ---- phase 5 ------------------------------------------------------------
     log(f"== phase 5: input gradient of CE(DefendedModel), t*=100, bf16, batch {GRAD_N}")
@@ -1118,6 +1358,13 @@ def main() -> int:
             if counts != want:
                 raise AssertionError(f"{mode}: launch counts {counts} != {want}")
     phase_done("5")
+    if args.timing_only:
+        (OUT / "result.json").write_text(json.dumps(dict(
+            card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
+            wgmma=wgmma, shapes=records, big_shapes=big_records, slice_runs=runs,
+            big_runs=big_runs, grad_runs=grad_runs, phase_s=phase_s), indent=1))
+        log("timing phases done as asked (partial run)")
+        return 3
 
     # ---- phase 6 ------------------------------------------------------------
     # The gradient of sum(w * purified image) for a seeded cotangent w: the
@@ -1416,7 +1663,8 @@ def main() -> int:
             library_ms=None))  # no single PyTorch call computes either
     (OUT / "result.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-        wgmma=wgmma, shapes=records, bwd_shapes=bwd_records, slice_runs=runs, slice_checks=slice_checks,
+        wgmma=wgmma, shapes=records, big_shapes=big_records, bwd_shapes=bwd_records,
+        slice_runs=runs, big_runs=big_runs, slice_checks=slice_checks,
         grad_runs=grad_runs, grad_checks=grad_checks,
         attack=dict(seconds=attack_s, counts=attack_counts, classifier_robust_acc=accs[0],
                     defended_robust_acc=accs[1], max_dist=dist),

@@ -18,7 +18,11 @@ of its input gradient:
   :941). Weight cotangents come from autograd of the plain version, and only
   when asked for, as JAX takes them from a subgraph XLA drops when unused.
   On CPU tensors every wrapper runs the plain version; on CUDA tensors it
-  launches its kernel or raises.
+  launches its kernel or raises. The bf16 forward runs its two convs on the
+  wgmma GEMM of ``csrc/igemm_wgmma.cuh``, tiled as ``resblock_plan`` says,
+  with weights from ``pack_resblock_params``' swizzled stages; it takes
+  channel counts that are multiples of 64 and maps its TMA boxes tile
+  (``check_resblock_shape``), and raises on others.
 
 The block: GN1 (fp32 stats, eps 1e-6) + SiLU -> optional naive 2x
 down/up-sample of h and of the skip input -> conv3x3 + b0 + temb row ->
@@ -29,6 +33,7 @@ projection (cout, cin).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -38,6 +43,7 @@ import torch.nn.functional as F
 from diffpure_tpu_torch.ops import _cuda
 from diffpure_tpu_torch.ops.conv import conv2d_nhwc
 from diffpure_tpu_torch.ops.groupnorm import group_norm
+from diffpure_tpu_torch.ops.halo_conv import pack_halo_weights
 from diffpure_tpu_torch.ops.upfirdn2d import naive_downsample_2d, \
     naive_upsample_2d
 
@@ -130,6 +136,16 @@ class PackedResblock:
     w1: Tensor     # (cout, 9 * cout [+ cin]): conv1's columns, then wskip's
     bias1: Tensor  # (cout,) fp32: b1 [+ bskip]
     has_proj: bool
+    # bf16 with cin, cout % 64 == 0: the wgmma GEMM's weight stages (the
+    # halo conv's layout, ops/halo_conv.py pack_halo_weights): (steps, cout,
+    # 64), step (c // 64) * 9 + tap for input channel c, the projection's
+    # steps (cin / 64 of them) after conv1's, each row of 64 channels in the
+    # 128-byte swizzle, so that one bulk copy lands a stage ready for wgmma.
+    w0s: Optional[Tensor] = None  # (9 cin / 64, cout, 64)
+    w1s: Optional[Tensor] = None  # (9 cout / 64 [+ cin / 64], cout, 64)
+    # the device pointers the launch passes, taken once here: gn1s, gn1b,
+    # w0, b0, gn2s, gn2b, w1, bias1, w0s, w1s (0 for None)
+    ptrs: Tuple[int, ...] = ()
 
 
 def _f32(t: Tensor, device) -> Tensor:
@@ -149,12 +165,126 @@ def pack_resblock_params(params: Tuple, dtype: torch.dtype,
         if wskip is not None:
             w1p = torch.cat([w1p, wskip.detach().reshape(cout, cin)], 1)
             bias1 = bias1 + _f32(bskip, device)
-        return PackedResblock(
-            cin=cin, cout=cout, gn1s=_f32(gn1s, device), gn1b=_f32(gn1b, device),
-            w0=w0p.to(device, dtype).contiguous(), b0=_f32(b0, device),
-            gn2s=_f32(gn2s, device), gn2b=_f32(gn2b, device),
-            w1=w1p.to(device, dtype).contiguous(), bias1=bias1.contiguous(),
-            has_proj=wskip is not None)
+        w0s = w1s = None
+        if dtype == torch.bfloat16 and cin % KC == 0 and cout % KC == 0:
+            w0s = pack_halo_weights(w0.permute(2, 3, 1, 0), None, dtype, device).w
+            w1s = pack_halo_weights(
+                w1.permute(2, 3, 1, 0),
+                None if wskip is None else wskip.reshape(cout, cin).t(), dtype, device).w
+        t = dict(gn1s=_f32(gn1s, device), gn1b=_f32(gn1b, device),
+                 w0=w0p.to(device, dtype).contiguous(), b0=_f32(b0, device),
+                 gn2s=_f32(gn2s, device), gn2b=_f32(gn2b, device),
+                 w1=w1p.to(device, dtype).contiguous(), bias1=bias1.contiguous(),
+                 w0s=w0s, w1s=w1s)
+        return PackedResblock(cin=cin, cout=cout, has_proj=wskip is not None,
+                              ptrs=tuple(0 if v is None else v.data_ptr()
+                                         for v in t.values()), **t)
+
+
+# The bf16 wgmma GEMM's K step: 64 input channels, one 128-byte row.
+KC = 64
+# SMs of the card the plan fills (NVIDIA H100 SXM).
+SMS = 132
+# Its tiles (M rows, N channels), largest first: a 128 x 256 tile reads
+# (128 + 256) x 128 bytes per K step for 128 x 256 x 64 multiply-adds.
+# (64 x 256 would never be picked for the NCSN++ census at batch 1-256.)
+RB_TILES = ((128, 256), (128, 128), (64, 128), (128, 64))
+# The least share of its waves' SM slots a grid of tiles must fill.
+RB_MIN_FILL = 0.9
+# Split-K: at most this many slices, each at least this many K steps.
+RB_MAX_SPLITS = 32
+RB_MIN_STEPS = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class ResblockPlan:
+    """The bf16 GEMM's work for one block shape: tiles of ``bm`` output
+    pixels (rows) x ``bn`` output channels, ``mtiles`` x ``ntiles`` of
+    them; an M tile is the TMA box of ``box`` = (Wo columns, bh rows, bimg
+    images) of the output grid; conv0 and conv1 split their K steps
+    (``steps``) into ``splits`` slices of ``per`` steps each (the last may
+    be shorter), walked by min(mtiles ntiles splits, SMs) persistent
+    blocks."""
+    bm: int
+    bn: int
+    box: Tuple[int, int, int]
+    mtiles: int
+    ntiles: int
+    steps: Tuple[int, int]
+    splits: Tuple[int, int]
+    per: Tuple[int, int]
+
+
+def _box(bm: int, Ho: int, Wo: int) -> Optional[Tuple[int, int, int]]:
+    """The box of bm rows that tiles the output grid: whole rows of one
+    image, or whole images; None where none does."""
+    hw = Ho * Wo
+    if bm % Wo:
+        return None
+    if hw % bm == 0:
+        return Wo, bm // Wo, 1
+    if bm % hw == 0:
+        return Wo, Ho, bm // hw
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def resblock_plan(N: int, Ho: int, Wo: int, cin: int, cr: int, cout: int,
+                  sms: int = SMS, ws_elems: int = _cuda.SPLITK_WORKSPACE) -> ResblockPlan:
+    """The largest tile of RB_TILES whose tiles fill their waves of ``sms``
+    to at least RB_MIN_FILL; where none does, the tile that gives the most
+    tiles, and each conv's K split into up to sms // tiles slices of at
+    least RB_MIN_STEPS steps whose fp32 partials fit ``ws_elems`` (summed
+    in slice order by a second pass: no atomics). cin: conv0's input
+    channels, cr: the projection's (0 for an identity skip), cout: the
+    output's; Ho x Wo: the output grid. Raises on a shape the kernel does
+    not take."""
+    if cin % KC or cr % KC or cout % KC or cin <= 0 or cout <= 0:
+        raise ValueError(f"the bf16 resblock kernel takes channel counts that are "
+                         f"multiples of {KC}; got cin={cin}, skip={cr}, cout={cout}")
+    M = N * Ho * Wo
+    fits = []
+    for bm, bn in RB_TILES:
+        box = _box(bm, Ho, Wo)
+        if cout % bn == 0 and box is not None and max(box) <= 256:
+            fits.append((bm, bn, box, -(-M // bm), cout // bn))
+    if not fits:
+        raise ValueError(f"the bf16 resblock kernel's TMA boxes do not tile a "
+                         f"{Ho}x{Wo} map: it takes Wo dividing 64 or 128 and Ho * Wo a "
+                         f"multiple or a divisor of that tile")
+    def fills(tiles):
+        return tiles / (-(-tiles // sms) * sms) >= RB_MIN_FILL
+
+    pick = next((f for f in fits if fills(f[3] * f[4])), None) \
+        or max(fits, key=lambda f: f[3] * f[4])
+    bm, bn, box, mtiles, ntiles = pick
+    tiles = mtiles * ntiles
+    steps = (9 * cin // KC, 9 * cout // KC + cr // KC)
+    splits, per = [], []
+    for k in steps:
+        s = 1
+        if not fills(tiles):
+            s = max(1, min(sms // tiles, k // RB_MIN_STEPS, RB_MAX_SPLITS,
+                           ws_elems // (M * cout)))
+        p = -(-k // s)
+        splits.append(-(-k // p))
+        per.append(p)
+    return ResblockPlan(bm, bn, box, mtiles, ntiles, steps, tuple(splits), tuple(per))
+
+
+def check_resblock_shape(dtype: torch.dtype, N: int, H: int, W: int, c1: int,
+                         c2: int, cout: int, resample: str, has_proj: bool,
+                         sms: int = SMS) -> Optional[ResblockPlan]:
+    """Raise on what the kernel for ``dtype`` does not take; the bf16 plan
+    (None for fp32, whose kernel takes any channel counts that are
+    multiples of 4)."""
+    if dtype != torch.bfloat16:
+        return None
+    if c1 % KC or c2 % KC:
+        raise ValueError(f"the bf16 resblock kernel takes inputs of channel counts that "
+                         f"are multiples of {KC}; got {c1} + {c2}")
+    Ho, Wo = {"none": (H, W), "down": (H // 2, W // 2), "up": (H * 2, W * 2)}[resample]
+    return resblock_plan(N, Ho, Wo, c1 + c2, c1 + c2 if has_proj else 0, cout, sms)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,10 +357,16 @@ def _launch(x1: Tensor, x2: Optional[Tensor], temb_row: Tensor,
     dev, dtype = x1.device, x1.dtype
     N, H, W, c1, c2, Ho, Wo = _block_shapes(x1, x2, pk, g1, g2, resample)
     cin, cout = c1 + c2, pk.cout
+    plan = check_resblock_shape(dtype, N, H, W, c1, c2, cout, resample, pk.has_proj,
+                                _cuda.num_sms(dev))
+    if plan is not None and pk.w0s is None:
+        raise ValueError("packed weights lack the bf16 kernel's stages")
     p_x1 = _cuda.check_operand(x1, "x1", dev, dtype)
     p_x2 = None if x2 is None else _cuda.check_operand(
         x2, "x2", dev, dtype, (N, H, W, c2))
-    temb = temb_row.to(dtype).contiguous()  # the TPU kernel casts temb to x's dtype
+    # the TPU kernel casts temb to x's dtype
+    temb = temb_row if temb_row.dtype == dtype and temb_row.is_contiguous() \
+        else temb_row.to(dtype).contiguous()
     p_temb = _cuda.check_operand(temb, "temb_row", dev, dtype, (N, cout))
 
     out = torch.empty((N, Ho, Wo, cout), device=dev, dtype=dtype)
@@ -240,15 +376,17 @@ def _launch(x1: Tensor, x2: Optional[Tensor], temb_row: Tensor,
     buf, (act1, xs, h1, act2), ws = _cuda.scratch(
         dev, pix * cin * esize, pix * cin * esize if resample != "none" else 0,
         pix * cout * 4, pix * cout * esize)
+    gn1s, gn1b, w0, b0, gn2s, gn2b, w1, bias1, w0s, w1s = pk.ptrs
+    bm = bn = bh = bimg = 0
+    splits, per = (0, 0), (0, 0)
+    if plan is not None:
+        bm, bn, (_, bh, bimg), splits, per = plan.bm, plan.bn, plan.box, plan.splits, plan.per
     err = _cuda.lib().diffpure_resblock_fwd(
         _cuda.DTYPE_CODE[dtype], p_x1, p_x2, c1, c2, N, H, W,
-        _RESAMPLE[resample], p_temb,
-        pk.gn1s.data_ptr(), pk.gn1b.data_ptr(), g1, pk.w0.data_ptr(),
-        pk.b0.data_ptr(), pk.gn2s.data_ptr(), pk.gn2b.data_ptr(), g2,
-        pk.w1.data_ptr(), pk.bias1.data_ptr(), int(pk.has_proj), cout,
-        eps, INV_SQRT2 if rescale else 1.0,
-        act1, xs, h1, act2, ws, _cuda.SPLITK_WORKSPACE, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _RESAMPLE[resample], p_temb, gn1s, gn1b, g1, w0, b0, gn2s, gn2b, g2,
+        w1, bias1, int(pk.has_proj), cout, eps, INV_SQRT2 if rescale else 1.0,
+        act1, xs, h1, act2, ws, _cuda.SPLITK_WORKSPACE, out.data_ptr(), w0s, w1s,
+        bm, bn, bh, bimg, splits[0], per[0], splits[1], per[1], _cuda.stream(dev))
     _cuda.check(err, "fused_resblock kernel")
     return out
 
