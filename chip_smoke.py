@@ -78,8 +78,6 @@ score_sde DDPM's) evaluation after phase 1 and ends (device time by kernel
 family, idle share; profile_adm.json, profile_ddpm.json);
 ``--profile-cifar`` the CIFAR NCSN++'s at batch 8 and 128, with the block
 chains' steps and the host time per block call (profile_cifar.json).
-``--timing-only`` runs the timing phases 1, 2, 3, 3b and 5 and ends (no
-result line): the runs to set beside another commit's in one call.
 """
 from __future__ import annotations
 
@@ -428,6 +426,42 @@ def phase_kernels(torch, dev, shapes, n=N, dtypes=("bfloat16", "float32")):
     if bad:
         raise AssertionError(f"{len(bad)} kernel checks failed: {bad}")
     return records
+
+
+def phase_identity_resample(torch, dev, n=N):
+    """The resampling blocks with an identity skip (cin == cout, no
+    projection), which no NCSN++ census shape has: the skip is then the
+    resampled x. One up and one down block of 128 channels at 16x16,
+    kernel against plain, bf16 and fp32, at REL."""
+    from diffpure_tpu_torch.ops import fused_resblock as frb
+
+    checks = {}
+    for i, rs in enumerate(("up", "down")):
+        params, x32, temb32, _ = block_inputs(torch, dev, 900 + i, "fused_resblock", "none",
+                                              16, 128, 0, 128, n)
+        if params[8] is not None:
+            raise AssertionError("identity-skip block inputs came with a projection")
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            x, temb = x32.to(dtype), temb32.to(dtype)
+            kw = dict(num_groups1=32, num_groups2=32, resample=rs)
+            with torch.inference_mode():
+                got = frb.fused_resblock(x, temb, params,
+                                         packed=frb.pack_resblock_params(params, dtype, dev),
+                                         **kw)
+                want = frb.fused_resblock_reference(x, temb, params, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            ok = bool(torch.isfinite(got.float()).all()) and err <= REL[dtype_name] * scale
+            checks[f"{rs}/{dtype_name}"] = dict(max_abs_err=err, rel_err=err / scale,
+                                                rel_tol=REL[dtype_name], ok=ok)
+            log(f"  fused_resblock     {rs:4s} 16x16 128->128 identity skip b{n} "
+                f"{dtype_name:8s} rel err {err / scale:.2e} <= {REL[dtype_name]:.0e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"identity-skip {rs} block {dtype_name}: kernel and "
+                                     f"plain disagree")
+    return checks
 
 
 def phase_bwd_kernels(torch, dev, shapes):
@@ -1080,9 +1114,6 @@ def main() -> int:
                     help="after phase 1, profile warm CIFAR NCSN++ evaluations (batch 8 "
                          "and 128, bf16; the block chains' steps) and the host time per "
                          "block call, and end (no result line)")
-    ap.add_argument("--timing-only", action="store_true",
-                    help="run only the timing phases 1, 2, 3, 3b and 5 (the runs to set "
-                         "beside another commit's in one call) and end (no result line)")
     args = ap.parse_args()
     import torch
 
@@ -1172,67 +1203,68 @@ def main() -> int:
     records = phase_kernels(torch, dev, shapes)
     log(f"== phase 2 at batch {CIFAR_BIG_N} (bench.py's CIFAR batch), bf16 blocks")
     big_records = phase_kernels(torch, dev, shapes, n=CIFAR_BIG_N, dtypes=("bfloat16",))
+    log("== phase 2, up and down blocks with an identity skip (off the census)")
+    identity_checks = phase_identity_resample(torch, dev)
     phase_done("2")
     zero_bwd = {k: 0 for k in BWD_KERNELS}
     zero_adm = {k: 0 for k in ADM_KERNELS}
     zero_ddpm = {k: 0 for k in DDPM_KERNELS}
 
-    if not args.timing_only:  # 2b, 2c, 2d check kernels: no timings to compare
-        # ---- phase 2b -------------------------------------------------------
-        log("== phase 2b: backward kernel against plain at the main-path shapes, batch 8")
-        bwd_records = phase_bwd_kernels(torch, dev, shapes)
-        phase_done("2b")
+    # ---- phase 2b -----------------------------------------------------------
+    log("== phase 2b: backward kernel against plain at the main-path shapes, batch 8")
+    bwd_records = phase_bwd_kernels(torch, dev, shapes)
+    phase_done("2b")
+    (OUT / "result.json").write_text(json.dumps(dict(
+        card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
+        wgmma=wgmma, shapes=records, big_shapes=big_records, identity_checks=identity_checks,
+        bwd_shapes=bwd_records, phase_s=phase_s), indent=1))
+    if args.stop_after == "2b":
+        log("stopped after phase 2b as asked (partial run)")
+        return 3
+
+    # ---- phase 2c -----------------------------------------------------------
+    log(f"== phase 2c: 256-px kernels against plain at the ImageNet ADM's shapes, "
+        f"batch {ADM_N}")
+    adm = build_adm(torch, dev)
+    x256 = torch.from_numpy(rng.standard_normal((ADM_N, 256, 256, 3)).astype(np.float32))
+    census = adm_census(torch, adm, x256.to(dev))
+    adm_per_eval = {k: sum(c for (n, _), c in census.items() if n == k) for k in ADM_KERNELS}
+    log(f"  launches per evaluation: {adm_per_eval}; {len(census)} shapes")
+    if min(adm_per_eval.values()) == 0:
+        raise AssertionError(f"a 256-px kernel is off the ADM's path: {adm_per_eval}")
+    adm_records = phase_adm_kernels(torch, dev, census)
+    phase_done("2c")
+    (OUT / "result.json").write_text(json.dumps(dict(
+        card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
+        wgmma=wgmma, shapes=records, bwd_shapes=bwd_records, adm_shapes=adm_records,
+        adm_per_eval=adm_per_eval, phase_s=phase_s), indent=1))
+    if args.stop_after == "2c":
+        log("stopped after phase 2c as asked (partial run)")
+        return 3
+
+    # ---- phase 2d -----------------------------------------------------------
+    log(f"== phase 2d: GroupNorm+SiLU at the score_sde DDPM's shapes and fused bias + "
+        f"leaky ReLU, batch {N}")
+    ddpm = build_ddpm(torch, dev)
+    gn_census, attn_census, ddpm_flops = ddpm_census(torch, ddpm, x01 * 2 - 1)
+    log(f"  GNSiLU calls per evaluation: {sum(gn_census.values())} at {len(gn_census)} "
+        f"shapes {gn_census}; attention blocks {attn_census}; {ddpm_flops / 1e9:.2f} GFLOP "
+        f"per evaluation at batch {N}")
+    if not gn_census or not attn_census:
+        raise AssertionError("the DDPM's census found no GNSiLU or no attention block")
+    gn_act_records = phase_gn_act_kernels(torch, dev, gn_census)
+    ddpm_shapes = {kind: {f"{H}x{H}x{C}": n for (H, C), n in census.items()}
+                   for kind, census in (("gn_silu", gn_census), ("attention", attn_census))}
+    ddpm_shapes["flops_per_eval"] = ddpm_flops
+    phase_done("2d")
+    if args.stop_after == "2d":
         (OUT / "result.json").write_text(json.dumps(dict(
             card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-            wgmma=wgmma, shapes=records, big_shapes=big_records, bwd_shapes=bwd_records,
-            phase_s=phase_s), indent=1))
-        if args.stop_after == "2b":
-            log("stopped after phase 2b as asked (partial run)")
-            return 3
-
-        # ---- phase 2c -------------------------------------------------------
-        log(f"== phase 2c: 256-px kernels against plain at the ImageNet ADM's shapes, "
-            f"batch {ADM_N}")
-        adm = build_adm(torch, dev)
-        x256 = torch.from_numpy(rng.standard_normal((ADM_N, 256, 256, 3)).astype(np.float32))
-        census = adm_census(torch, adm, x256.to(dev))
-        adm_per_eval = {k: sum(c for (n, _), c in census.items() if n == k) for k in ADM_KERNELS}
-        log(f"  launches per evaluation: {adm_per_eval}; {len(census)} shapes")
-        if min(adm_per_eval.values()) == 0:
-            raise AssertionError(f"a 256-px kernel is off the ADM's path: {adm_per_eval}")
-        adm_records = phase_adm_kernels(torch, dev, census)
-        phase_done("2c")
-        (OUT / "result.json").write_text(json.dumps(dict(
-            card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-            wgmma=wgmma, shapes=records, bwd_shapes=bwd_records, adm_shapes=adm_records,
-            adm_per_eval=adm_per_eval, phase_s=phase_s), indent=1))
-        if args.stop_after == "2c":
-            log("stopped after phase 2c as asked (partial run)")
-            return 3
-
-        # ---- phase 2d -------------------------------------------------------
-        log(f"== phase 2d: GroupNorm+SiLU at the score_sde DDPM's shapes and fused bias + "
-            f"leaky ReLU, batch {N}")
-        ddpm = build_ddpm(torch, dev)
-        gn_census, attn_census, ddpm_flops = ddpm_census(torch, ddpm, x01 * 2 - 1)
-        log(f"  GNSiLU calls per evaluation: {sum(gn_census.values())} at {len(gn_census)} "
-            f"shapes {gn_census}; attention blocks {attn_census}; {ddpm_flops / 1e9:.2f} GFLOP "
-            f"per evaluation at batch {N}")
-        if not gn_census or not attn_census:
-            raise AssertionError("the DDPM's census found no GNSiLU or no attention block")
-        gn_act_records = phase_gn_act_kernels(torch, dev, gn_census)
-        ddpm_shapes = {kind: {f"{H}x{H}x{C}": n for (H, C), n in census.items()}
-                       for kind, census in (("gn_silu", gn_census), ("attention", attn_census))}
-        ddpm_shapes["flops_per_eval"] = ddpm_flops
-        phase_done("2d")
-        if args.stop_after == "2d":
-            (OUT / "result.json").write_text(json.dumps(dict(
-                card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-                shapes=records, bwd_shapes=bwd_records, adm_shapes=adm_records,
-                gn_act_shapes=gn_act_records, ddpm_census=ddpm_shapes, phase_s=phase_s),
-                indent=1))
-            log("stopped after phase 2d as asked (partial run)")
-            return 3
+            shapes=records, bwd_shapes=bwd_records, adm_shapes=adm_records,
+            gn_act_shapes=gn_act_records, ddpm_census=ddpm_shapes, phase_s=phase_s),
+            indent=1))
+        log("stopped after phase 2d as asked (partial run)")
+        return 3
 
     # ---- phase 3 ------------------------------------------------------------
     log("== phase 3: DefendedModel, t*=100, bf16 NCSN++ + WRN-28-10, batch 8")
@@ -1297,31 +1329,30 @@ def main() -> int:
         raise AssertionError(f"bad logits: shape {tuple(out.shape)}")
     phase_done("3b")
 
-    if not args.timing_only:
-        # ---- phase 4 --------------------------------------------------------
-        log("== phase 4: purification t*=5, kernels (GPU) against plain (CPU)")
-        cfg5 = PurifyConfig(t=5, grad_mode="none")
-        x5 = x01[:2]
-        slice_checks = {}
-        for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-            score.dtype = dtype
-            with torch.inference_mode():
-                got = DefendedModel(score, clf, cfg5, log_every=0).purify(x5, FixedNoise(SEED + 4))
-            score.cpu()
-            with torch.inference_mode():
-                want = DefendedModel(score, clf, cfg5, log_every=0).purify(
-                    x5.cpu(), FixedNoise(SEED + 4))
-            score.to(dev)
-            err = float((got.cpu() - want).abs().max())
-            scale = float(want.abs().max())
-            ok = bool(torch.isfinite(got).all()) and err <= SLICE_REL[dtype_name] * scale
-            slice_checks[dtype_name] = dict(max_abs_err=err, rel_err=err / scale,
-                                            rel_tol=SLICE_REL[dtype_name], ok=ok)
-            log(f"  {dtype_name}: max |kernel - plain| {err:.3e} (rel {err / scale:.2e} <= "
-                f"{SLICE_REL[dtype_name]:.0e}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"slice {dtype_name}: kernel and plain disagree")
-        phase_done("4")
+    # ---- phase 4 ------------------------------------------------------------
+    log("== phase 4: purification t*=5, kernels (GPU) against plain (CPU)")
+    cfg5 = PurifyConfig(t=5, grad_mode="none")
+    x5 = x01[:2]
+    slice_checks = {}
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        score.dtype = dtype
+        with torch.inference_mode():
+            got = DefendedModel(score, clf, cfg5, log_every=0).purify(x5, FixedNoise(SEED + 4))
+        score.cpu()
+        with torch.inference_mode():
+            want = DefendedModel(score, clf, cfg5, log_every=0).purify(
+                x5.cpu(), FixedNoise(SEED + 4))
+        score.to(dev)
+        err = float((got.cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        ok = bool(torch.isfinite(got).all()) and err <= SLICE_REL[dtype_name] * scale
+        slice_checks[dtype_name] = dict(max_abs_err=err, rel_err=err / scale,
+                                        rel_tol=SLICE_REL[dtype_name], ok=ok)
+        log(f"  {dtype_name}: max |kernel - plain| {err:.3e} (rel {err / scale:.2e} <= "
+            f"{SLICE_REL[dtype_name]:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"slice {dtype_name}: kernel and plain disagree")
+    phase_done("4")
 
     # ---- phase 5 ------------------------------------------------------------
     log(f"== phase 5: input gradient of CE(DefendedModel), t*=100, bf16, batch {GRAD_N}")
@@ -1358,13 +1389,6 @@ def main() -> int:
             if counts != want:
                 raise AssertionError(f"{mode}: launch counts {counts} != {want}")
     phase_done("5")
-    if args.timing_only:
-        (OUT / "result.json").write_text(json.dumps(dict(
-            card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-            wgmma=wgmma, shapes=records, big_shapes=big_records, slice_runs=runs,
-            big_runs=big_runs, grad_runs=grad_runs, phase_s=phase_s), indent=1))
-        log("timing phases done as asked (partial run)")
-        return 3
 
     # ---- phase 6 ------------------------------------------------------------
     # The gradient of sum(w * purified image) for a seeded cotangent w: the
@@ -1663,8 +1687,8 @@ def main() -> int:
             library_ms=None))  # no single PyTorch call computes either
     (OUT / "result.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-        wgmma=wgmma, shapes=records, big_shapes=big_records, bwd_shapes=bwd_records,
-        slice_runs=runs, big_runs=big_runs, slice_checks=slice_checks,
+        wgmma=wgmma, shapes=records, big_shapes=big_records, identity_checks=identity_checks,
+        bwd_shapes=bwd_records, slice_runs=runs, big_runs=big_runs, slice_checks=slice_checks,
         grad_runs=grad_runs, grad_checks=grad_checks,
         attack=dict(seconds=attack_s, counts=attack_counts, classifier_robust_acc=accs[0],
                     defended_robust_acc=accs[1], max_dist=dist),

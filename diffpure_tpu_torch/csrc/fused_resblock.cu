@@ -494,7 +494,7 @@ static cudaError_t resblock_fwd_wgmma(const bf16* x1, const bf16* x2, int c1, in
   a1.w = w1s;
   a1.bias = bias1;
   a1.temb = nullptr;
-  a1.resid = has_proj ? nullptr : x1;  // identity skip (cin == cout, no resample)
+  a1.resid = has_proj ? nullptr : p1;  // identity skip (cin == cout): x, or xs
   a1.oscale = oscale;
   a1.out = out;
   a1.out_f32 = 0;

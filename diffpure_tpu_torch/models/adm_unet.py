@@ -41,8 +41,7 @@ from diffpure_tpu_torch.models.layers import _cast, _Derived, \
     adm_timestep_embedding
 from diffpure_tpu_torch.ops.attention import qkv_attention
 from diffpure_tpu_torch.ops.conv import conv2d_nhwc
-from diffpure_tpu_torch.ops.flash_attention import flash_takes, \
-    qkv_flash_attention
+from diffpure_tpu_torch.ops.flash_attention import qkv_flash_attention
 from diffpure_tpu_torch.ops.groupnorm import group_norm
 from diffpure_tpu_torch.ops.halo_conv import gn_silu_conv_block, \
     pack_halo_weights
@@ -196,16 +195,13 @@ class ResBlockADM(nn.Module):
         return skip + h
 
 
-def attention_route(use_flash: bool, T: int, D: int, dtype: torch.dtype,
-                    device_type: str) -> str:
-    """'flash' where the flash kernel takes the block: ``use_flash``, T >=
-    1024 tokens (JAX's gate, diffpure_tpu/models/adm_unet.py:304, where its
-    kernel takes any head width), a CUDA tensor, and a (T, D) the kernel
-    takes (``flash_takes``); else 'dense', ``qkv_attention``, what JAX's
-    dense path computes. A route chosen from the shape before any launch,
-    not a fallback on failure."""
-    flash = use_flash and T >= 1024 and device_type == "cuda" and flash_takes(dtype, T, D)
-    return "flash" if flash else "dense"
+def attention_route(use_flash: bool, T: int, device_type: str) -> str:
+    """'flash' for ``use_flash`` blocks of T >= 1024 tokens on a CUDA tensor
+    (JAX's gate, diffpure_tpu/models/adm_unet.py:304); else 'dense',
+    ``qkv_attention``. On the flash route a (T, D) the kernel does not take
+    raises (``check_flash_shape``): the dense path is never a stand-in for
+    the kernel on the card."""
+    return "flash" if use_flash and T >= 1024 and device_type == "cuda" else "dense"
 
 
 class AttentionBlockADM(nn.Module):
@@ -235,8 +231,7 @@ class AttentionBlockADM(nn.Module):
                         GN_EPS)[:, :, 0, :]
         dt = x.dtype
         qkv = F.linear(hn, self.qkv.weight[:, :, 0].to(dt), self.qkv.bias.to(dt))
-        if attention_route(self.use_flash, H * W, C // self.num_heads, dt,
-                           x.device.type) == "flash":
+        if attention_route(self.use_flash, H * W, x.device.type) == "flash":
             a = qkv_flash_attention(qkv, self.num_heads, order=self.order)
         else:
             a = qkv_attention(qkv, self.num_heads, order=self.order)

@@ -26,20 +26,12 @@ def _reference_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tenso
     return torch.einsum("bts,bsd->btd", p, v.float()).to(q.dtype)
 
 
-def _query_block(dtype: torch.dtype) -> int:
-    return 128 if dtype == torch.bfloat16 else 64
-
-
-def flash_takes(dtype: torch.dtype, T: int, D: int) -> bool:
-    """Whether the kernel takes (T, D): D == 64, and T a multiple of its
-    query block (128 bf16, 64 fp32)."""
-    return D == 64 and T % _query_block(dtype) == 0
-
-
 def check_flash_shape(dtype: torch.dtype, T: int, D: int) -> None:
-    """Raise on what the kernel does not take (``flash_takes``)."""
-    if not flash_takes(dtype, T, D):
-        raise ValueError(f"the flash kernel takes D == 64 and T % {_query_block(dtype)} == 0 "
+    """Raise on what the kernel does not take: D == 64, and T a multiple of
+    its query block (128 bf16, 64 fp32)."""
+    block = 128 if dtype == torch.bfloat16 else 64
+    if D != 64 or T % block:
+        raise ValueError(f"the flash kernel takes D == 64 and T % {block} == 0 "
                          f"({dtype}); got T={T}, D={D}")
 
 

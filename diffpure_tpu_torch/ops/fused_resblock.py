@@ -194,6 +194,10 @@ RB_MIN_FILL = 0.9
 # Split-K: at most this many slices, each at least this many K steps.
 RB_MAX_SPLITS = 32
 RB_MIN_STEPS = 2
+# The bf16 GroupNorm pass's shared scratch (GN_MAX_C, GN_MAX_G in
+# csrc/fused_resblock.cu).
+RB_GN_MAX_C = 1024
+RB_GN_MAX_G = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,7 +278,7 @@ def resblock_plan(N: int, Ho: int, Wo: int, cin: int, cr: int, cout: int,
 
 def check_resblock_shape(dtype: torch.dtype, N: int, H: int, W: int, c1: int,
                          c2: int, cout: int, resample: str, has_proj: bool,
-                         sms: int = SMS) -> Optional[ResblockPlan]:
+                         g1: int, g2: int, sms: int = SMS) -> Optional[ResblockPlan]:
     """Raise on what the kernel for ``dtype`` does not take; the bf16 plan
     (None for fp32, whose kernel takes any channel counts that are
     multiples of 4)."""
@@ -283,8 +287,13 @@ def check_resblock_shape(dtype: torch.dtype, N: int, H: int, W: int, c1: int,
     if c1 % KC or c2 % KC:
         raise ValueError(f"the bf16 resblock kernel takes inputs of channel counts that "
                          f"are multiples of {KC}; got {c1} + {c2}")
+    cin = c1 + c2
+    if max(cin, cout) > RB_GN_MAX_C or max(g1, g2) > RB_GN_MAX_G or cin % g1 or cout % g2:
+        raise ValueError(f"the bf16 resblock kernel's GroupNorm pass takes at most "
+                         f"{RB_GN_MAX_C} channels in at most {RB_GN_MAX_G} groups that divide "
+                         f"them; got {cin} in {g1}, {cout} in {g2}")
     Ho, Wo = {"none": (H, W), "down": (H // 2, W // 2), "up": (H * 2, W * 2)}[resample]
-    return resblock_plan(N, Ho, Wo, c1 + c2, c1 + c2 if has_proj else 0, cout, sms)
+    return resblock_plan(N, Ho, Wo, cin, cin if has_proj else 0, cout, sms)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -358,7 +367,7 @@ def _launch(x1: Tensor, x2: Optional[Tensor], temb_row: Tensor,
     N, H, W, c1, c2, Ho, Wo = _block_shapes(x1, x2, pk, g1, g2, resample)
     cin, cout = c1 + c2, pk.cout
     plan = check_resblock_shape(dtype, N, H, W, c1, c2, cout, resample, pk.has_proj,
-                                _cuda.num_sms(dev))
+                                g1, g2, _cuda.num_sms(dev))
     if plan is not None and pk.w0s is None:
         raise ValueError("packed weights lack the bf16 kernel's stages")
     p_x1 = _cuda.check_operand(x1, "x1", dev, dtype)

@@ -16,6 +16,7 @@ from diffpure_tpu_torch.models import layers, ncsnpp_from_config
 from diffpure_tpu_torch.models.adm_unet import attention_route
 from diffpure_tpu_torch.ops import _cuda
 from diffpure_tpu_torch.ops import fused_resblock as frb
+from diffpure_tpu_torch.ops.flash_attention import check_flash_shape
 from torch_parity import resblock_params, resblock_params_torch
 
 
@@ -134,7 +135,8 @@ def test_resblock_plan_covers_the_census(census, batch):
     for (name, rs, H, c1, c2, cout), _ in sorted(census.items()):
         cin = c1 + c2
         proj = name == "fused_resblock_cat" or rs != "none" or cin != cout
-        plan = frb.check_resblock_shape(torch.bfloat16, batch, H, H, c1, c2, cout, rs, proj)
+        plan = frb.check_resblock_shape(torch.bfloat16, batch, H, H, c1, c2, cout, rs, proj,
+                                        32, 32)
         Ho = {"none": H, "down": H // 2, "up": 2 * H}[rs]
         hw, M = Ho * Ho, batch * Ho * Ho
         assert (plan.bm, plan.bn) in frb.RB_TILES and cout % plan.bn == 0
@@ -174,22 +176,46 @@ def test_resblock_plan_covers_the_census(census, batch):
     (128, 0, 96, "multiples of 64"), (128, 0, 200, "multiples of 64")])
 def test_shape_gate_raises_off_multiples_of_64(c1, c2, cout, match):
     with pytest.raises(ValueError, match=match):
-        frb.check_resblock_shape(torch.bfloat16, 8, 16, 16, c1, c2, cout, "none", True)
+        frb.check_resblock_shape(torch.bfloat16, 8, 16, 16, c1, c2, cout, "none", True, 8, 8)
+
+
+@pytest.mark.parametrize("c1,c2,cout,g1,g2", [
+    (1088, 0, 128, 32, 32), (512, 576, 256, 32, 32), (128, 0, 1088, 32, 32),
+    (256, 0, 256, 128, 32), (256, 0, 256, 32, 128), (192, 0, 128, 40, 32),
+    (128, 0, 192, 32, 40)])
+def test_shape_gate_raises_past_the_gn_pass(c1, c2, cout, g1, g2):
+    """More channels or groups than the GroupNorm pass's scratch holds, or
+    groups that do not divide the channels: refused in Python, before the
+    C side would refuse them."""
+    with pytest.raises(ValueError, match="GroupNorm pass"):
+        frb.check_resblock_shape(torch.bfloat16, 8, 16, 16, c1, c2, cout, "none", True,
+                                 g1, g2)
 
 
 @pytest.mark.parametrize("H,W", [(12, 12), (6, 6), (16, 24)])
 def test_shape_gate_raises_where_no_box_tiles_the_map(H, W):
     with pytest.raises(ValueError, match="boxes do not tile"):
-        frb.check_resblock_shape(torch.bfloat16, 8, H, W, 128, 0, 128, "none", False)
+        frb.check_resblock_shape(torch.bfloat16, 8, H, W, 128, 0, 128, "none", False, 32, 32)
 
 
 def test_shape_gate_takes_the_census_and_leaves_fp32_alone(census):
     for (name, rs, H, c1, c2, cout), _ in census.items():
         for batch in (1, 2, 8, 16, 128):
             assert frb.check_resblock_shape(torch.bfloat16, batch, H, H, c1, c2, cout, rs,
-                                            True) is not None
+                                            True, 32, 32) is not None
             assert frb.check_resblock_shape(torch.float32, batch, H, H, c1, c2, cout, rs,
-                                            True) is None
+                                            True, 32, 32) is None
+
+
+@pytest.mark.parametrize("rs,H", [("up", 16), ("down", 16), ("up", 4), ("down", 32)])
+def test_shape_gate_takes_identity_skip_resampling(rs, H):
+    """An up or down block with an identity skip (cin == cout, no
+    projection; the skip is the resampled x) has a plan on the output
+    grid, with conv1's K steps the 3x3 conv's alone."""
+    Ho = {"up": 2 * H, "down": H // 2}[rs]
+    plan = frb.check_resblock_shape(torch.bfloat16, 8, H, H, 128, 0, 128, rs, False, 32, 32)
+    assert plan.box[0] == Ho and plan.mtiles * plan.bm >= 8 * Ho * Ho
+    assert plan.steps == (9 * 128 // 64, 9 * 128 // 64)
 
 
 def test_resblock_has_no_route_off_the_cpu_but_the_kernel():
@@ -211,10 +237,16 @@ def test_resblock_has_no_route_off_the_cpu_but_the_kernel():
 @pytest.mark.parametrize("T", [1024, 256, 1000])
 @pytest.mark.parametrize("D", [64, 32, 128])
 def test_adm_attention_route(dtype, T, D):
-    """The ADM attention block takes the flash kernel only where JAX's gate
-    (T >= 1024) and the kernel's shapes (D == 64, T a multiple of its query
-    block) both hold, on a CUDA tensor; else the dense qkv_attention."""
-    want = "flash" if (T == 1024 and D == 64) else "dense"
-    assert attention_route(True, T, D, dtype, "cuda") == want
-    assert attention_route(True, T, D, dtype, "cpu") == "dense"
-    assert attention_route(False, T, D, dtype, "cuda") == "dense"
+    """The ADM attention block takes the flash kernel by JAX's gate alone
+    (T >= 1024 tokens) on a CUDA tensor, else the dense qkv_attention on
+    any head width; on the flash route a (T, D) the kernel does not take
+    raises rather than running the dense path on the card."""
+    route = attention_route(True, T, "cuda")
+    assert route == ("flash" if T >= 1024 else "dense")
+    assert attention_route(True, T, "cpu") == "dense"
+    assert attention_route(False, T, "cuda") == "dense"
+    if route == "flash" and D != 64:
+        with pytest.raises(ValueError, match="D == 64"):
+            check_flash_shape(dtype, T, D)
+    elif route == "flash":
+        check_flash_shape(dtype, T, D)
