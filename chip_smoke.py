@@ -26,7 +26,12 @@ Phases, each fatal on failure:
      take them), with the same noise; the purified images must agree;
   2b. (run after phase 2) each backward kernel against its plain version
      (autograd of the plain block on the card) at every resblock and
-     concat-resblock shape of the main path, batch 8, bf16 and fp32;
+     concat-resblock shape of the main path, batch 8, bf16 and fp32, and
+     batch 16 (phase 5's), bf16; per shape the wrapper's CUDA-event time,
+     the profiler's device time by chain step (GN1 and conv0 recompute,
+     conv1^T, GN2 backward, conv0^T, skip adjoint, GN1 backward), TFLOP/s
+     and cuDNN's four products as a yardstick; a bf16 backward that
+     launches the old GEMM or GN backward kernel (OLD_BWD_KERNELS) fails;
   5. the gradient-image rate: the input gradient of the cross-entropy of
      DefendedModel at t*=100, batch 16, bf16 torso, weights frozen, with
      grad_mode 'checkpoint' and 'adjoint', cold and warm; the launch
@@ -45,7 +50,8 @@ Phases, each fatal on failure:
      fp32; kernel, plain and bound times, TFLOP/s and share of the bound;
      beside the flash kernel, F.scaled_dot_product_attention on 4-D views
      under each backend that takes the inputs, the fastest that agrees with
-     the plain version as its library time (a yardstick on no path);
+     the plain version as its library time (a yardstick on no path); and
+     flash attention at head widths 32 and 128 (T = 1024), off the census;
   8. the ImageNet slice: DefendedModel(resize_to=256) with the
      guided-diffusion purify_sde at t*=150 through that ADM (bf16 torso,
      552,814,086 parameters) and ResNet-50, on 4 seeded 224x224 images under
@@ -77,11 +83,15 @@ line).
 score_sde DDPM's) evaluation after phase 1 and ends (device time by kernel
 family, idle share; profile_adm.json, profile_ddpm.json);
 ``--profile-cifar`` the CIFAR NCSN++'s at batch 8 and 128, with the block
-chains' steps and the host time per block call (profile_cifar.json).
+chains' steps and the host time per block call (profile_cifar.json);
+``--profile-grad`` phase 5's gradient step (device time by kernel and by
+part, idle share, tensor-map cache misses) and one evaluation's backward
+at batch 8 and 16 by chain step (profile_grad.json).
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -153,6 +163,19 @@ GRAD_MODES = ("checkpoint", "adjoint")
 # drift evaluation without a graph to reconstruct x_prev and one with a
 # graph at x_prev, whose backward is the step's only backward.
 GRAD_EVALS = {"checkpoint": (2, 1), "adjoint": (3, 1)}
+# --profile-grad: steps of the profiled gradient (each step the same work
+# as one of phase 5's t*=100 steps).
+GRAD_PROFILE_T = 10
+# The backward chain's launches (#4/#5) by kernel-name fragment: the
+# recomputed GN1 pass, the GEMMs (BWD_GEMMS, in launch order), the
+# GroupNorm+SiLU backward passes (BWD_GNS, in launch order), the split-K
+# passes. The bf16 chain launches none of OLD_BWD_KERNELS (phase 2b).
+BWD_KINDS = (("gn", ("gn_apply_kernel", "rb_gn_kernel")),
+             ("gn_bwd", ("gn_silu_bwd_kernel", "rb_gn_bwd_kernel")),
+             ("gemm", ("igemm_", "rb_wgmma_kernel")), ("splitk", ("splitk_",)))
+BWD_GEMMS = ("conv0 recompute", "conv1^T", "conv0^T", "skip adjoint")
+BWD_GNS = ("GN2+SiLU backward", "GN1+SiLU backward")
+OLD_BWD_KERNELS = ("igemm_bf16_kernel", "gn_silu_bwd_kernel")
 # The ImageNet-256 slice: the full-width imagenet256_config ADM (bf16 torso)
 # + ResNet-50 at t*=150, batch 4 (run_scripts/imagenet/run_in_rand_inf.sh).
 ADM_N = 4
@@ -169,6 +192,10 @@ ADM_KERNELS = {
     "flash_attention": ("diffpure_tpu_torch/csrc/flash_attention.cu",
                         "diffpure_tpu/ops/flash_attention.py:145"),
 }
+# Phase 2c's flash attention at the head widths off the census, (BH, T, D):
+# the ADM-256's 32^2 attention (4 images, 512 channels, T = 1024) in heads
+# of 32 and of 128 channels.
+FLASH_WIDTHS_OFF_CENSUS = ((64, 1024, 32), (16, 1024, 128))
 # The bf16 kernels that must run on wgmma: HGMMA in their SASS (phase 1).
 WGMMA_KERNELS = ("halo_wgmma_kernel", "flash_wgmma_kernel", "rb_wgmma_kernel")
 # Phase 9, card (kernels) against CPU (plain versions), max abs error over
@@ -431,44 +458,130 @@ def phase_kernels(torch, dev, shapes, n=N, dtypes=("bfloat16", "float32")):
 def phase_identity_resample(torch, dev, n=N):
     """The resampling blocks with an identity skip (cin == cout, no
     projection), which no NCSN++ census shape has: the skip is then the
-    resampled x. One up and one down block of 128 channels at 16x16,
-    kernel against plain, bf16 and fp32, at REL."""
+    resampled x (its adjoint, g through the resample's transpose). One up
+    and one down block of 128 channels at 16x16, kernel against plain,
+    forward at REL and backward at BWD_REL, bf16 and fp32."""
     from diffpure_tpu_torch.ops import fused_resblock as frb
 
     checks = {}
     for i, rs in enumerate(("up", "down")):
-        params, x32, temb32, _ = block_inputs(torch, dev, 900 + i, "fused_resblock", "none",
-                                              16, 128, 0, 128, n)
+        params, x32, temb32, normal = block_inputs(torch, dev, 900 + i, "fused_resblock", "none",
+                                                   16, 128, 0, 128, n)
         if params[8] is not None:
             raise AssertionError("identity-skip block inputs came with a projection")
+        Ho = {"up": 32, "down": 8}[rs]
+        g32 = normal(n, Ho, Ho, 128)
         for dtype_name in ("bfloat16", "float32"):
             dtype = getattr(torch, dtype_name)
-            x, temb = x32.to(dtype), temb32.to(dtype)
+            x, temb, g = x32.to(dtype), temb32.to(dtype), g32.to(dtype)
             kw = dict(num_groups1=32, num_groups2=32, resample=rs)
             with torch.inference_mode():
                 got = frb.fused_resblock(x, temb, params,
                                          packed=frb.pack_resblock_params(params, dtype, dev),
                                          **kw)
                 want = frb.fused_resblock_reference(x, temb, params, **kw)
-            err = float((got.float() - want.float()).abs().max())
-            scale = float(want.float().abs().max())
-            ok = bool(torch.isfinite(got.float()).all()) and err <= REL[dtype_name] * scale
-            checks[f"{rs}/{dtype_name}"] = dict(max_abs_err=err, rel_err=err / scale,
-                                                rel_tol=REL[dtype_name], ok=ok)
-            log(f"  fused_resblock     {rs:4s} 16x16 128->128 identity skip b{n} "
-                f"{dtype_name:8s} rel err {err / scale:.2e} <= {REL[dtype_name]:.0e} "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"identity-skip {rs} block {dtype_name}: kernel and "
-                                     f"plain disagree")
+            got_b = frb.fused_resblock_bwd(x, temb, params, g,
+                                           packed_bwd=frb.pack_resblock_bwd_params(params, dtype,
+                                                                                   dev), **kw)
+            want_b = frb.fused_resblock_bwd_reference(x, temb, params, g, **kw)
+            for what, gots, wants, tol in (("forward", (got,), (want,), REL[dtype_name]),
+                                           ("backward", got_b, want_b, BWD_REL[dtype_name])):
+                rel = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                          for a, b in zip(gots, wants))
+                ok = all(bool(torch.isfinite(a.float()).all()) for a in gots) and rel <= tol
+                checks[f"{rs}/{what}/{dtype_name}"] = dict(rel_err=rel, rel_tol=tol, ok=ok)
+                log(f"  fused_resblock{'_bwd' if what == 'backward' else '    '} {rs:4s} 16x16 "
+                    f"128->128 identity skip b{n} {dtype_name:8s} rel err {rel:.2e} <= "
+                    f"{tol:.1e} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"identity-skip {rs} block {what} {dtype_name}: "
+                                         f"kernel and plain disagree")
     return checks
 
 
-def phase_bwd_kernels(torch, dev, shapes):
+def bwd_device_ms(torch, fn, reps=10):
+    """The backward kernel's own device time per call of fn, from the
+    profiler over ``reps`` back-to-back calls: the total, each step of the
+    chain (BWD_KINDS, labelled in launch order) and the kernels' names."""
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler session now and then records no kernel: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+        if evs:
+            break
+    else:
+        raise AssertionError("three profiler sessions recorded no device time")
+    steps, names, gi, bi = Counter(), set(), 0, 0
+    for e in evs:
+        names.add(e.name)
+        kind = next((k for k, frags in BWD_KINDS if any(f in e.name for f in frags)), None)
+        if kind == "gn":  # a call's first chain kernel: the recomputed GN1 pass
+            label, gi, bi = "GN1 recompute", 0, 0
+        elif kind == "gemm":
+            label, gi = BWD_GEMMS[min(gi, len(BWD_GEMMS) - 1)], gi + 1
+        elif kind == "gn_bwd":
+            label, bi = BWD_GNS[min(bi, len(BWD_GNS) - 1)], bi + 1
+        elif kind == "splitk":
+            label = "split-K passes"
+        else:
+            label = "other (the wrapper's casts and copies)"
+        steps[label] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+    steps = dict(steps)
+    shares = dict(recompute=steps.get("GN1 recompute", 0.0) + steps.get("conv0 recompute", 0.0),
+                  gemms=sum(steps.get(k, 0.0) for k in BWD_GEMMS[1:]) +
+                  steps.get("split-K passes", 0.0),
+                  gn_backward=sum(steps.get(k, 0.0) for k in BWD_GNS))
+    return dict(total=sum(steps.values()), steps=steps, shares=shares, kernels=sorted(names))
+
+
+def bwd_conv_yardstick(torch, params, rs, H, cin, cout, n):
+    """cuDNN on channels_last bf16 for the backward's four products at
+    batch n: conv0 (the recompute), conv1 and conv0 transposed
+    (F.conv_transpose2d, the adjoints of the 3x3 SAME convs) and the skip
+    projection's adjoint, on the output grid: a yardstick for the chain's
+    GEMMs only (no GroupNorm, no epilogue), on no path of the port.
+    Returns (CUDA-event ms, device ms) per call."""
+    import torch.nn.functional as F
+
+    Ho = {"none": H, "down": H // 2, "up": 2 * H}[rs]
+    cl = dict(memory_format=torch.channels_last)
+    bf = torch.bfloat16
+
+    def act(c):
+        return torch.randn(n, c, Ho, Ho, device=params[2].device, dtype=bf).contiguous(**cl)
+    a1, g, dc1 = act(cin), act(cout), act(cout)
+    w0 = params[2].to(bf).contiguous(**cl)
+    w1 = params[6].to(bf).contiguous(**cl)
+    wp = None if params[8] is None else params[8].to(bf)[:, :, None, None].contiguous(**cl)
+
+    def call():
+        F.conv2d(a1, w0, padding=1)
+        F.conv_transpose2d(g, w1, padding=1)
+        F.conv_transpose2d(dc1, w0, padding=1)
+        if wp is not None:
+            F.conv_transpose2d(g, wp)
+    return cuda_ms(torch, call), device_ms(torch, call)["total"]
+
+
+def phase_bwd_kernels(torch, dev, shapes, n=N, dtypes=("float32", "bfloat16"),
+                      forbid=OLD_BWD_KERNELS, plain_timing=True):
     """Each backward kernel against autograd of the plain block on the card,
     at every resblock / concat-resblock shape of ``shapes`` (the inputs of
-    phase 2 plus a seeded output cotangent g); returns per-shape records.
-    ``plain_gap``: the plain bf16 backward against the plain fp32 one."""
+    phase 2 plus a seeded output cotangent g) at batch n; returns per-shape
+    records: CUDA-event ms of back-to-back wrapper calls, the profiler's
+    device ms with the chain's steps (bwd_device_ms), plain ms; for bf16
+    TFLOP/s, the share of the bound and cuDNN's products as a yardstick
+    (conv_library_ms). ``plain_gap``: the plain bf16 backward against the
+    plain fp32 one. A bf16 backward that launches a kernel of ``forbid``
+    fails."""
     from diffpure_tpu_torch.ops import fused_resblock as frb
     from diffpure_tpu_torch.ops.groupnorm import ncsn_num_groups
 
@@ -476,12 +589,13 @@ def phase_bwd_kernels(torch, dev, shapes):
     for i, ((name, rs, H, c1, c2, cout), calls) in enumerate(sorted(shapes.items())):
         if name == "fused_attnblock":
             continue
-        params, x32, temb32, normal = block_inputs(torch, dev, i, name, rs, H, c1, c2, cout)
+        params, x32, temb32, normal = block_inputs(torch, dev, i, name, rs, H, c1, c2, cout, n)
         Ho = {"none": H, "down": H // 2, "up": 2 * H}[rs]
-        g32 = normal(N, Ho, Ho, cout)
+        g32 = normal(n, Ho, Ho, cout)
         kw = dict(num_groups1=ncsn_num_groups(c1 + c2), num_groups2=ncsn_num_groups(cout))
         wants = {}
-        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for dtype_name in dtypes:
+            dtype = getattr(torch, dtype_name)
             x, temb, g = x32.to(dtype), temb32.to(dtype), g32.to(dtype)
             pk = frb.pack_resblock_params(params, dtype, dev)
             pkb = frb.pack_resblock_bwd_params(params, dtype, dev)
@@ -505,18 +619,41 @@ def phase_bwd_kernels(torch, dev, shapes):
             rels = {o: errs[o] / float(b.abs().max()) for o, b in zip(outs, want)}
             ok = all(bool(torch.isfinite(a).all()) for a in got) and \
                 max(rels.values()) <= BWD_REL[dtype_name]
+            dev_ms = bwd_device_ms(torch, kern)
+            old = [k for k in dev_ms["kernels"] if any(f in k for f in forbid)]
+            if dtype_name == "bfloat16" and old:
+                ok = False
             rec = dict(kernel=name + "_bwd", resample=rs, H=H, c1=c1, c2=c2, cout=cout,
-                       calls_per_eval=calls, dtype=dtype_name, max_abs_err=max(errs.values()),
-                       rel_err=rels, rel_tol=BWD_REL[dtype_name],
-                       ms=cuda_ms(torch, kern), plain_ms=cuda_ms(torch, plain), ok=ok)
-            if dtype_name == "bfloat16":
+                       batch=n, calls_per_eval=calls, dtype=dtype_name,
+                       max_abs_err=max(errs.values()), rel_err=rels,
+                       rel_tol=BWD_REL[dtype_name], ms=cuda_ms(torch, kern),
+                       device_ms=dev_ms["total"], device_steps=dev_ms["steps"],
+                       device_shares=dev_ms["shares"], device_kernels=dev_ms["kernels"],
+                       plain_ms=cuda_ms(torch, plain) if plain_timing else None, ok=ok)
+            if dtype_name == "bfloat16" and "float32" in wants:
                 rec["plain_gap"] = {o: float((a - b).abs().max() / b.abs().max())
                                     for o, a, b in zip(outs, want, wants["float32"])}
+            line = ""
+            if dtype_name == "bfloat16":
+                flops, nbytes = block_cost(name + "_bwd", rs, H, c1, c2, cout, n, 2)
+                t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES
+                lib_ms, lib_dev = bwd_conv_yardstick(torch, params, rs, H, c1 + c2, cout, n)
+                rec.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
+                           bound_by="operations" if t_ops >= t_bytes else "bytes",
+                           tflops=flops / rec["device_ms"] / 1e9,
+                           conv_library_ms=lib_ms, conv_library_device_ms=lib_dev)
+                rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+                sh = dev_ms["shares"]
+                line = (f" (recompute {sh['recompute']:.4f}, GEMMs {sh['gemms']:.4f}, GN bwd "
+                        f"{sh['gn_backward']:.4f}; {rec['tflops']:.1f} TFLOP/s, "
+                        f"{rec['bound_share']:.3f} of bound) cuDNN products {lib_ms:.4f} ms "
+                        f"(device {lib_dev:.4f})" + (f" OLD KERNELS {old}" if old else ""))
             records.append(rec)
+            plain_s = "" if rec["plain_ms"] is None else f" plain {rec['plain_ms']:.4f} ms"
             log(f"  {name + '_bwd':22s} {rs:4s} {H:2d}x{H:<2d} {c1:3d}+{c2:<3d}->{cout:3d} "
-                f"{dtype_name:8s} rel err {max(rels.values()):.2e} <= "
-                f"{BWD_REL[dtype_name]:.1e} kernel {rec['ms']:.4f} ms plain "
-                f"{rec['plain_ms']:.4f} ms {'ok' if ok else 'FAIL'}")
+                f"b{n:<3d} {dtype_name:8s} rel err {max(rels.values()):.2e} <= "
+                f"{BWD_REL[dtype_name]:.1e} kernel {rec['ms']:.4f} ms device "
+                f"{rec['device_ms']:.4f} ms{line}{plain_s} {'ok' if ok else 'FAIL'}")
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} backward kernel checks failed: {bad}")
@@ -761,6 +898,55 @@ def phase_adm_kernels(torch, dev, census):
     return records
 
 
+def phase_flash_widths(torch, dev):
+    """Flash attention at the head widths FLASH_WIDTHS_OFF_CENSUS (off the
+    ImageNet-256 census, whose heads are 64 wide), T = 1024 tokens (JAX's
+    flash gate), against its plain version on the card at REL, bf16 and
+    fp32, with the same records as phase 2c's (the SDPA yardstick beside
+    it); calls_per_eval 0: no shipped configuration runs them."""
+    import numpy as np
+    from diffpure_tpu_torch.ops import flash_attention as fla
+
+    records = []
+    for i, shape in enumerate(FLASH_WIDTHS_OFF_CENSUS):
+        rng = np.random.default_rng(2500 + i)
+        q32, k32, v32 = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+                         for _ in range(3))
+        sc = 1.0 / shape[2] ** 0.25
+        for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+            kern = lambda: fla.flash_attention(q, k, v, sc)  # noqa: E731
+            plain = lambda: fla._reference_attention(q, k, v, sc)  # noqa: E731
+            got = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            err = float((got.float() - want.float()).abs().max())
+            rel = err / float(want.float().abs().max())
+            ok = bool(torch.isfinite(got.float()).all()) and rel <= REL[dtype_name]
+            flops, nbytes = adm_cost("flash_attention", shape, 2 if dtype_name == "bfloat16" else 4)
+            t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES
+            rec = dict(kernel="flash_attention", shape=list(shape), calls_per_eval=0,
+                       dtype=dtype_name, max_abs_err=err, rel_err=rel, rel_tol=REL[dtype_name],
+                       ms=cuda_ms(torch, kern, 10, 2), plain_ms=cuda_ms(torch, plain, 10, 2),
+                       flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes", ok=ok)
+            rec["tflops"] = flops / rec["ms"] / 1e9
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            rec.update(sdpa_yardstick(torch, q, k, v, want, REL[dtype_name], 10, 2))
+            records.append(rec)
+            lib = rec["library_ms"]
+            log(f"  flash_attention D={shape[2]:<3d} {str(shape):16s} {dtype_name:8s} rel err "
+                f"{rel:.2e} <= {REL[dtype_name]:.0e} kernel {rec['ms']:.4f} ms "
+                f"({rec['tflops']:.1f} TFLOP/s, {rec['bound_share']:.3f} of bound) plain "
+                f"{rec['plain_ms']:.4f} ms bound {rec['bound_ms']:.4f} ms"
+                + ("" if lib is None else f" library {lib:.4f} ms ({rec['library_backend']})")
+                + f" {'ok' if ok else 'FAIL'}")
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} flash head-width checks failed: {bad}")
+    return records
+
+
 def profile_eval(torch, model, x, t, evals=3):
     """torch.profiler over ``evals`` warm evaluations model(x, t): device
     time by kernel family, and the device's idle share of the window's
@@ -907,6 +1093,184 @@ def profile_cifar(torch, dev, smi):
         log(f"  host {k:36s} {v['host_us']:8.1f} us per call (CUDA events "
             f"{v['cuda_event_ms'] * 1e3:8.1f} us)")
     (OUT / "profile_cifar.json").write_text(json.dumps(res, indent=1))
+
+
+def range_device_ms(prof, fragment):
+    """Device ms of the kernels launched inside the profiler's outermost CPU
+    ranges whose name contains ``fragment``: the kernels of each range's
+    launches and of its descendants'."""
+    def kernels_ms(e):
+        return sum(k.duration for k in e.kernels) / 1e3 + sum(
+            kernels_ms(ch) for ch in e.cpu_children)
+
+    def inside(e):
+        p = e.cpu_parent
+        while p is not None:
+            if fragment in p.name:
+                return True
+            p = p.cpu_parent
+        return False
+    return sum(kernels_ms(e) for e in prof.events()
+               if fragment in e.name and not str(e.device_type).endswith("CUDA")
+               and not inside(e))
+
+
+def wg_map_misses(torch):
+    """Tensor-map cache misses of the wgmma GEMM so far (None where the
+    library does not count them)."""
+    from diffpure_tpu_torch.ops import _cuda
+
+    fn = getattr(_cuda.lib(), "diffpure_wg_map_misses", None)
+    if fn is None:
+        return None
+    fn.restype = ctypes.c_long
+    return int(fn())
+
+
+def host_us_bwd(torch, dev):
+    """Host microseconds per backward wrapper call at batch 8, bf16, timed
+    as host_us_per_call times the forward's: ops/fused_resblock._launch_bwd
+    and the public fused_resblock_bwd, back to back up to the last
+    enqueue; beside them the CUDA-event ms per call."""
+    from diffpure_tpu_torch.ops import fused_resblock as frb
+    from diffpure_tpu_torch.ops.groupnorm import ncsn_num_groups
+
+    out = {}
+    for rs, H, c, cout in (("none", 4, 256, 256), ("none", 32, 128, 128)):
+        params, x32, temb32, normal = block_inputs(torch, dev, 0, "fused_resblock", rs, H, c, 0,
+                                                   cout)
+        x, temb = x32.to(torch.bfloat16), temb32.to(torch.bfloat16)
+        g = normal(N, H, H, cout).to(torch.bfloat16)
+        g1, g2 = ncsn_num_groups(c), ncsn_num_groups(cout)
+        pk = frb.pack_resblock_params(params, torch.bfloat16, dev)
+        pkb = frb.pack_resblock_bwd_params(params, torch.bfloat16, dev)
+        calls = {
+            "_launch_bwd": lambda: frb._launch_bwd(x, None, temb, g, pk, pkb, g1, g2, 1e-6,
+                                                   True, rs),
+            "fused_resblock_bwd": lambda: frb.fused_resblock_bwd(
+                x, temb, params, g, num_groups1=g1, num_groups2=g2, resample=rs, packed=pk,
+                packed_bwd=pkb)}
+        for what, fn in calls.items():
+            reps = 150
+            ms = cuda_ms(torch, fn, reps=reps, warmup=10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host = (time.perf_counter() - t0) / reps * 1e6
+            torch.cuda.synchronize()
+            out[f"{what} {H}x{H} {c}->{cout}"] = dict(host_us=host, cuda_event_ms=ms)
+    return out
+
+
+def profile_grad(torch, dev, smi):
+    """--profile-grad: phase 5's gradient (CE of DefendedModel, CIFAR NCSN++
+    bf16 + WRN-28-10, batch 16, 'checkpoint') timed cold and warm at
+    t*=100, then a warm gradient of GRAD_PROFILE_T steps under the
+    profiler: per step the device time by kernel and the idle share, and
+    the step's parts, each measured on its own: two forward evaluations
+    (the step and its recompute; #1/#2 and #3 by chain step), one backward
+    evaluation of the blocks (#4/#5, by chain step, also at batch 8), the
+    attention blocks' plain autograd backward (from the step's profile),
+    the classifier's forward and backward (once per gradient), the rest;
+    the tensor-map cache misses per step; the host time per backward
+    call."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from diffpure_tpu_torch.eval import DefendedModel
+    from diffpure_tpu_torch.purify import PurifyConfig
+
+    score, clf = build_models(torch, dev, torch.bfloat16)
+    for m in (score, clf):
+        m.requires_grad_(False)
+    rng = np.random.default_rng(SEED + 12)
+    xg = torch.from_numpy(rng.uniform(size=(GRAD_N, 32, 32, 3)).astype(np.float32)).to(dev)
+    yg = torch.from_numpy(rng.integers(0, 10, GRAD_N)).to(dev)
+    res = dict(card=smi, batch=GRAD_N, mode="checkpoint", profiled_steps=GRAD_PROFILE_T)
+    log(f"== profile: gradient of CE(DefendedModel), CIFAR NCSN++ bf16, batch {GRAD_N}, "
+        f"checkpoint, on {smi}")
+    dm = DefendedModel(score, clf, PurifyConfig(t=EVALS, grad_mode="checkpoint"), log_every=0)
+    walls = []
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        input_grad(torch, dm, xg, yg, SEED + 5)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        log(f"  t*={EVALS} {run}: {walls[-1]:.3f} s ({walls[-1] / EVALS * 1e3:.1f} ms per step)")
+    res["wall_s"] = dict(zip(("cold", "warm"), walls))
+
+    steps = GRAD_PROFILE_T
+    dmp = DefendedModel(score, clf, PurifyConfig(t=steps, grad_mode="checkpoint"), log_every=0)
+    input_grad(torch, dmp, xg, yg, SEED + 5)
+    torch.cuda.synchronize()
+    miss0 = wg_map_misses(torch)
+    t0 = time.time()
+    input_grad(torch, dmp, xg, yg, SEED + 5)
+    torch.cuda.synchronize()
+    res["wall_ms_per_step_unprofiled"] = (time.time() - t0) * 1e3 / steps
+    miss1 = wg_map_misses(torch)
+    res["wg_map_misses_per_step"] = None if miss0 is None else (miss1 - miss0) / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        input_grad(torch, dmp, xg, yg, SEED + 5)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    kernels, busy = [], 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if str(e.device_type).endswith("CUDA") and us > 0:
+            kernels.append((e.key, us / 1e3 / steps, e.count / steps))
+            busy += us / 1e3
+    kernels.sort(key=lambda r: -r[1])
+    attn_bwd = range_device_ms(prof, "_FusedAttnblockBackward") / steps
+
+    census = shape_census(torch, score, xg[:N] * 2 - 1)
+    for n in (N, GRAD_N):
+        log(f"== profile: one evaluation's backward (#4 + #5), batch {n}, bf16")
+        recs = phase_bwd_kernels(torch, dev, census, n=n, dtypes=("bfloat16",), forbid=(),
+                                 plain_timing=False)
+        per_eval = {"device_ms": 0.0, "steps": {}}
+        for r in recs:
+            per_eval["device_ms"] += r["device_ms"] * r["calls_per_eval"]
+            for k, v in r["device_steps"].items():
+                per_eval["steps"][k] = per_eval["steps"].get(k, 0.0) + v * r["calls_per_eval"]
+        res[f"bwd_batch_{n}"] = dict(per_eval=per_eval, shapes=recs)
+        log(f"  #4 + #5 device {per_eval['device_ms']:.3f} ms per evaluation's backward")
+        for k, v in sorted(per_eval["steps"].items(), key=lambda kv: -kv[1]):
+            log(f"    chain step {k:40s} {v:8.3f} ms")
+    fwd = profile_eval(torch, score, xg * 2 - 1, torch.full((GRAD_N,), 99.9, device=dev))
+    fwd_attn = fwd["chain_steps"].get("attention block (#3)", 0.0)
+    fwd_blocks = sum(fwd["chain_steps"].values()) - fwd_attn
+
+    def clf_grad():
+        input_grad(torch, lambda x, noise: clf(x), xg, yg, 0)
+    clf_ms = device_ms(torch, clf_grad, reps=5)["total"]
+    parts = {"#1/#2 forward, twice (the step and its recompute)": 2 * fwd_blocks,
+             "#3 attention forward, twice": 2 * fwd_attn,
+             "#4/#5 backward": res[f"bwd_batch_{GRAD_N}"]["per_eval"]["device_ms"],
+             "attention block backward (plain autograd)": attn_bwd,
+             "classifier forward + backward (once per gradient)": clf_ms / steps}
+    parts["rest (the score model's plain ops, the solver's arithmetic, casts)"] = \
+        busy / steps - sum(parts.values())
+    res.update(wall_ms_per_step_profiled=wall_ms / steps,
+               wall_ms_per_step=res["wall_s"]["warm"] * 1e3 / EVALS,
+               device_ms_per_step=busy / steps, idle_share=max(0.0, 1.0 - busy / wall_ms),
+               parts_ms_per_step=parts, forward_eval=fwd, top_kernels=kernels[:30],
+               classifier_ms=clf_ms)
+    log(f"  t*={steps}: wall {res['wall_ms_per_step_unprofiled']:.2f} ms per step; under the "
+        f"profiler: wall {wall_ms / steps:.2f} ms, device {busy / steps:.2f} ms per step, "
+        f"idle share {res['idle_share']:.3f}; tensor-map cache misses per step "
+        f"{res['wg_map_misses_per_step']}")
+    for label, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        log(f"  {label:68s} {ms:8.3f} ms per step")
+    for name, ms, calls in kernels[:15]:
+        log(f"  {ms:8.3f} ms x{calls:<6.1f} {name[:100]}")
+    res["host_us"] = host_us_bwd(torch, dev)
+    for k, v in res["host_us"].items():
+        log(f"  host {k:36s} {v['host_us']:8.1f} us per call (CUDA events "
+            f"{v['cuda_event_ms'] * 1e3:8.1f} us)")
+    (OUT / "profile_grad.json").write_text(json.dumps(res, indent=1))
 
 
 def build_ddpm(torch, dev):
@@ -1114,6 +1478,10 @@ def main() -> int:
                     help="after phase 1, profile warm CIFAR NCSN++ evaluations (batch 8 "
                          "and 128, bf16; the block chains' steps) and the host time per "
                          "block call, and end (no result line)")
+    ap.add_argument("--profile-grad", action="store_true",
+                    help="after phase 1, profile warm steps of phase 5's gradient and one "
+                         "evaluation's backward at batch 8 and 16 (the chain's steps), and "
+                         "end (no result line)")
     args = ap.parse_args()
     import torch
 
@@ -1170,6 +1538,9 @@ def main() -> int:
     if args.profile_cifar:
         profile_cifar(torch, dev, smi)
         return 3
+    if args.profile_grad:
+        profile_grad(torch, dev, smi)
+        return 3
     if args.profile_adm or args.profile_ddpm:
         if args.profile_adm:
             what, tag, n = "ImageNet ADM", "adm", ADM_N
@@ -1213,11 +1584,13 @@ def main() -> int:
     # ---- phase 2b -----------------------------------------------------------
     log("== phase 2b: backward kernel against plain at the main-path shapes, batch 8")
     bwd_records = phase_bwd_kernels(torch, dev, shapes)
+    log(f"== phase 2b at batch {GRAD_N} (phase 5's gradient batch), bf16")
+    bwd16_records = phase_bwd_kernels(torch, dev, shapes, n=GRAD_N, dtypes=("bfloat16",))
     phase_done("2b")
     (OUT / "result.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
         wgmma=wgmma, shapes=records, big_shapes=big_records, identity_checks=identity_checks,
-        bwd_shapes=bwd_records, phase_s=phase_s), indent=1))
+        bwd_shapes=bwd_records, bwd16_shapes=bwd16_records, phase_s=phase_s), indent=1))
     if args.stop_after == "2b":
         log("stopped after phase 2b as asked (partial run)")
         return 3
@@ -1233,11 +1606,14 @@ def main() -> int:
     if min(adm_per_eval.values()) == 0:
         raise AssertionError(f"a 256-px kernel is off the ADM's path: {adm_per_eval}")
     adm_records = phase_adm_kernels(torch, dev, census)
+    log("== phase 2c, flash attention at the head widths off the census")
+    flash_width_records = phase_flash_widths(torch, dev)
     phase_done("2c")
     (OUT / "result.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
         wgmma=wgmma, shapes=records, bwd_shapes=bwd_records, adm_shapes=adm_records,
-        adm_per_eval=adm_per_eval, phase_s=phase_s), indent=1))
+        flash_widths=flash_width_records, adm_per_eval=adm_per_eval, phase_s=phase_s),
+        indent=1))
     if args.stop_after == "2c":
         log("stopped after phase 2c as asked (partial run)")
         return 3
@@ -1260,7 +1636,8 @@ def main() -> int:
     if args.stop_after == "2d":
         (OUT / "result.json").write_text(json.dumps(dict(
             card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-            shapes=records, bwd_shapes=bwd_records, adm_shapes=adm_records,
+            shapes=records, bwd_shapes=bwd_records, bwd16_shapes=bwd16_records,
+            adm_shapes=adm_records, flash_widths=flash_width_records,
             gn_act_shapes=gn_act_records, ddpm_census=ddpm_shapes, phase_s=phase_s),
             indent=1))
         log("stopped after phase 2d as asked (partial run)")
@@ -1688,11 +2065,13 @@ def main() -> int:
     (OUT / "result.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
         wgmma=wgmma, shapes=records, big_shapes=big_records, identity_checks=identity_checks,
-        bwd_shapes=bwd_records, slice_runs=runs, big_runs=big_runs, slice_checks=slice_checks,
+        bwd_shapes=bwd_records, bwd16_shapes=bwd16_records, slice_runs=runs, big_runs=big_runs,
+        slice_checks=slice_checks,
         grad_runs=grad_runs, grad_checks=grad_checks,
         attack=dict(seconds=attack_s, counts=attack_counts, classifier_robust_acc=accs[0],
                     defended_robust_acc=accs[1], max_dist=dist),
-        adm_shapes=adm_records, adm_per_eval=adm_per_eval, adm_runs=adm_runs,
+        adm_shapes=adm_records, flash_widths=flash_width_records, adm_per_eval=adm_per_eval,
+        adm_runs=adm_runs,
         adm_checks=adm_checks, gn_act_shapes=gn_act_records, ddpm_census=ddpm_shapes,
         ddpm_runs=ddpm_runs, ddpm_checks=ddpm_checks, phase_s=phase_s, kernels=kernels),
         indent=1))

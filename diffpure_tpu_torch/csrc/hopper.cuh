@@ -133,6 +133,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
+// The same for the 64-byte swizzle: rows of 64 bytes (32 bf16), 8-row
+// groups 512 bytes apart; the tile starts 512-aligned. A K-major row holds
+// 32 consecutive k (+2 moves the start by 32 bytes, 16 k), an MN-major
+// row 32 consecutive n.
+__device__ __forceinline__ uint64_t sw64_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) | (2ull << 62);
+}
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -151,8 +158,20 @@ template <typename T, int K> __device__ __forceinline__ void reg_fence(T (&r)[K]
   for (int i = 0; i < K; ++i) reg_fence(r[i]);
 }
 
-// wgmma with A from registers (m64nNk16, bf16 in, fp32 accumulate), N = 64,
-// 128, 256; TB = 1 reads B MN-major (the descriptor's transpose bit).
+// wgmma with A from registers (m64nNk16, bf16 in, fp32 accumulate), N = 32,
+// 64, 128, 256; TB = 1 reads B MN-major (the descriptor's transpose bit).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TB));
+}
+
 template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
   asm volatile(

@@ -4,8 +4,11 @@
 // It carries the two convs of the bf16 forward of the fused BigGAN block
 // (fused_resblock.cu; kernels #1 and #2, replacing the TPU kernels
 // diffpure_tpu/ops/fused_resblock.py:290 fused_resblock_pallas and :728
-// fused_resblock_cat_pallas). It is a header so that other conv chains
-// (the backward's transposed 3x3 convs) can run on it as they are.
+// fused_resblock_cat_pallas), and the four products of the bf16 backward
+// of the same blocks (fused_resblock_bwd.cu; kernels #4 and #5): conv0's
+// recompute, conv1 and conv0 transposed (3x3 convs of the flipped,
+// channel-transposed weights) and the skip adjoint (projection steps
+// alone).
 //
 // What bounds it on this card: the products. A CIFAR NCSN++ block is 2 x 9
 // x cin x cout multiply-adds per output pixel against operands that stay in
@@ -239,10 +242,17 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 
 // A (N, H, W, C) bf16 map in boxes of {64 channels, W, bh rows, bimg
 // images}, 128-byte swizzle; coordinates outside the map read as zeros.
-// Encoding a map costs the host microseconds, and a block call needs four:
-// the last WG_MAP_CACHE maps are kept by (address, shape), which repeat
-// from call to call as the caching allocator hands out the same blocks.
+// Encoding a map costs the host microseconds, and a block's forward needs
+// up to four, its backward four: the last WG_MAP_CACHE maps are kept by
+// (address, shape), which repeat from call to call as the caching
+// allocator hands out the same blocks. wg_map_misses() counts the
+// encodings (chip_smoke.py --profile-grad reads it per gradient step).
 constexpr int WG_MAP_CACHE = 256;
+
+inline long& wg_map_misses() {
+  static long misses = 0;
+  return misses;
+}
 
 inline bool wg_box_map(CUtensorMap* map, const void* p, int N, int H, int W, int C, int bh,
                        int bimg) {
@@ -265,6 +275,7 @@ inline bool wg_box_map(CUtensorMap* map, const void* p, int N, int H, int W, int
   }
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
+  ++wg_map_misses();
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
   const cuuint64_t strides[3] = {(cuuint64_t)C * sizeof(bf16), (cuuint64_t)W * C * sizeof(bf16),
                                  (cuuint64_t)H * W * C * sizeof(bf16)};

@@ -93,7 +93,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         P, P, I, P, P,                    # gn1s, gn1b, g1, w0, b0
         P, P, I, P, P, P, I,              # gn2s, gn2b, g2, w1t, w0t, wskipt, cout
         F, F, P, P, P, P, P, P,           # eps, oscale, act1, h1, da2, dc1, dh, dskip
-        P, L, P, P, P, P]                 # ws, ws_elems, dx1, dx2, dtemb, stream
+        P, L, P, P, P,                    # ws, ws_elems, dx1, dx2, dtemb
+        P, P, P, P,                       # w0s, w1ts, w0ts, wskipts
+        P, P, P]                          # gn1_stats, plan, stream
     lib.diffpure_resblock_bwd.restype = I
     lib.diffpure_attnblock_fwd.argtypes = [
         I, P, I, I, I, I,                 # dtype, x, N, H, W, C

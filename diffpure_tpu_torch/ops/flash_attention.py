@@ -5,8 +5,10 @@ diffpure_tpu/ops/flash_attention.py).
 (replacing ``_flash_forward``, :145) on CUDA tensors and runs its plain
 version ``_reference_attention`` (:88, exact softmax, fp32 throughout) on
 CPU tensors. q, k, v are (BH, T, D); ``scale`` applies to both q and k (the
-ADM ch^-1/4 convention). The kernel takes D == 64 and T % 64 == 0 (the
-ADM-256 shapes) and raises on others. Forward only on the card: JAX's
+ADM ch^-1/4 convention). The kernel takes head widths D in FLASH_WIDTHS
+(32, 64, 128; the ADM-256 has 64) and T a multiple of its query block (128
+bf16, 64 fp32), and raises on others before any launch (JAX's kernel takes
+any D: the other widths are an open gap, ROADMAP). Forward only on the card: JAX's
 backward is a dense VJP of the reference (:101-142); here the wrapper
 raises if autograd would need it on a CUDA tensor (ROADMAP).
 """
@@ -26,12 +28,16 @@ def _reference_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tenso
     return torch.einsum("bts,bsd->btd", p, v.float()).to(q.dtype)
 
 
+# The head widths the kernel is built for (csrc/flash_attention.cu).
+FLASH_WIDTHS = (32, 64, 128)
+
+
 def check_flash_shape(dtype: torch.dtype, T: int, D: int) -> None:
-    """Raise on what the kernel does not take: D == 64, and T a multiple of
-    its query block (128 bf16, 64 fp32)."""
+    """Raise on what the kernel does not take: D in FLASH_WIDTHS, and T a
+    multiple of its query block (128 bf16, 64 fp32)."""
     block = 128 if dtype == torch.bfloat16 else 64
-    if D != 64 or T % block:
-        raise ValueError(f"the flash kernel takes D == 64 and T % {block} == 0 "
+    if D not in FLASH_WIDTHS or T % block:
+        raise ValueError(f"the flash kernel takes D in {FLASH_WIDTHS} and T % {block} == 0 "
                          f"({dtype}); got T={T}, D={D}")
 
 

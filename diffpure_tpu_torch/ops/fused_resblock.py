@@ -20,9 +20,13 @@ of its input gradient:
   On CPU tensors every wrapper runs the plain version; on CUDA tensors it
   launches its kernel or raises. The bf16 forward runs its two convs on the
   wgmma GEMM of ``csrc/igemm_wgmma.cuh``, tiled as ``resblock_plan`` says,
-  with weights from ``pack_resblock_params``' swizzled stages; it takes
-  channel counts that are multiples of 64 and maps its TMA boxes tile
-  (``check_resblock_shape``), and raises on others.
+  with weights from ``pack_resblock_params``' swizzled stages; the bf16
+  backward runs its four products (conv0's recompute, conv1 and conv0
+  transposed, the skip adjoint) on the same GEMM, tiled as
+  ``resblock_bwd_plan`` says, with ``pack_resblock_bwd_params``' stages of
+  the transposed weights. Both take channel counts that are multiples of
+  64 and maps their TMA boxes tile (``check_resblock_shape``), and raise
+  on others.
 
 The block: GN1 (fp32 stats, eps 1e-6) + SiLU -> optional naive 2x
 down/up-sample of h and of the skip input -> conv3x3 + b0 + temb row ->
@@ -32,6 +36,7 @@ projection (cout, cin).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Optional, Tuple
@@ -43,7 +48,7 @@ import torch.nn.functional as F
 from diffpure_tpu_torch.ops import _cuda
 from diffpure_tpu_torch.ops.conv import conv2d_nhwc
 from diffpure_tpu_torch.ops.groupnorm import group_norm
-from diffpure_tpu_torch.ops.halo_conv import pack_halo_weights
+from diffpure_tpu_torch.ops.halo_conv import _swizzle128, pack_halo_weights
 from diffpure_tpu_torch.ops.upfirdn2d import naive_downsample_2d, \
     naive_upsample_2d
 
@@ -219,6 +224,31 @@ class ResblockPlan:
     per: Tuple[int, int]
 
 
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """One product of the bf16 backward on the wgmma GEMM: as a
+    ResblockPlan's, for one GEMM of ``steps`` K steps and ``nout`` output
+    channels."""
+    bm: int
+    bn: int
+    box: Tuple[int, int, int]
+    mtiles: int
+    ntiles: int
+    nout: int
+    steps: int
+    splits: int
+    per: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ResblockBwdPlan:
+    """The bf16 backward's four GEMMs (conv0's recompute, conv1^T, conv0^T,
+    the skip adjoint: None for an identity skip) and the 24 ints the C
+    side reads, (bm, bn, bh, bimg, splits, per) each."""
+    gemms: Tuple[Optional[GemmPlan], ...]
+    ints: Tuple[int, ...]
+
+
 def _box(bm: int, Ho: int, Wo: int) -> Optional[Tuple[int, int, int]]:
     """The box of bm rows that tiles the output grid: whole rows of one
     image, or whole images; None where none does."""
@@ -232,56 +262,98 @@ def _box(bm: int, Ho: int, Wo: int) -> Optional[Tuple[int, int, int]]:
     return None
 
 
-@functools.lru_cache(maxsize=None)
-def resblock_plan(N: int, Ho: int, Wo: int, cin: int, cr: int, cout: int,
-                  sms: int = SMS, ws_elems: int = _cuda.SPLITK_WORKSPACE) -> ResblockPlan:
-    """The largest tile of RB_TILES whose tiles fill their waves of ``sms``
-    to at least RB_MIN_FILL; where none does, the tile that gives the most
-    tiles, and each conv's K split into up to sms // tiles slices of at
-    least RB_MIN_STEPS steps whose fp32 partials fit ``ws_elems`` (summed
-    in slice order by a second pass: no atomics). cin: conv0's input
-    channels, cr: the projection's (0 for an identity skip), cout: the
-    output's; Ho x Wo: the output grid. Raises on a shape the kernel does
-    not take."""
-    if cin % KC or cr % KC or cout % KC or cin <= 0 or cout <= 0:
-        raise ValueError(f"the bf16 resblock kernel takes channel counts that are "
-                         f"multiples of {KC}; got cin={cin}, skip={cr}, cout={cout}")
+def _fills(tiles: int, sms: int) -> bool:
+    return tiles / (-(-tiles // sms) * sms) >= RB_MIN_FILL
+
+
+def _tile(N: int, Ho: int, Wo: int, nout: int, sms: int):
+    """(bm, bn, box, mtiles, ntiles): the largest tile of RB_TILES whose
+    tiles fill their waves of ``sms`` to at least RB_MIN_FILL; where none
+    does, the tile that gives the most tiles."""
     M = N * Ho * Wo
     fits = []
     for bm, bn in RB_TILES:
         box = _box(bm, Ho, Wo)
-        if cout % bn == 0 and box is not None and max(box) <= 256:
-            fits.append((bm, bn, box, -(-M // bm), cout // bn))
+        if nout % bn == 0 and box is not None and max(box) <= 256:
+            fits.append((bm, bn, box, -(-M // bm), nout // bn))
     if not fits:
         raise ValueError(f"the bf16 resblock kernel's TMA boxes do not tile a "
                          f"{Ho}x{Wo} map: it takes Wo dividing 64 or 128 and Ho * Wo a "
                          f"multiple or a divisor of that tile")
-    def fills(tiles):
-        return tiles / (-(-tiles // sms) * sms) >= RB_MIN_FILL
-
-    pick = next((f for f in fits if fills(f[3] * f[4])), None) \
+    return next((f for f in fits if _fills(f[3] * f[4], sms)), None) \
         or max(fits, key=lambda f: f[3] * f[4])
-    bm, bn, box, mtiles, ntiles = pick
-    tiles = mtiles * ntiles
+
+
+def _split(k: int, tiles: int, M: int, nout: int, sms: int, ws_elems: int) -> Tuple[int, int]:
+    """(splits, per): k K steps in slices of ``per`` steps, up to sms //
+    tiles slices of at least RB_MIN_STEPS steps whose fp32 partials fit
+    ``ws_elems``, where the tiles alone do not fill their waves."""
+    s = 1
+    if not _fills(tiles, sms):
+        s = max(1, min(sms // tiles, k // RB_MIN_STEPS, RB_MAX_SPLITS, ws_elems // (M * nout)))
+    p = -(-k // s)
+    return -(-k // p), p
+
+
+def _check_channels(cin: int, cr: int, cout: int) -> None:
+    if cin % KC or cr % KC or cout % KC or cin <= 0 or cout <= 0:
+        raise ValueError(f"the bf16 resblock kernel takes channel counts that are "
+                         f"multiples of {KC}; got cin={cin}, skip={cr}, cout={cout}")
+
+
+@functools.lru_cache(maxsize=None)
+def resblock_plan(N: int, Ho: int, Wo: int, cin: int, cr: int, cout: int,
+                  sms: int = SMS, ws_elems: int = _cuda.SPLITK_WORKSPACE) -> ResblockPlan:
+    """The forward's plan: one tile (_tile, by cout) for both convs, and
+    each conv's K split by _split (summed in slice order by a second pass:
+    no atomics). cin: conv0's input channels, cr: the projection's (0 for
+    an identity skip), cout: the output's; Ho x Wo: the output grid.
+    Raises on a shape the kernel does not take."""
+    _check_channels(cin, cr, cout)
+    M = N * Ho * Wo
+    bm, bn, box, mtiles, ntiles = _tile(N, Ho, Wo, cout, sms)
     steps = (9 * cin // KC, 9 * cout // KC + cr // KC)
-    splits, per = [], []
-    for k in steps:
-        s = 1
-        if not fills(tiles):
-            s = max(1, min(sms // tiles, k // RB_MIN_STEPS, RB_MAX_SPLITS,
-                           ws_elems // (M * cout)))
-        p = -(-k // s)
-        splits.append(-(-k // p))
-        per.append(p)
-    return ResblockPlan(bm, bn, box, mtiles, ntiles, steps, tuple(splits), tuple(per))
+    cuts = [_split(k, mtiles * ntiles, M, cout, sms, ws_elems) for k in steps]
+    return ResblockPlan(bm, bn, box, mtiles, ntiles, steps, tuple(c[0] for c in cuts),
+                        tuple(c[1] for c in cuts))
+
+
+def _gemm_plan(N: int, Ho: int, Wo: int, nout: int, steps: int, sms: int,
+               ws_elems: int) -> GemmPlan:
+    bm, bn, box, mtiles, ntiles = _tile(N, Ho, Wo, nout, sms)
+    splits, per = _split(steps, mtiles * ntiles, N * Ho * Wo, nout, sms, ws_elems)
+    return GemmPlan(bm, bn, box, mtiles, ntiles, nout, steps, splits, per)
+
+
+@functools.lru_cache(maxsize=None)
+def resblock_bwd_plan(N: int, Ho: int, Wo: int, cin: int, cout: int, proj: bool,
+                      sms: int = SMS, ws_elems: int = _cuda.SPLITK_WORKSPACE
+                      ) -> ResblockBwdPlan:
+    """The bf16 backward's plan: each of its four GEMMs tiled and split as
+    the forward's (_tile by its output width, _split of its K steps):
+    conv0's recompute (cout wide, 9 cin / 64 steps: the forward's conv0),
+    conv1^T (cout, 9 cout / 64), conv0^T (cin, 9 cout / 64; the concat
+    block's cin crosses the seam) and the skip adjoint (cin, cout / 64
+    projection steps; None without a projection). Raises on a shape the
+    kernel does not take."""
+    _check_channels(cin, cin if proj else 0, cout)
+    gemms = (_gemm_plan(N, Ho, Wo, cout, 9 * cin // KC, sms, ws_elems),
+             _gemm_plan(N, Ho, Wo, cout, 9 * cout // KC, sms, ws_elems),
+             _gemm_plan(N, Ho, Wo, cin, 9 * cout // KC, sms, ws_elems),
+             _gemm_plan(N, Ho, Wo, cin, cout // KC, sms, ws_elems) if proj else None)
+    ints = []
+    for g in gemms:
+        ints += [0] * 6 if g is None else [g.bm, g.bn, g.box[1], g.box[2], g.splits, g.per]
+    return ResblockBwdPlan(gemms, tuple(ints))
 
 
 def check_resblock_shape(dtype: torch.dtype, N: int, H: int, W: int, c1: int,
                          c2: int, cout: int, resample: str, has_proj: bool,
-                         g1: int, g2: int, sms: int = SMS) -> Optional[ResblockPlan]:
-    """Raise on what the kernel for ``dtype`` does not take; the bf16 plan
-    (None for fp32, whose kernel takes any channel counts that are
-    multiples of 4)."""
+                         g1: int, g2: int, sms: int = SMS, backward: bool = False):
+    """Raise on what the kernel for ``dtype`` does not take, forward or
+    (``backward``) input gradient; the bf16 plan, ResblockPlan or
+    ResblockBwdPlan (None for fp32, whose kernels take any channel counts
+    that are multiples of 4)."""
     if dtype != torch.bfloat16:
         return None
     if c1 % KC or c2 % KC:
@@ -293,6 +365,8 @@ def check_resblock_shape(dtype: torch.dtype, N: int, H: int, W: int, c1: int,
                          f"{RB_GN_MAX_C} channels in at most {RB_GN_MAX_G} groups that divide "
                          f"them; got {cin} in {g1}, {cout} in {g2}")
     Ho, Wo = {"none": (H, W), "down": (H // 2, W // 2), "up": (H * 2, W * 2)}[resample]
+    if backward:
+        return resblock_bwd_plan(N, Ho, Wo, cin, cout, has_proj, sms)
     return resblock_plan(N, Ho, Wo, cin, cin if has_proj else 0, cout, sms)
 
 
@@ -306,6 +380,16 @@ class PackedResblockBwd:
     w0t: Tensor                # (cin, 9 * cout); the cat block's rows split
                                # at the seam: [0, c1) give dx1, the rest dx2
     wskipt: Optional[Tensor]   # (cin, cout), or None for an identity skip
+    # bf16 with cin, cout % 64 == 0: the same weights as the wgmma GEMM's
+    # stages (the forward's w0s layout): (steps, output channels, 64), step
+    # (o // 64) * 9 + tap for input channel o of the transposed conv (an
+    # output channel of the forward's), each row in the 128-byte swizzle
+    w1ts: Optional[Tensor] = None     # (9 cout / 64, cout, 64)
+    w0ts: Optional[Tensor] = None     # (9 cout / 64, cin, 64)
+    wskipts: Optional[Tensor] = None  # (cout / 64, cin, 64): projection steps
+    # the device pointers the launch passes, taken once here: w1t, w0t,
+    # wskipt, w1ts, w0ts, wskipts (0 for None)
+    ptrs: Tuple[int, ...] = ()
 
 
 def _flip_transpose(w: Tensor) -> Tensor:
@@ -314,17 +398,34 @@ def _flip_transpose(w: Tensor) -> Tensor:
     return w.detach().flip(2, 3).permute(1, 2, 3, 0).reshape(ci, 9 * co)
 
 
+def _transposed_stages(w: Tensor, dtype: torch.dtype, device) -> Tensor:
+    """(co, ci, 3, 3) conv weight -> the stage pack of its transposed conv,
+    (9 co / 64, ci, 64): the HWIO kernel w[o, c, 2 - dy, 2 - dx] at (dy, dx,
+    o, c), packed as the halo conv's."""
+    return pack_halo_weights(w.detach().flip(2, 3).permute(2, 3, 0, 1), None, dtype, device).w
+
+
 def pack_resblock_bwd_params(params: Tuple, dtype: torch.dtype,
                              device) -> PackedResblockBwd:
     """Transposed weights for the backward kernel (cached by the caller
     like the forward pack)."""
     w0, w1, wskip = params[2], params[6], params[8]
+    cout, cin = w0.shape[:2]
     with torch.no_grad():
-        return PackedResblockBwd(
-            w1t=_flip_transpose(w1).to(device, dtype).contiguous(),
-            w0t=_flip_transpose(w0).to(device, dtype).contiguous(),
-            wskipt=None if wskip is None else
-            wskip.detach().t().to(device, dtype).contiguous())
+        t = dict(w1t=_flip_transpose(w1).to(device, dtype).contiguous(),
+                 w0t=_flip_transpose(w0).to(device, dtype).contiguous(),
+                 wskipt=None if wskip is None else
+                 wskip.detach().t().to(device, dtype).contiguous(),
+                 w1ts=None, w0ts=None, wskipts=None)
+        if dtype == torch.bfloat16 and cin % KC == 0 and cout % KC == 0:
+            t["w1ts"] = _transposed_stages(w1, dtype, device)
+            t["w0ts"] = _transposed_stages(w0, dtype, device)
+            if wskip is not None:  # step j: g's channels 64 j.. against wskip[o, c]
+                ws = wskip.detach().reshape(cout, cin).to(device, dtype)
+                t["wskipts"] = _swizzle128(
+                    ws.reshape(cout // KC, KC, cin).permute(0, 2, 1).contiguous()).contiguous()
+        return PackedResblockBwd(ptrs=tuple(0 if v is None else v.data_ptr()
+                                            for v in t.values()), **t)
 
 
 def _block_shapes(x1: Tensor, x2: Optional[Tensor], pk: PackedResblock,
@@ -400,6 +501,12 @@ def _launch(x1: Tensor, x2: Optional[Tensor], temb_row: Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _plan_ints(plan: ResblockBwdPlan):
+    """The plan's ints as the C array the launch passes (kept alive here)."""
+    return (ctypes.c_int * len(plan.ints))(*plan.ints)
+
+
 def _launch_bwd(x1: Tensor, x2: Optional[Tensor], temb_row: Tensor, g: Tensor,
                 pk: PackedResblock, pkb: PackedResblockBwd, g1: int, g2: int,
                 eps: float, rescale: bool, resample: str):
@@ -410,12 +517,17 @@ def _launch_bwd(x1: Tensor, x2: Optional[Tensor], temb_row: Tensor, g: Tensor,
             or tuple(pkb.w0t.shape) != (cin, 9 * cout) \
             or (pkb.wskipt is not None) != pk.has_proj:
         raise ValueError("packed backward weights do not match the input")
+    plan = check_resblock_shape(dtype, N, H, W, c1, c2, cout, resample, pk.has_proj,
+                                g1, g2, _cuda.num_sms(dev), backward=True)
+    if plan is not None and (pk.w0s is None or pkb.w1ts is None):
+        raise ValueError("packed weights lack the bf16 kernel's stages")
     p_x1 = _cuda.check_operand(x1, "x1", dev, dtype)
     p_x2 = None if x2 is None else _cuda.check_operand(
         x2, "x2", dev, dtype, (N, H, W, c2))
-    temb = temb_row.to(dtype).contiguous()
+    temb = temb_row if temb_row.dtype == dtype and temb_row.is_contiguous() \
+        else temb_row.to(dtype).contiguous()
     p_temb = _cuda.check_operand(temb, "temb_row", dev, dtype, (N, cout))
-    gc = g.to(dtype).contiguous()
+    gc = g if g.dtype == dtype and g.is_contiguous() else g.to(dtype).contiguous()
     p_g = _cuda.check_operand(gc, "g", dev, dtype, (N, Ho, Wo, cout))
 
     f32 = dict(device=dev, dtype=torch.float32)
@@ -423,21 +535,22 @@ def _launch_bwd(x1: Tensor, x2: Optional[Tensor], temb_row: Tensor, g: Tensor,
     dx2 = None if x2 is None else torch.empty((N, H, W, c2), **f32)
     dtemb = torch.empty((N, cout), **f32)
     esize, pix = gc.element_size(), N * Ho * Wo
-    # act1, h1, d_a2, d_c1, d_h, the skip adjoint (projected blocks only)
-    buf, (act1, h1, da2, dc1, dh, dskip), ws = _cuda.scratch(
+    # act1, h1, d_a2, d_c1, d_h, the skip adjoint (projected blocks only),
+    # GN1's (mean, rstd) per example and group (bf16)
+    buf, (act1, h1, da2, dc1, dh, dskip, stats), ws = _cuda.scratch(
         dev, pix * cin * esize, pix * cout * 4, pix * cout * 4,
-        pix * cout * esize, pix * cin * 4, pix * cin * 4 if pk.has_proj else 0)
+        pix * cout * esize, pix * cin * 4, pix * cin * 4 if pk.has_proj else 0,
+        N * g1 * 8 if plan is not None else 0)
+    gn1s, gn1b, w0, b0, gn2s, gn2b, _, _, w0s, _ = pk.ptrs
+    w1t, w0t, wskipt, w1ts, w0ts, wskipts = pkb.ptrs
     err = _cuda.lib().diffpure_resblock_bwd(
         _cuda.DTYPE_CODE[dtype], p_x1, p_x2, c1, c2, N, H, W,
-        _RESAMPLE[resample], p_temb, p_g,
-        pk.gn1s.data_ptr(), pk.gn1b.data_ptr(), g1, pk.w0.data_ptr(),
-        pk.b0.data_ptr(), pk.gn2s.data_ptr(), pk.gn2b.data_ptr(), g2,
-        pkb.w1t.data_ptr(), pkb.w0t.data_ptr(),
-        None if pkb.wskipt is None else pkb.wskipt.data_ptr(), cout,
-        eps, INV_SQRT2 if rescale else 1.0,
+        _RESAMPLE[resample], p_temb, p_g, gn1s, gn1b, g1, w0, b0, gn2s, gn2b, g2,
+        w1t, w0t, wskipt, cout, eps, INV_SQRT2 if rescale else 1.0,
         act1, h1, da2, dc1, dh, dskip, ws, _cuda.SPLITK_WORKSPACE,
-        dx1.data_ptr(), None if dx2 is None else dx2.data_ptr(),
-        dtemb.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        dx1.data_ptr(), None if dx2 is None else dx2.data_ptr(), dtemb.data_ptr(),
+        w0s, w1ts, w0ts, wskipts, stats, None if plan is None else _plan_ints(plan),
+        _cuda.stream(dev))
     _cuda.check(err, "fused_resblock backward kernel")
     return dx1, dx2, dtemb
 

@@ -1,6 +1,7 @@
 """The port's flash attention (plain version on the CPU) and dense
 qkv_attention against diffpure_tpu's, its Pallas kernel in interpret mode,
-on the same seeded inputs, fp32 and bf16."""
+on the same seeded inputs, fp32 and bf16, at each head width the card's
+kernel takes."""
 import numpy as np
 import pytest
 import torch
@@ -11,11 +12,13 @@ from diffpure_tpu_torch.ops import flash_attention as fa
 from diffpure_tpu_torch.ops.attention import qkv_attention
 from torch_parity import DTYPES, REL, assert_close, normal, to_jax, to_torch
 
-T, D = 256, 64
+T = 256
+WIDTHS = (32, 64, 128)  # the head widths the kernel takes
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_flash_attention_matches_jax_kernel(dtype):
+@pytest.mark.parametrize("D", WIDTHS)
+def test_flash_attention_matches_jax_kernel(dtype, D):
     jdt, tdt = DTYPES[dtype]
     rng = np.random.default_rng(0)
     q, k, v = (normal(rng, 4, T, D) for _ in range(3))
@@ -32,7 +35,8 @@ def test_flash_attention_matches_jax_kernel(dtype):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("order", ["legacy", "new"])
-def test_qkv_attention_both_forms_match_jax(dtype, order):
+@pytest.mark.parametrize("D", WIDTHS)
+def test_qkv_attention_both_forms_match_jax(dtype, order, D):
     jdt, tdt = DTYPES[dtype]
     heads = 2
     qkv = normal(np.random.default_rng(1), 2, T, 3 * heads * D)
@@ -55,13 +59,18 @@ def test_flash_attention_has_no_fallback_off_the_cpu():
     (torch.bfloat16, 1024, 64, True), (torch.float32, 1024, 64, True),
     (torch.bfloat16, 256, 64, True), (torch.float32, 192, 64, True),
     (torch.bfloat16, 192, 64, False), (torch.float32, 96, 64, False),
-    (torch.bfloat16, 1024, 32, False), (torch.float32, 1024, 128, False),
+    (torch.bfloat16, 1024, 32, True), (torch.float32, 1024, 128, True),
+    (torch.bfloat16, 1024, 128, True), (torch.float32, 1024, 32, True),
+    (torch.bfloat16, 1024, 96, False), (torch.float32, 1024, 96, False),
+    (torch.bfloat16, 1024, 48, False), (torch.float32, 1024, 48, False),
+    (torch.bfloat16, 192, 32, False), (torch.float32, 96, 128, False),
 ])
 def test_flash_shape_gate(dtype, T, D, ok):
-    """The kernel's gate: D == 64, T a multiple of 128 (bf16) or 64 (fp32);
-    the ADM-256 shape (T = 1024) passes in both dtypes."""
+    """The kernel's gate: D in (32, 64, 128), T a multiple of 128 (bf16) or
+    64 (fp32); the ADM-256 shape (T = 1024) passes in both dtypes at each
+    of the three widths, and any other width raises before a launch."""
     if ok:
         fa.check_flash_shape(dtype, T, D)
     else:
-        with pytest.raises(ValueError, match="D == 64"):
+        with pytest.raises(ValueError, match=r"D in \(32, 64, 128\)"):
             fa.check_flash_shape(dtype, T, D)
