@@ -7,14 +7,22 @@ defences once on one NVIDIA GPU.
 Phases, each fatal on failure:
   1. versions, the card's name and power limit, and the build of the CUDA
      kernels from diffpure_tpu_torch/csrc (timed); the count of wgmma
-     (HGMMA) instructions in the SASS of the halo conv, flash attention and
-     the CIFAR block GEMM, which must be non-zero for their bf16 kernels;
+     (HGMMA) instructions in the SASS of the halo conv, flash attention,
+     the CIFAR block GEMM and the attention block's core, which must be
+     non-zero for their bf16 kernels;
   2. each hand-written kernel against its plain PyTorch version on the card,
      at every shape the CIFAR-10 NCSN++ gives it, batch 8, bf16 and fp32,
-     and the bf16 blocks again at batch 128, with seeded random-normal
-     weights; per shape the wrappers' CUDA-event time, the kernels' device
-     time (profiler), the plain time, and for the bf16 blocks TFLOP/s, the
-     share of the bound and cuDNN's convs as a yardstick;
+     and the bf16 blocks again at batch 128 (the attention block also at
+     16), with seeded random-normal weights; per shape the wrappers'
+     CUDA-event time, the kernels' device time (profiler), the plain time,
+     and for the bf16 blocks TFLOP/s, the share of the bound and cuDNN's
+     convs as a yardstick; for the attention block the device time by
+     chain step (GN, qkv GEMM, core; the bf16 core holds the output NIN,
+     fp32 runs it as a GEMM), the bound and a PyTorch
+     yardstick (attn_yardstick); a bf16 attention block that launches the
+     old GEMM, GN or core kernel (OLD_ATTN_KERNELS) fails; and the
+     attention block with an Inf in one example, whose neighbours must
+     agree with the plain version (phase_attn_isolation);
   3. the slice: DefendedModel (full-width configs/cifar10.yml NCSN++ with a
      bf16 torso + WRN-28-10, seeded random weights) on 8 seeded images at
      t*=100 through get_accuracy under inference_mode; the kernel launch
@@ -51,7 +59,8 @@ Phases, each fatal on failure:
      beside the flash kernel, F.scaled_dot_product_attention on 4-D views
      under each backend that takes the inputs, the fastest that agrees with
      the plain version as its library time (a yardstick on no path); and
-     flash attention at head widths 32 and 128 (T = 1024), off the census;
+     flash attention at head widths 32, 128 and 256, and 48, 96, 160 and
+     36, which the kernel is not built for (T = 1024), off the census;
   8. the ImageNet slice: DefendedModel(resize_to=256) with the
      guided-diffusion purify_sde at t*=150 through that ADM (bf16 torso,
      552,814,086 parameters) and ResNet-50, on 4 seeded 224x224 images under
@@ -176,6 +185,21 @@ BWD_KINDS = (("gn", ("gn_apply_kernel", "rb_gn_kernel")),
 BWD_GEMMS = ("conv0 recompute", "conv1^T", "conv0^T", "skip adjoint")
 BWD_GNS = ("GN2+SiLU backward", "GN1+SiLU backward")
 OLD_BWD_KERNELS = ("igemm_bf16_kernel", "gn_silu_bwd_kernel")
+# The attention block's (#3) calls per evaluation of the CIFAR NCSN++, by
+# shape as shape_census gives them: 9 at 16x16x256, the middle block at
+# 4x4x256 (phase 2 checks the census against it).
+ATTN_CENSUS = {("fused_attnblock", "none", 16, 256, 0, 256): 9,
+               ("fused_attnblock", "none", 4, 256, 0, 256): 1}
+# Its chain's launches by kernel-name fragment: the GroupNorm pass, the NIN
+# GEMMs (ATTN_GEMMS, in launch order; a split-K pass counts to the GEMM
+# before it; the bf16 chain has only the first: its output NIN runs in the
+# core), the attention core. The bf16 chain launches none of
+# OLD_ATTN_KERNELS (phase 2).
+ATTN_KINDS = (("gn", ("gn_apply_kernel", "rb_gn_kernel")),
+              ("gemm", ("igemm_", "rb_wgmma_kernel")), ("splitk", ("splitk_",)),
+              ("core", ("attn_kernel", "attn_wgmma_kernel")))
+ATTN_GEMMS = ("qkv GEMM", "out GEMM")
+OLD_ATTN_KERNELS = ("gn_apply_kernel", "igemm_bf16_kernel", "attn_kernel")
 # The ImageNet-256 slice: the full-width imagenet256_config ADM (bf16 torso)
 # + ResNet-50 at t*=150, batch 4 (run_scripts/imagenet/run_in_rand_inf.sh).
 ADM_N = 4
@@ -192,12 +216,18 @@ ADM_KERNELS = {
     "flash_attention": ("diffpure_tpu_torch/csrc/flash_attention.cu",
                         "diffpure_tpu/ops/flash_attention.py:145"),
 }
-# Phase 2c's flash attention at the head widths off the census, (BH, T, D):
-# the ADM-256's 32^2 attention (4 images, 512 channels, T = 1024) in heads
-# of 32 and of 128 channels.
-FLASH_WIDTHS_OFF_CENSUS = ((64, 1024, 32), (16, 1024, 128))
+# Phase 2c's flash attention at the head widths off the census, (BH, T, D),
+# T = 1024: the ADM-256's 32^2 attention (4 images, 512 channels) in heads
+# of 32 and of 128 channels, and heads of 256, the widest the kernel takes;
+# 48, 96 and 160, which it is not built for, run on the kernel of the next
+# built width (64, 128, 256), bf16 on the unpadded heads and fp32 on heads
+# the wrapper zero-pads; 36 (not a multiple of 8) runs zero-padded to 64 in
+# both.
+FLASH_WIDTHS_OFF_CENSUS = ((64, 1024, 32), (16, 1024, 128), (32, 1024, 48), (16, 1024, 96),
+                           (8, 1024, 160), (8, 1024, 256), (32, 1024, 36))
 # The bf16 kernels that must run on wgmma: HGMMA in their SASS (phase 1).
-WGMMA_KERNELS = ("halo_wgmma_kernel", "flash_wgmma_kernel", "rb_wgmma_kernel")
+WGMMA_KERNELS = ("halo_wgmma_kernel", "flash_wgmma_kernel", "rb_wgmma_kernel",
+                 "attn_wgmma_kernel")
 # Phase 9, card (kernels) against CPU (plain versions), max abs error over
 # max |CPU|. One full-width ADM evaluation: fp32 differs by summation order
 # only (the port's fp32 ADM and JAX's sit 1.5e-6 apart at the small ADM of
@@ -380,15 +410,17 @@ def phase_kernels(torch, dev, shapes, n=N, dtypes=("bfloat16", "float32")):
     calls (which measure the host where the kernels take less) and the
     kernels' device ms (profiler), plain ms; for the bf16 blocks also the
     GEMMs' share of the device time, TFLOP/s and share of the bound, and
-    cuDNN's convs as a yardstick (conv_library_ms)."""
+    cuDNN's convs as a yardstick (conv_library_ms); for the attention block
+    the device ms by chain step (attn_device_ms), TFLOP/s and share of the
+    bound, and in bf16 its PyTorch yardstick (attn_yardstick, library_ms).
+    A bf16 attention block that launches a kernel of OLD_ATTN_KERNELS
+    fails."""
     from diffpure_tpu_torch.ops import fused_attnblock as fab
     from diffpure_tpu_torch.ops import fused_resblock as frb
     from diffpure_tpu_torch.ops.groupnorm import ncsn_num_groups
 
     records = []
     for i, ((name, rs, H, c1, c2, cout), calls) in enumerate(sorted(shapes.items())):
-        if n != N and name == "fused_attnblock":
-            continue
         params, x32, temb32, _ = block_inputs(torch, dev, i, name, rs, H, c1, c2, cout, n)
         cin = c1 + c2
         g1, g2 = ncsn_num_groups(cin), ncsn_num_groups(cout)
@@ -422,7 +454,8 @@ def phase_kernels(torch, dev, shapes, n=N, dtypes=("bfloat16", "float32")):
                 err = float((got.float() - want.float()).abs().max())
                 scale = float(want.float().abs().max())
                 ok = bool(torch.isfinite(got.float()).all()) and err <= REL[dtype_name] * scale
-                dev_ms = device_ms(torch, kern)
+                attn = name == "fused_attnblock"
+                dev_ms = attn_device_ms(torch, kern) if attn else device_ms(torch, kern)
                 rec = dict(kernel=name, resample=rs, H=H, c1=c1, c2=c2, cout=cout, batch=n,
                            calls_per_eval=calls, dtype=dtype_name, max_abs_err=err,
                            rel_err=err / scale, rel_tol=REL[dtype_name],
@@ -430,7 +463,29 @@ def phase_kernels(torch, dev, shapes, n=N, dtypes=("bfloat16", "float32")):
                            device_ms_by=dev_ms,
                            plain_ms=cuda_ms(torch, plain, reps=20 if n == N else 5), ok=ok)
                 line = ""
-                if name != "fused_attnblock" and dtype_name == "bfloat16":
+                if attn:
+                    flops, nbytes = block_cost(name, rs, H, c1, c2, cout, n,
+                                               x.element_size())
+                    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES
+                    old = [k for k in dev_ms["kernels"]
+                           if any(f in k for f in OLD_ATTN_KERNELS)]
+                    rec.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
+                               bound_by="operations" if t_ops >= t_bytes else "bytes",
+                               tflops=flops / rec["device_ms"] / 1e9,
+                               device_steps=dev_ms["steps"], device_kernels=dev_ms["kernels"])
+                    rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+                    steps = ", ".join(f"{k} {v:.4f}" for k, v in dev_ms["steps"].items())
+                    line = (f" ({steps}; {rec['tflops']:.1f} TFLOP/s, "
+                            f"{rec['bound_share']:.3f} of bound)")
+                    if dtype_name == "bfloat16":
+                        rec.update(attn_yardstick(torch, x, params, g1, want))
+                        line += (f" PyTorch yardstick {rec['library_ms']:.4f} ms (device "
+                                 f"{rec['library_device_ms']:.4f}, rel err "
+                                 f"{rec['library_rel_err']:.1e})")
+                        if old:
+                            rec["ok"] = ok = False
+                            line += f" OLD KERNELS {old}"
+                elif dtype_name == "bfloat16":
                     flops, nbytes = block_cost(name, rs, H, c1, c2, cout, n, 2)
                     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES
                     lib_ms, lib_dev = conv_yardstick(torch, params, rs, H, cin, cout, n)
@@ -499,11 +554,44 @@ def phase_identity_resample(torch, dev, n=N):
     return checks
 
 
-def bwd_device_ms(torch, fn, reps=10):
-    """The backward kernel's own device time per call of fn, from the
-    profiler over ``reps`` back-to-back calls: the total, each step of the
-    chain (BWD_KINDS, labelled in launch order) and the kernels' names."""
-    from collections import Counter
+def phase_attn_isolation(torch, dev, n=N):
+    """The attention block keeps its examples apart: at each census shape,
+    example 1 of a batch of n holds an Inf (its output is then not finite,
+    in the plain version too) and every other example's output must be
+    finite and agree with the plain version on the same batch, at REL, bf16
+    and fp32. A kernel whose boxes reach into a neighbour's rows turns them
+    into NaN (0 * Inf)."""
+    from diffpure_tpu_torch.ops import fused_attnblock as fab
+    from diffpure_tpu_torch.ops.groupnorm import ncsn_num_groups
+
+    checks = {}
+    for i, ((name, rs, H, c1, c2, cout), _) in enumerate(sorted(ATTN_CENSUS.items())):
+        params, x32, _, _ = block_inputs(torch, dev, 950 + i, name, rs, H, c1, c2, cout, n)
+        x32[1, 0, 0, 0] = float("inf")
+        keep = [e for e in range(n) if e != 1]
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            x = x32.to(dtype)
+            kw = dict(num_groups=ncsn_num_groups(c1))
+            with torch.inference_mode():
+                got = fab.fused_attnblock(x, params, packed=fab.pack_attnblock_params(
+                    params, dtype, dev), **kw)[keep].float()
+                want = fab.fused_attnblock_reference(x, params, **kw)[keep].float()
+            rel = float((got - want).abs().max() / want.abs().max())
+            ok = bool(torch.isfinite(got).all()) and rel <= REL[dtype_name]
+            checks[f"{H}x{H}/{dtype_name}"] = dict(rel_err=rel, rel_tol=REL[dtype_name], ok=ok)
+            log(f"  fused_attnblock {H:2d}x{H:<2d} {c1} b{n}, example 1 holds an Inf; the "
+                f"others {dtype_name:8s} rel err {rel:.2e} <= {REL[dtype_name]:.0e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"attention block {H}x{H} {dtype_name}: an example with an "
+                                     f"Inf changed its neighbours")
+    return checks
+
+
+def kernel_events(torch, fn, reps):
+    """The device events of ``reps`` back-to-back calls of fn under the
+    profiler, in launch order."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -516,9 +604,77 @@ def bwd_device_ms(torch, fn, reps=10):
         evs = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
                      key=lambda e: e.time_range.start)
         if evs:
-            break
-    else:
-        raise AssertionError("three profiler sessions recorded no device time")
+            return evs
+    raise AssertionError("three profiler sessions recorded no device time")
+
+
+def attn_device_ms(torch, fn, reps=10):
+    """The attention block's own device time per call of fn, from the
+    profiler over ``reps`` back-to-back calls: the total, each step of its
+    chain (ATTN_KINDS: GN, qkv GEMM, core (bf16: with the output NIN), out
+    GEMM (fp32), labelled in launch order), the GEMMs' and the GN pass's
+    totals, and the kernels' names."""
+    from collections import Counter
+
+    steps, names, gi, last = Counter(), set(), 0, ATTN_GEMMS[0]
+    for e in kernel_events(torch, fn, reps):
+        names.add(e.name)
+        kind = next((k for k, frags in ATTN_KINDS if any(f in e.name for f in frags)), None)
+        if kind == "gn":  # a call's first launch
+            label, gi = "GN", 0
+        elif kind == "gemm":
+            label = last = ATTN_GEMMS[min(gi, len(ATTN_GEMMS) - 1)]
+            gi += 1
+        elif kind == "splitk":
+            label = last
+        elif kind == "core":
+            label = "core"
+        else:
+            label = "other (the wrapper's casts and copies)"
+        steps[label] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+    steps = dict(steps)
+    return dict(total=sum(steps.values()), gn=steps.get("GN", 0.0),
+                gemm=sum(steps.get(k, 0.0) for k in ATTN_GEMMS), steps=steps,
+                kernels=sorted(names))
+
+
+def attn_yardstick(torch, x, params, groups, want):
+    """The attention block in one PyTorch call per step, in x's dtype:
+    F.group_norm, torch.matmul for q | k | v, F.scaled_dot_product_attention
+    on (N, 1, HW, C) views, torch.matmul for the output NIN, then the
+    residual and the 1/sqrt(2): a yardstick on no path of the port. Its
+    CUDA-event and device ms per call and its error against the plain
+    version ``want``."""
+    import torch.nn.functional as F
+    from diffpure_tpu_torch.ops.fused_resblock import INV_SQRT2
+
+    gns, gnb, wq, bq, wk, bk, wv, bv, wo, bo = (t.to(x.dtype) for t in params)
+    n, H, W, C = x.shape
+    wqkv, bqkv = torch.cat([wq, wk, wv], 1), torch.cat([bq, bk, bv])
+    xc = x.permute(0, 3, 1, 2)  # the NHWC map as an NCHW view
+
+    def call():
+        h = F.group_norm(xc, groups, gns, gnb, 1e-6).permute(0, 2, 3, 1).reshape(n, 1, H * W, C)
+        q, k, v = (torch.matmul(h, wqkv) + bqkv).split(C, dim=-1)
+        a = F.scaled_dot_product_attention(q, k, v, scale=C ** -0.5)
+        o = torch.matmul(a, wo) + bo
+        return ((x.reshape(n, 1, H * W, C) + o) * INV_SQRT2).reshape(n, H, W, C)
+
+    with torch.inference_mode():
+        got = call()
+        torch.cuda.synchronize()
+        rel = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+        return dict(library_ms=cuda_ms(torch, call), library_device_ms=device_ms(torch, call)["total"],
+                    library_rel_err=rel)
+
+
+def bwd_device_ms(torch, fn, reps=10):
+    """The backward kernel's own device time per call of fn, from the
+    profiler over ``reps`` back-to-back calls: the total, each step of the
+    chain (BWD_KINDS, labelled in launch order) and the kernels' names."""
+    from collections import Counter
+
+    evs = kernel_events(torch, fn, reps)
     steps, names, gi, bi = Counter(), set(), 0, 0
     for e in evs:
         names.add(e.name)
@@ -965,7 +1121,8 @@ def profile_eval(torch, model, x, t, evals=3):
             wall_ms = (time.time() - t0) * 1e3
     families = (("halo conv", "halo_"), ("group stats", "stats_kernel"),
                 ("GN apply", "apply_kernel"), ("flash attention", "flash_"),
-                ("GN+SiLU (#10)", "gn_silu_kernel"), ("attention block (#3)", "attn_kernel"),
+                ("GN+SiLU (#10)", "gn_silu_kernel"),
+                ("attention block (#3)", ("attn_kernel", "attn_wgmma_kernel")),
                 ("convs and matmuls (cuDNN / cuBLAS)", ("conv", "gemm", "xmma", "cutlass",
                                                          "sm90", "implicit")),
                 ("elementwise", "elementwise"), ("reductions", "reduce"))
@@ -991,7 +1148,7 @@ def profile_eval(torch, model, x, t, evals=3):
 # the GroupNorm pass, the GEMM (the mma.sync one and the wgmma one), the
 # split-K pass, the attention core.
 CHAIN_KINDS = (("gn", ("gn_apply_kernel", "rb_gn_kernel")), ("gemm", ("igemm_", "rb_wgmma_kernel")),
-               ("splitk", ("splitk_",)), ("attn", ("attn_kernel",)))
+               ("splitk", ("splitk_",)), ("attn", ("attn_kernel", "attn_wgmma_kernel")))
 
 
 def chain_steps(prof, evals):
@@ -999,9 +1156,11 @@ def chain_steps(prof, evals):
     the profiler's kernels in launch order. A block call's launches follow
     each other with no other kernel between: a run of chain kernels splits
     at each GroupNorm pass into segments; a segment with the attention core
-    is an attention block (#3); the others alternate GN1 + conv0 and GN2 +
-    conv1 (a resblock's chain never shares a run with another resblock: the
-    temb row's plain ops come first)."""
+    is an attention block (#3; also by step: its GN pass, qkv GEMM, core
+    (bf16: with the output NIN) and fp32's out GEMM, a split-K pass counted
+    to its GEMM); the others alternate GN1
+    + conv0 and GN2 + conv1 (a resblock's chain never shares a run with
+    another resblock: the temb row's plain ops come first)."""
     from collections import Counter
 
     evs = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
@@ -1019,6 +1178,13 @@ def chain_steps(prof, evals):
         for seg in segs:
             if any(k == "attn" for k, _ in seg):
                 steps["attention block (#3)"] += sum(d for _, d in seg)
+                gemms = 0
+                for k, d in seg:
+                    if k == "gemm":
+                        gemms += 1
+                    label = {"gn": "GN", "attn": "core"}.get(
+                        k, ATTN_GEMMS[min(max(gemms, 1), 2) - 1])
+                    steps[f"#3 {label}"] += d
                 continue
             first = n_res % 2 == 0
             n_res += 1
@@ -1074,8 +1240,13 @@ def host_us_per_call(torch, dev):
 def profile_cifar(torch, dev, smi):
     """--profile-cifar: warm evaluations of the full-width NCSN++ (bf16
     torso) at batch 8 and 128 under the profiler (device ms by kernel, the
-    block chains' steps, idle share), and the host time per block call."""
-    score, _ = build_models(torch, dev, torch.bfloat16)
+    block chains' steps, idle share), the host time per block call, and
+    phase 3b's defended call at batch 128 (t*=100, cold and warm wall)."""
+    import numpy as np
+    from diffpure_tpu_torch.eval import DefendedModel, get_accuracy
+    from diffpure_tpu_torch.purify import PurifyConfig
+
+    score, clf = build_models(torch, dev, torch.bfloat16)
     res = dict(card=smi)
     for n in (N, CIFAR_BIG_N):
         log(f"== profile: CIFAR NCSN++ evaluations, batch {n}, bf16")
@@ -1092,6 +1263,20 @@ def profile_cifar(torch, dev, smi):
     for k, v in res["host_us"].items():
         log(f"  host {k:36s} {v['host_us']:8.1f} us per call (CUDA events "
             f"{v['cuda_event_ms'] * 1e3:8.1f} us)")
+    rng = np.random.default_rng(SEED + 8)
+    x128 = torch.from_numpy(rng.uniform(size=(CIFAR_BIG_N, 32, 32, 3)).astype(np.float32)).to(dev)
+    y128 = torch.from_numpy(rng.integers(0, 10, CIFAR_BIG_N)).to(dev)
+    dm = DefendedModel(score, clf, PurifyConfig(t=EVALS, grad_mode="none"), log_every=0)
+    res["defended_128_wall_s"] = []
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.inference_mode():
+            get_accuracy(dm, x128, y128, seed=SEED + 8, bs=CIFAR_BIG_N)
+        torch.cuda.synchronize()
+        res["defended_128_wall_s"].append(time.time() - t0)
+        log(f"  phase 3b's defended call, batch {CIFAR_BIG_N}, {run}: "
+            f"{res['defended_128_wall_s'][-1]:.3f} s on {smi}")
     (OUT / "profile_cifar.json").write_text(json.dumps(res, indent=1))
 
 
@@ -1529,7 +1714,7 @@ def main() -> int:
         (OUT / "build.log").write_text(build_log.read_text())
     wgmma = sass_wgmma(torch, _cuda.build())
     for fn, n in sorted(wgmma.items()):
-        if any(k in fn for k in ("halo", "flash", "rb_wgmma")):
+        if any(k in fn for k in ("halo", "flash", "rb_wgmma", "attn_wgmma")):
             log(f"  SASS: {n:5d} HGMMA in {fn}")
     no_wgmma = [k for k in WGMMA_KERNELS if not any(k in fn and n for fn, n in wgmma.items())]
     if no_wgmma:
@@ -1571,11 +1756,18 @@ def main() -> int:
     per_eval = {k: sum(c for s, c in shapes.items() if s[0] == k) for k in KERNELS}
     if per_eval != {k: v[2] for k, v in KERNELS.items()}:
         raise AssertionError(f"block calls per evaluation {per_eval}")
+    attn_shapes = {s: c for s, c in shapes.items() if s[0] == "fused_attnblock"}
+    if attn_shapes != ATTN_CENSUS:
+        raise AssertionError(f"attention block census {attn_shapes} != {ATTN_CENSUS}")
     records = phase_kernels(torch, dev, shapes)
+    log(f"== phase 2 at batch {GRAD_N} (phase 5's gradient batch), bf16 attention block")
+    attn16_records = phase_kernels(torch, dev, attn_shapes, n=GRAD_N, dtypes=("bfloat16",))
     log(f"== phase 2 at batch {CIFAR_BIG_N} (bench.py's CIFAR batch), bf16 blocks")
     big_records = phase_kernels(torch, dev, shapes, n=CIFAR_BIG_N, dtypes=("bfloat16",))
     log("== phase 2, up and down blocks with an identity skip (off the census)")
     identity_checks = phase_identity_resample(torch, dev)
+    log("== phase 2, the attention block with a non-finite example beside finite ones")
+    isolation_checks = phase_attn_isolation(torch, dev)
     phase_done("2")
     zero_bwd = {k: 0 for k in BWD_KERNELS}
     zero_adm = {k: 0 for k in ADM_KERNELS}
@@ -1589,8 +1781,9 @@ def main() -> int:
     phase_done("2b")
     (OUT / "result.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-        wgmma=wgmma, shapes=records, big_shapes=big_records, identity_checks=identity_checks,
-        bwd_shapes=bwd_records, bwd16_shapes=bwd16_records, phase_s=phase_s), indent=1))
+        wgmma=wgmma, shapes=records, big_shapes=big_records, attn16_shapes=attn16_records,
+        identity_checks=identity_checks, isolation_checks=isolation_checks, bwd_shapes=bwd_records, bwd16_shapes=bwd16_records,
+        phase_s=phase_s), indent=1))
     if args.stop_after == "2b":
         log("stopped after phase 2b as asked (partial run)")
         return 3
@@ -1688,6 +1881,7 @@ def main() -> int:
         reset_launch_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30  # what earlier phases left allocated
         t0 = time.time()
         with torch.inference_mode():
             acc = get_accuracy(model_fn, x128, y128, seed=SEED + 8, bs=CIFAR_BIG_N)
@@ -1696,9 +1890,10 @@ def main() -> int:
         counts = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         big_runs.append(dict(run=run, wall_s=wall, images_per_s=CIFAR_BIG_N / wall,
-                             counts=counts, peak_gib=peak))
+                             counts=counts, peak_gib=peak, held_gib=held))
         log(f"  {run}: {wall:.3f} s, {CIFAR_BIG_N / wall:.3f} images/s on {smi}, accuracy "
-            f"{acc:.3f} (random weights); peak device memory {peak:.2f} GiB; launches {counts}")
+            f"{acc:.3f} (random weights); peak device memory {peak:.2f} GiB ({held:.2f} GiB "
+            f"held before the call); launches {counts}")
         if counts != want:  # one defended call of 100 evaluations: as phase 3's
             raise AssertionError(f"launch counts {counts} != {want}")
     out = logits[-1]
@@ -2025,8 +2220,11 @@ def main() -> int:
             ms=sum(r["ms"] * r["calls_per_eval"] for r in mine),
             plain_ms=sum(r["plain_ms"] * r["calls_per_eval"] for r in mine),
             bound_ms=bound, bound_by=bound_by,
-            # no single PyTorch call computes any of these blocks
-            library_ms=None))
+            # no single PyTorch call computes any of these blocks; the
+            # attention block's yardstick is its steps in one PyTorch call
+            # each (attn_yardstick)
+            library_ms=sum(r["library_ms"] * r["calls_per_eval"] for r in mine)
+            if name == "fused_attnblock" else None))
     for name, (source, replaces) in ADM_KERNELS.items():
         # per ADM evaluation at batch 4, bf16: the kernel's calls at each shape
         mine = [r for r in adm_records if r["kernel"] == name and r["dtype"] == "bfloat16"]
@@ -2064,8 +2262,9 @@ def main() -> int:
             library_ms=None))  # no single PyTorch call computes either
     (OUT / "result.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
-        wgmma=wgmma, shapes=records, big_shapes=big_records, identity_checks=identity_checks,
-        bwd_shapes=bwd_records, bwd16_shapes=bwd16_records, slice_runs=runs, big_runs=big_runs,
+        wgmma=wgmma, shapes=records, big_shapes=big_records, attn16_shapes=attn16_records,
+        identity_checks=identity_checks, isolation_checks=isolation_checks, bwd_shapes=bwd_records, bwd16_shapes=bwd16_records,
+        slice_runs=runs, big_runs=big_runs,
         slice_checks=slice_checks,
         grad_runs=grad_runs, grad_checks=grad_checks,
         attack=dict(seconds=attack_s, counts=attack_counts, classifier_robust_acc=accs[0],

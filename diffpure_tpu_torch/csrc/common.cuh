@@ -2,11 +2,11 @@
 //   - gn_apply_kernel: GroupNorm statistics of a map (two passes, fp32) and
 //     then the normalised (+ SiLU) and naively 2x-resampled activation,
 //     written once in the compute dtype;
-//   - an implicit-GEMM kernel (3x3 SAME conv or pointwise) that reads that
-//     activation, optionally a second raw source for a folded 1x1 skip
+//   - an fp32 implicit-GEMM kernel (3x3 SAME conv or pointwise) that reads
+//     that activation, optionally a second raw source for a folded 1x1 skip
 //     projection, and whose epilogue adds bias, a per-example row, a
-//     residual and a rescale. bf16 multiplies on the tensor cores, fp32 on
-//     the FMA units.
+//     residual and a rescale, on the FMA units (the bf16 GEMMs run on
+//     igemm_wgmma.cuh), and the split-K pass both GEMMs share.
 //
 // Layout: every map is NHWC. A map may be split at a channel seam across
 // two tensors (the UNet up-path pair (h, skip)); the loaders index the
@@ -274,8 +274,7 @@ cudaError_t launch_gn_apply(const GnArgs& a, int N, cudaStream_t st) {
 // Both sources lie on the output grid. B is stored (Nc, K), k contiguous, in
 // T. Epilogue: (acc + bias + temb[n] + resid) * oscale, stored as T or fp32,
 // where resid is channels col.. of the resid source at the row's pixel (an
-// identity skip). fp32 multiplies in full fp32 on the FMA units; bf16 on the
-// tensor cores.
+// identity skip). fp32 multiplies in full fp32 on the FMA units.
 // ---------------------------------------------------------------------------
 
 struct GemmArgs {
@@ -447,134 +446,9 @@ static __global__ void __launch_bounds__(NT) igemm_f32_kernel(const __grid_const
   }
 }
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D += A (16x16, row-major) * B (16x8, k-major per column), bf16 in, fp32 out.
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 8-byte asynchronous copy global -> shared; src == nullptr zero-fills
-// (read from `valid`, any mapped address, with a source size of 0).
-__device__ __forceinline__ void cp_async8(bf16* dst, const bf16* src, const void* valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-               "l"(src != nullptr ? static_cast<const void*>(src) : valid),
-               "r"(src != nullptr ? 8 : 0));
-}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-constexpr int BKP = BK + 8;  // bf16 row pitch: 80 bytes, conflict-free fragment reads
-constexpr int STAGES = 4;    // K-steps in flight
-constexpr int A_STAGE = BM * BKP, B_STAGE = BN * BKP;  // bf16 elements per stage
-
-// bf16: tensor cores (mma.sync m16n8k16, fp32 accumulate). A and B tiles
-// ([m][k], [n][k]) arrive by cp.async in a ring of STAGES K-steps, so the
-// L2 latency of one step hides behind the products of the ones before; 8
-// warps each own a 32 x 16 sub-tile (2 x 2 mma tiles). The accumulators
-// pass through a shared fp32 tile (aliasing the drained ring) so the
-// epilogue is the fp32 kernel's (4 x 4 per thread).
-static __global__ void __launch_bounds__(NT) igemm_bf16_kernel(const __grid_constant__ GemmArgs a) {
-  __shared__ __align__(16) unsigned char smem[STAGES * (A_STAGE + B_STAGE) * sizeof(bf16)];
-  static_assert(BM * (BN + 4) * sizeof(float) <= sizeof(smem), "C tile must fit the ring");
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + STAGES * A_STAGE;
-  float (*Cs)[BN + 4] = reinterpret_cast<float (*)[BN + 4]>(smem);
-  const TileCoords tc(a);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 16;
-  const int bn = tc.n0 + tc.lrow;
-  const bf16* wrow = static_cast<const bf16*>(a.w) + (long)bn * a.K;
-  const int nsteps = (tc.kend - tc.kbeg + BK - 1) / BK;
-
-  auto issue = [&](int step) {
-    const int k0 = tc.kbeg + step * BK, st = step % STAGES;
-    bf16* as = As + st * A_STAGE + tc.lrow * BKP + tc.lk;
-    bf16* bs = Bs + st * B_STAGE + tc.lrow * BKP + tc.lk;
-#pragma unroll
-    for (int h = 0; h < 32; h += 16) {
-      const int k = k0 + tc.lk + h;
-      cp_async8(as + h, a_addr<bf16>(a, tc, k), a.w);
-      cp_async8(bs + h, bn < a.Nc && k < tc.kend ? wrow + k : nullptr, a.w);
-    }
-  };
-
-  float acc[2][2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nsteps) issue(s);
-    cp_async_commit();
-  }
-  for (int step = 0; step < nsteps; ++step) {
-    cp_async_wait<STAGES - 2>();  // this step's tiles have landed
-    __syncthreads();              // ... for every thread; the previous step's reads are done
-    if (step + STAGES - 1 < nsteps) issue(step + STAGES - 1);
-    cp_async_commit();
-    const bf16* as = As + (step % STAGES) * A_STAGE;
-    const bf16* bs = Bs + (step % STAGES) * B_STAGE;
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t af[2][4], bfr[2][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const bf16* r = as + (wm + mi * 16 + g) * BKP + ks + t2;
-        af[mi][0] = lds32(r);
-        af[mi][1] = lds32(r + 8 * BKP);
-        af[mi][2] = lds32(r + 8);
-        af[mi][3] = lds32(r + 8 * BKP + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 2; ++ni) {
-        const bf16* c = bs + (wn + ni * 8 + g) * BKP + ks + t2;
-        bfr[ni][0] = lds32(c);
-        bfr[ni][1] = lds32(c + 8);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni) mma_bf16_16816(acc[mi][ni], af[mi], bfr[ni]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is drained and read: Cs may overwrite it
-
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni) {
-      const int r = wm + mi * 16 + g, c = wn + ni * 8 + t2;
-      Cs[r][c] = acc[mi][ni][0];
-      Cs[r][c + 1] = acc[mi][ni][1];
-      Cs[r + 8][c] = acc[mi][ni][2];
-      Cs[r + 8][c + 1] = acc[mi][ni][3];
-    }
-  __syncthreads();
-  const int ty = tid / 16, tx = tid % 16, col = tc.n0 + tx * 4;
-  if (col >= a.Nc) return;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = tc.m0 + ty * 4 + i;
-    if (row >= a.M) break;
-    finish4<bf16>(a, row, col, *reinterpret_cast<const float4*>(&Cs[ty * 4 + i][tx * 4]));
-  }
 }
 
 // Sums the K-slices' partials in slice order (deterministic), then the
@@ -603,11 +477,13 @@ inline int num_sms() {
   return sms;
 }
 
-// Launches the GEMM. A grid of fewer tiles than SMs is split along K into
+// Launches the fp32 GEMM (the bf16 GEMMs run on igemm_wgmma.cuh). A grid
+// of fewer tiles than SMs is split along K into
 // up to MAX_SPLITS slices of at least MIN_STEPS steps, aiming at two waves
 // of blocks; ws (ws_elems fp32) holds the partials, and bounds the split.
 template <typename T>
 cudaError_t launch_gemm(GemmArgs a, float* ws, long ws_elems, cudaStream_t st) {
+  static_assert(std::is_same<T, float>::value, "bf16 GEMMs run on igemm_wgmma.cuh");
   const int gm = (a.M + BM - 1) / BM, gn = (a.Nc + BN - 1) / BN;
   const int tiles = gm * gn, steps = (a.K + BK - 1) / BK;
   int splits = 1;
@@ -620,10 +496,7 @@ cudaError_t launch_gemm(GemmArgs a, float* ws, long ws_elems, cudaStream_t st) {
   a.k_per_split = steps_per * BK;
   a.splits = (steps + steps_per - 1) / steps_per;
   a.ws = ws;
-  if constexpr (std::is_same<T, bf16>::value)
-    igemm_bf16_kernel<<<dim3(gm, gn, a.splits), NT, 0, st>>>(a);
-  else
-    igemm_f32_kernel<<<dim3(gm, gn, a.splits), NT, 0, st>>>(a);
+  igemm_f32_kernel<<<dim3(gm, gn, a.splits), NT, 0, st>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
   const long quads = (long)a.M * a.Nc / 4;

@@ -1,6 +1,12 @@
 // Flash (online-softmax) attention for the ADM's 1024-token blocks, bf16 or
-// fp32, (BH, T, D) with D = 32, 64 or 128 (the ImageNet-256 ADM's heads
-// are 64 wide; other ADM widths and head counts give 32 or 128).
+// fp32, (BH, T, D) with D = 32, 64, 128 or 256 (the ImageNet-256 ADM's
+// heads are 64 wide; other ADM widths and head counts give other D). bf16
+// also runs any width dt <= D with dt % 8 == 0 on the kernel for D: its
+// tensor maps span the dt channels a row holds and give zeros for the
+// channels past them, which add exactly 0 to every score, and the
+// epilogue stores only the dt channels. Other widths, and fp32's, the
+// wrapper (ops/flash_attention.py) zero-pads to the next D and slices
+// back.
 //
 // Replaces the TPU kernel diffpure_tpu/ops/flash_attention.py:145
 // _flash_forward (_flash_kernel :35): out = softmax(q k^T * scale^2) v with
@@ -19,9 +25,9 @@
 // brings the block's Q once and K and V 64 keys at a time by TMA into a
 // ring of 3 stages on mbarriers. A row of shared memory is one swizzle
 // span of CW = min(D, 64) channels: the 128-byte swizzle for D >= 64 (D =
-// 128 arrives as two 64-channel boxes per tile, stored as two chunks), the
-// 64-byte swizzle for D = 32 (the tensor map and wgmma's descriptor agree
-// on it). Each consumer runs S = Q K^T as wgmma m64n64k16 over D / 16 K
+// 128 and 256 arrive as two and four 64-channel boxes per tile, stored as
+// chunks), the 64-byte swizzle for D = 32 (the tensor map and wgmma's
+// descriptor agree on it). Each consumer runs S = Q K^T as wgmma m64n64k16 over D / 16 K
 // steps with both operands in shared memory, the online softmax on the
 // accumulators in registers (exp2, fp32 state), and O += P V as wgmma
 // m64nCWk16 per chunk of CW output channels with P in registers: the
@@ -29,7 +35,11 @@
 // never touches shared memory. V, stored [key][d], is read as an MN-major B
 // (the descriptor's transpose bit); no transposed copy is made. 8 x 32 =
 // 256 blocks at the census shape, two resident per SM (one at D = 128,
-// whose ring takes 128 KB and whose O takes 64 registers a thread).
+// whose ring takes 128 KB and whose O takes 64 registers a thread). D =
+// 256: O is 128 registers a consumer thread, S 32 and P 16 more, so the
+// producer is a whole warpgroup that gives its registers up (setmaxnreg:
+// 24 a thread) and the consumers take 240; Q (64 KB) and two stages of K
+// and V (64 KB each) fill 192 KB of shared memory.
 //
 // fp32 (flash_f32_kernel<D>): one block per (64 queries, bh), 256 threads,
 // a register-tiled product on the FMA units. Q^T and each step's K^T
@@ -38,7 +48,9 @@
 // row max and sum go across the 16 threads that share a row by shuffles; P
 // goes through shared memory into a second register-tiled product for O (4
 // queries x D / 16 channels, in vectors of 4, or 2 at D = 32). The next
-// step's K and V are loaded into registers while this step computes.
+// step's K and V are loaded into registers while this step computes (up to
+// D = 128; at D = 256 they would take 128 registers a thread, so each
+// step loads its own into shared memory).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -52,17 +64,22 @@ constexpr float LOG2E = 1.4426950408889634f;
 // bf16: wgmma + TMA
 // ---------------------------------------------------------------------------
 
-constexpr int BQ = 128, BKV = 64, KV_STAGES = 3;
-constexpr int FA_THREADS = 288;  // two consumer warpgroups + a producer warp
+constexpr int BQ = 128, BKV = 64;
 
 template <int D> struct FaTile {
   static constexpr int CW = D < 64 ? D : 64;  // channels of a shared-memory row: one swizzle span
   static constexpr int NC = D / CW;           // row chunks of a tile
   static constexpr int QTILE = BQ * D;        // bf16 elements of the block's Q
   static constexpr int KVTILE = BKV * D;      // of one K or V stage
+  static constexpr int STAGES = D == 256 ? 2 : 3;
+  // two consumer warpgroups + a producer warp; at D = 256 a producer
+  // warpgroup whose registers the consumers take (setmaxnreg)
+  static constexpr bool REALLOC = D == 256;
+  static constexpr int THREADS = REALLOC ? 384 : 288;
+  static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
   static constexpr size_t SMEM =
-      1024 + (size_t)(QTILE + 2 * KV_STAGES * KVTILE) * sizeof(bf16) + (1 + 2 * KV_STAGES) * 8;
-  static constexpr int MIN_BLOCKS = D == 128 ? 1 : 2;
+      1024 + (size_t)(QTILE + 2 * STAGES * KVTILE) * sizeof(bf16) + (1 + 2 * STAGES) * 8;
+  static constexpr int MIN_BLOCKS = D >= 128 ? 1 : 2;
   __device__ static uint64_t desc(const void* p) { return CW == 64 ? sw128_desc(p) : sw64_desc(p); }
 };
 
@@ -74,12 +91,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Shared memory: Q [chunk][128 queries][CW], then per stage K and V
 // [chunk][64 keys][CW]; every chunk starts 1024-aligned.
 template <int D>
-__global__ void __launch_bounds__(FA_THREADS, FaTile<D>::MIN_BLOCKS)
+__global__ void __launch_bounds__(FaTile<D>::THREADS, FaTile<D>::MIN_BLOCKS)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv, int T, float sm_scale,
+                   const __grid_constant__ CUtensorMap tv, int T, int dt, float sm_scale,
                    bf16* __restrict__ out) {
   using L = FaTile<D>;
-  constexpr int CW = L::CW, NC = L::NC;
+  constexpr int CW = L::CW, NC = L::NC, KV_STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -102,7 +119,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
   __syncthreads();
 
-  if (tid >= 256) {  // producer warp
+  if (tid >= 256) {  // producer warp (warpgroup)
+    if constexpr (L::REALLOC) reg_dealloc<L::PRODUCER_REGS>();
     if (tid == 256) {
       mbar_arrive_expect_tx(q_full, L::QTILE * 2);
       for (int h = 0; h < NC; ++h)
@@ -123,6 +141,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     return;
   }
 
+  if constexpr (L::REALLOC) reg_alloc<L::CONSUMER_REGS>();
   const int cw = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
   const float c = sm_scale * LOG2E;  // scores in log2 units
@@ -217,13 +236,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const float inv = 1.f / l[hr];
-    bf16* dst = out + (long)(row0 + q0 + cw * 64 + warp * 16 + g + 8 * hr) * D + t2;
+    bf16* dst = out + (long)(row0 + q0 + cw * 64 + warp * 16 + g + 8 * hr) * dt + t2;
 #pragma unroll
     for (int h = 0; h < NC; ++h)
 #pragma unroll
       for (int i = 0; i < CW / 8; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(dst + h * CW + 8 * i) = __floats2bfloat162_rn(
-            o[h][4 * i + 2 * hr] * inv, o[h][4 * i + 2 * hr + 1] * inv);
+        if (h * CW + 8 * i < dt)  // dt % 8 == 0: whole 8-channel groups
+          *reinterpret_cast<__nv_bfloat162*>(dst + h * CW + 8 * i) = __floats2bfloat162_rn(
+              o[h][4 * i + 2 * hr] * inv, o[h][4 * i + 2 * hr + 1] * inv);
   }
 }
 
@@ -237,8 +257,9 @@ template <int D> struct FaF32 {
   static constexpr int VW = D >= 64 ? 4 : 2;    // O channels per vector
   static constexpr int NJ = D / (16 * VW);      // O vectors per thread and row
   static constexpr int LD = FQ * D / 4 / NT;    // float4s of a 64-row tile per thread
+  static constexpr bool PREFETCH = D <= 128;    // the next step's K and V in registers
   static constexpr size_t SMEM = (size_t)(3 * FQ * D + FQ * FK) * sizeof(float);
-  static constexpr int MIN_BLOCKS = D == 128 ? 1 : 2;
+  static constexpr int MIN_BLOCKS = D >= 128 ? 1 : 2;
 };
 
 template <int VW> struct FVec;
@@ -288,16 +309,28 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     Qt[(d4 + 2) * FQ + r] = t.z;
     Qt[(d4 + 3) * FQ + r] = t.w;
   }
-  float4 kr[L::LD], vr[L::LD];
+  // item i of a step: K^T by (key i & 63, channels 4 (i >> 6)..), V by (key
+  // i / D4, channels 4 (i % D4)..)
+  auto put = [&](int i, const float4& kv4, const float4& vv4) {
+    const int r = i & 63, d4 = (i >> 6) * 4;
+    Kt[(d4 + 0) * FK + r] = kv4.x;
+    Kt[(d4 + 1) * FK + r] = kv4.y;
+    Kt[(d4 + 2) * FK + r] = kv4.z;
+    Kt[(d4 + 3) * FK + r] = kv4.w;
+    store4(Vs + (i / D4) * D + (i % D4) * 4, vv4);
+  };
+  auto kload = [&](int kb, int i) { return load4(k + base + (long)(kb + (i & 63)) * D + (i >> 6) * 4); };
+  auto vload = [&](int kb, int i) { return load4(v + base + (long)(kb + i / D4) * D + (i % D4) * 4); };
+  constexpr int NR = L::PREFETCH ? L::LD : 1;  // registers of the next step's K and V
+  float4 kr[NR], vr[NR];
   auto fetch = [&](int kb) {
 #pragma unroll
-    for (int u = 0; u < L::LD; ++u) {
-      const int i = tid + u * NT;
-      kr[u] = load4(k + base + (long)(kb + (i & 63)) * D + (i >> 6) * 4);
-      vr[u] = load4(v + base + (long)(kb + i / D4) * D + (i % D4) * 4);
+    for (int u = 0; u < NR; ++u) {
+      kr[u] = kload(kb, tid + u * NT);
+      vr[u] = vload(kb, tid + u * NT);
     }
   };
-  fetch(0);
+  if constexpr (L::PREFETCH) fetch(0);
 
   float o[4][NJ * VW], m[4], l[4];
 #pragma unroll
@@ -310,17 +343,16 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kb = 0; kb < T; kb += FK) {
     __syncthreads();  // the previous step's reads of Kt, Vs and Ps are done
+    if constexpr (L::PREFETCH) {
 #pragma unroll
-    for (int u = 0; u < L::LD; ++u) {
-      const int i = tid + u * NT, r = i & 63, d4 = (i >> 6) * 4;
-      Kt[(d4 + 0) * FK + r] = kr[u].x;
-      Kt[(d4 + 1) * FK + r] = kr[u].y;
-      Kt[(d4 + 2) * FK + r] = kr[u].z;
-      Kt[(d4 + 3) * FK + r] = kr[u].w;
-      store4(Vs + (i / D4) * D + (i % D4) * 4, vr[u]);
+      for (int u = 0; u < L::LD; ++u) put(tid + u * NT, kr[u], vr[u]);
+    } else {
+#pragma unroll 4
+      for (int u = 0; u < L::LD; ++u) put(tid + u * NT, kload(kb, tid + u * NT), vload(kb, tid + u * NT));
     }
     __syncthreads();
-    if (kb + FK < T) fetch(kb + FK);  // in flight during this step's products
+    if constexpr (L::PREFETCH)
+      if (kb + FK < T) fetch(kb + FK);  // in flight during this step's products
 
     float s[4][4];
 #pragma unroll
@@ -406,15 +438,16 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // host
 // ---------------------------------------------------------------------------
 
-// A (rows, D) bf16 view in boxes of CW channels x 64 rows, in the swizzle
-// of CW * 2 bytes (128 for D >= 64, 64 for D = 32).
+// A (rows, dt) bf16 view in boxes of CW channels x 64 rows, in the swizzle
+// of CW * 2 bytes (128 for D >= 64, 64 for D = 32); channels from dt to
+// the box's end read as zeros.
 template <int D>
-bool tile_map(CUtensorMap* map, const void* p, long rows) {
+bool tile_map(CUtensorMap* map, const void* p, long rows, int dt) {
   constexpr int CW = FaTile<D>::CW;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {D * sizeof(bf16)};
+  const cuuint64_t dims[2] = {(cuuint64_t)dt, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {dt * sizeof(bf16)};
   const cuuint32_t box[2] = {CW, BKV};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
@@ -425,18 +458,19 @@ bool tile_map(CUtensorMap* map, const void* p, long rows) {
 }
 
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, int BH, int T,
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, int BH, int T, int dt,
                         float sm_scale, void* out, cudaStream_t st) {
-  if (T % BQ != 0) return cudaErrorInvalidValue;
+  if (T % BQ != 0 || dt % 8 || dt > D) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   const long rows = (long)BH * T;
-  if (!tile_map<D>(&tq, q, rows) || !tile_map<D>(&tk, k, rows) || !tile_map<D>(&tv, v, rows))
+  if (!tile_map<D>(&tq, q, rows, dt) || !tile_map<D>(&tk, k, rows, dt) ||
+      !tile_map<D>(&tv, v, rows, dt))
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FaTile<D>::SMEM);
   if (err != cudaSuccess) return err;
-  flash_wgmma_kernel<D><<<dim3(T / BQ, BH), FA_THREADS, FaTile<D>::SMEM, st>>>(
-      tq, tk, tv, T, sm_scale, static_cast<bf16*>(out));
+  flash_wgmma_kernel<D><<<dim3(T / BQ, BH), FaTile<D>::THREADS, FaTile<D>::SMEM, st>>>(
+      tq, tk, tv, T, dt, sm_scale, static_cast<bf16*>(out));
   return cudaGetLastError();
 }
 
@@ -454,27 +488,29 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, int BH, int 
 }
 
 template <int D>
-cudaError_t launch(int dtype, const void* q, const void* k, const void* v, int BH, int T,
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, int BH, int T, int dt,
                    float sm_scale, void* out, cudaStream_t st) {
-  return dtype == 1 ? launch_bf16<D>(q, k, v, BH, T, sm_scale, out, st)
-                    : launch_f32<D>(q, k, v, BH, T, sm_scale, out, st);
+  if (dtype == 1) return launch_bf16<D>(q, k, v, BH, T, dt, sm_scale, out, st);
+  return dt == D ? launch_f32<D>(q, k, v, BH, T, sm_scale, out, st) : cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 fp32, 1 bf16. q, k, v, out (BH, T, D) contiguous; sm_scale
-// multiplies q k^T (scale^2 of the JAX kernel). Requires D in {32, 64,
-// 128} and T % 128 == 0 (bf16) or T % 64 == 0 (fp32) (the wrapper checks).
-// Returns a cudaError_t.
+// dtype: 0 fp32, 1 bf16. q, k, v, out (BH, T, dt) contiguous, run on the
+// kernel for D; sm_scale multiplies q k^T (scale^2 of the JAX kernel).
+// Requires D in {32, 64, 128, 256}, dt == D (fp32) or dt <= D with dt % 8
+// == 0 (bf16), and T % 128 == 0 (bf16) or T % 64 == 0 (fp32) (the wrapper
+// checks, and pads other widths). Returns a cudaError_t.
 int diffpure_flash_attention(int dtype, const void* q, const void* k, const void* v, int BH,
-                             int T, int D, float sm_scale, void* out, void* stream) {
+                             int T, int D, int dt, float sm_scale, void* out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(dtype, q, k, v, BH, T, sm_scale, out, st);
-    case 64: return launch<64>(dtype, q, k, v, BH, T, sm_scale, out, st);
-    case 128: return launch<128>(dtype, q, k, v, BH, T, sm_scale, out, st);
+    case 32: return launch<32>(dtype, q, k, v, BH, T, dt, sm_scale, out, st);
+    case 64: return launch<64>(dtype, q, k, v, BH, T, dt, sm_scale, out, st);
+    case 128: return launch<128>(dtype, q, k, v, BH, T, dt, sm_scale, out, st);
+    case 256: return launch<256>(dtype, q, k, v, BH, T, dt, sm_scale, out, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,7 @@
 // The bf16 fused BigGAN block's GroupNorm passes for Hopper, forward
 // (rb_gn_kernel: act = resample(SiLU(GN(x))), and optionally the groups'
-// statistics) and backward
+// statistics; with no_silu, act = GN(x), the NCSN++ attention block's
+// GroupNorm, fused_attnblock.cu) and backward
 // (rb_gn_bwd_kernel: the input gradient of that through the resample), one
 // thread-block cluster per example. Shared by the block's forward chain
 // (fused_resblock.cu, kernels #1 / #2) and its backward chain
@@ -83,6 +84,7 @@ struct RbGnArgs {
   bf16* raw;      // (N, Ho, Wo, C) or nullptr
   float2* stats;  // (N, G) (mean, rstd) out, or nullptr
   int cl;         // blocks per example: the cluster's size
+  int no_silu;    // 1: act = resample(GN(x)), the affine without the SiLU
 };
 
 // Per-channel sums over the block of the per-thread, per-channel partials
@@ -236,7 +238,10 @@ __global__ void __launch_bounds__(GN_THREADS) rb_gn_kernel(const __grid_constant
   }
   auto norm = [&](const float (&x)[VEC], float (&o)[VEC]) {
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) o[k] = silu((x[k] - mean[k]) * scale[k] + shift[k]);
+    for (int k = 0; k < VEC; ++k) {
+      const float v = (x[k] - mean[k]) * scale[k] + shift[k];
+      o[k] = a.no_silu ? v : silu(v);
+    }
   };
 
   // pass 3: the output

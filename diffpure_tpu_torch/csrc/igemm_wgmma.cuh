@@ -8,14 +8,14 @@
 // of the same blocks (fused_resblock_bwd.cu; kernels #4 and #5): conv0's
 // recompute, conv1 and conv0 transposed (3x3 convs of the flipped,
 // channel-transposed weights) and the skip adjoint (projection steps
-// alone).
+// alone); and the q | k | v NIN product of the bf16 NCSN++ attention block
+// (fused_attnblock.cu; kernel #3), projection steps alone.
 //
 // What bounds it on this card: the products. A CIFAR NCSN++ block is 2 x 9
 // x cin x cout multiply-adds per output pixel against operands that stay in
 // the 50 MB L2, so the GEMM has to keep the tensor cores fed from L2. What
-// the old kernel (common.cuh igemm_bf16_kernel: mma.sync, 64 x 64 tiles,
-// 8-byte cp.async with per-element address arithmetic) left on the table is
-// what this one is built around.
+// an mma.sync GEMM with 64 x 64 tiles and 8-byte cp.async with per-element
+// address arithmetic left on the table is what this one is built around.
 //
 //   out[M, cout] = epilogue(sum over K steps k of A_k[M, 64] B_k[64, cout])
 //

@@ -101,7 +101,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         I, P, I, I, I, I,                 # dtype, x, N, H, W, C
         P, P, I, P, P, P, P,              # gns, gnb, G, wqkv, bqkv, wo, bo
         F, F, P, P, P,                    # eps, oscale, h, qkv, att
-        P, L, P, P]                       # ws, ws_elems, out, stream
+        P, L, P, P, P, P, P]              # ws, ws_elems, out, wqkvs, wos, plan, stream
     lib.diffpure_attnblock_fwd.restype = I
     lib.diffpure_group_stats.argtypes = [
         I, P, I, I, I, I, I, P, P, P]     # dtype, x, N, H, W, C, rows, sums, sqs, stream
@@ -115,7 +115,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         I, I, P]                          # tile_rows, tile_n, stream
     lib.diffpure_halo_conv.restype = I
     lib.diffpure_flash_attention.argtypes = [
-        I, P, P, P, I, I, I, F, P, P]     # dtype, q, k, v, BH, T, D, sm_scale, out, stream
+        I, P, P, P, I, I, I, I, F, P, P]  # dtype, q, k, v, BH, T, D, dt, sm_scale, out, stream
     lib.diffpure_flash_attention.restype = I
     lib.diffpure_gn_silu.argtypes = [
         I, P, P, P, I, I, I, I, F, P, P]  # dtype, x, gamma, beta, N, HW, C, G, eps, out, stream

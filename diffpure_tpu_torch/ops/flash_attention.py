@@ -5,10 +5,17 @@ diffpure_tpu/ops/flash_attention.py).
 (replacing ``_flash_forward``, :145) on CUDA tensors and runs its plain
 version ``_reference_attention`` (:88, exact softmax, fp32 throughout) on
 CPU tensors. q, k, v are (BH, T, D); ``scale`` applies to both q and k (the
-ADM ch^-1/4 convention). The kernel takes head widths D in FLASH_WIDTHS
-(32, 64, 128; the ADM-256 has 64) and T a multiple of its query block (128
-bf16, 64 fp32), and raises on others before any launch (JAX's kernel takes
-any D: the other widths are an open gap, ROADMAP). Forward only on the card: JAX's
+ADM ch^-1/4 convention). The kernel is built for the head widths
+FLASH_WIDTHS (32, 64, 128, 256; the ADM-256 has 64); any other D up to 256
+runs on the kernel of the next of them. In bf16 with D % 8 == 0 it reads
+the (BH, T, D) tensors as they are (its tensor maps give zeros for the
+channels past D) and writes D channels; otherwise (fp32, or another D) the
+wrapper zero-pads q, k and v to the width (``pad_heads``) and slices the
+output back. Either way the zero channels add exactly 0 to every fp32
+score, and the scale is passed on its own, so it does not depend on the
+width. T must be a multiple of the kernel's
+query block (128 bf16, 64 fp32); D > 256 or another T raises before any
+launch. Forward only on the card: JAX's
 backward is a dense VJP of the reference (:101-142); here the wrapper
 raises if autograd would need it on a CUDA tensor (ROADMAP).
 """
@@ -29,16 +36,39 @@ def _reference_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tenso
 
 
 # The head widths the kernel is built for (csrc/flash_attention.cu).
-FLASH_WIDTHS = (32, 64, 128)
+FLASH_WIDTHS = (32, 64, 128, 256)
 
 
-def check_flash_shape(dtype: torch.dtype, T: int, D: int) -> None:
-    """Raise on what the kernel does not take: D in FLASH_WIDTHS, and T a
-    multiple of its query block (128 bf16, 64 fp32)."""
+def check_flash_shape(dtype: torch.dtype, T: int, D: int) -> int:
+    """Raise on what the kernel does not take: D from 1 to 256, and T a
+    multiple of its query block (128 bf16, 64 fp32). Returns the width the
+    kernel runs D at (flash_width)."""
     block = 128 if dtype == torch.bfloat16 else 64
-    if D not in FLASH_WIDTHS or T % block:
-        raise ValueError(f"the flash kernel takes D in {FLASH_WIDTHS} and T % {block} == 0 "
-                         f"({dtype}); got T={T}, D={D}")
+    if not 1 <= D <= FLASH_WIDTHS[-1] or T % block:
+        raise ValueError(f"the flash kernel takes 1 <= D <= {FLASH_WIDTHS[-1]} and "
+                         f"T % {block} == 0 ({dtype}); got T={T}, D={D}")
+    return flash_width(D)
+
+
+def flash_width(D: int) -> int:
+    """The least width of FLASH_WIDTHS that holds D channels."""
+    return next(w for w in FLASH_WIDTHS if w >= D)
+
+
+def operand_width(dtype: torch.dtype, D: int) -> int:
+    """The width q, k, v and the output hold at the launch: D where the
+    kernel reads the heads as they are (D a built width, or bf16 with D % 8
+    == 0: its tensor maps give zeros past D), else flash_width(D), to which
+    the wrapper zero-pads them."""
+    width = flash_width(D)
+    return D if width == D or (dtype == torch.bfloat16 and D % 8 == 0) else width
+
+
+def pad_heads(t: Tensor, width: int) -> Tensor:
+    """(BH, T, D) zero-padded along D to ``width`` channels (t itself when D
+    is the width)."""
+    D = t.shape[-1]
+    return t if D == width else torch.nn.functional.pad(t, (0, width - D))
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
@@ -54,16 +84,19 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
         raise ValueError(f"flash_attention takes (BH, T, D) fp32 or bf16, not "
                          f"{dtype} {tuple(q.shape)}")
     BH, T, D = q.shape
-    check_flash_shape(dtype, T, D)
-    ptrs = [_cuda.check_operand(t, n, dev, dtype, (BH, T, D))
-            for t, n in ((q, "q"), (k, "k"), (v, "v"))]
-    out = torch.empty_like(q)
+    width = check_flash_shape(dtype, T, D)
+    for t, n in ((q, "q"), (k, "k"), (v, "v")):
+        _cuda.check_operand(t, n, dev, dtype, (BH, T, D))
+    dt = operand_width(dtype, D)
+    qkv = [pad_heads(t, dt) for t in (q, k, v)]  # held until the launch is queued
+    ptrs = [t.data_ptr() for t in qkv]
+    out = torch.empty((BH, T, dt), device=dev, dtype=dtype)
     err = _cuda.lib().diffpure_flash_attention(
-        _cuda.DTYPE_CODE[dtype], *ptrs, BH, T, D, float(scale) ** 2,
+        _cuda.DTYPE_CODE[dtype], *ptrs, BH, T, width, dt, float(scale) ** 2,
         out.data_ptr(), _cuda.stream(dev))
     _cuda.check(err, "flash_attention kernel")
     flash_attention.launches += 1
-    return out
+    return out if dt == D else out[..., :D].contiguous()
 
 
 def qkv_flash_attention(qkv: Tensor, n_heads: int, order: str = "legacy") -> Tensor:

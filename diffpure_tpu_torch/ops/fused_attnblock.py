@@ -9,19 +9,30 @@ whose backward is autograd of the plain version, as JAX's ``_fab_bwd``
 tensor the forward runs the plain version; on a CUDA tensor it launches the
 kernel or raises.
 
+bf16 runs a chain on the tensor cores: the GroupNorm pass, the q | k | v
+NIN on the wgmma GEMM of ``csrc/igemm_wgmma.cuh`` (weights from
+``pack_attnblock_params``' pre-swizzled stages, tiles and split-K from
+``attnblock_plan``), and the HW x HW core with the output NIN folded in,
+on wgmma + TMA; it takes what ``check_attnblock_shape`` passes and raises
+on the rest. fp32
+runs a chain on the FMA units (TF32 stays off).
+
 The block: GN -> q, k, v = NIN(h) -> softmax(q k^T C^-1/2) in fp32 -> @ v
 -> NIN -> + x, times 1/sqrt(2) when rescaled. NIN weights are (in, out).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from diffpure_tpu_torch.ops import _cuda
-from diffpure_tpu_torch.ops.fused_resblock import INV_SQRT2
+from diffpure_tpu_torch.ops.fused_resblock import INV_SQRT2, KC, RB_GN_MAX_G, SMS, \
+    GemmPlan, _gemm_plan, _plan_ints
 from diffpure_tpu_torch.ops.groupnorm import group_norm
+from diffpure_tpu_torch.ops.halo_conv import _swizzle128
 
 Tensor = torch.Tensor
 
@@ -55,56 +66,126 @@ def fused_attnblock_reference(x: Tensor, params: Tuple, *, num_groups: int,
 
 @dataclasses.dataclass(frozen=True)
 class PackedAttnblock:
-    """Attention-block weights in the kernel's layout, for one dtype."""
+    """Attention-block weights in the kernel's layout, for one dtype: the
+    NIN weights for fp32's chain (wqkv, wo) or bf16's (wqkvs, wos), never
+    both; bf16 off multiples of 64 channels gets neither."""
     channels: int
     gns: Tensor    # (C,) fp32
     gnb: Tensor
-    wqkv: Tensor   # (3C, C) = [Wq | Wk | Wv]^T: one row per output channel
     bqkv: Tensor   # (3C,) fp32
-    wo: Tensor     # (C, C) = Wout^T
     bo: Tensor     # (C,) fp32
+    # fp32: (3C, C) = [Wq | Wk | Wv]^T, one row per output channel; (C, C)
+    # = Wout^T
+    wqkv: Optional[Tensor] = None
+    wo: Optional[Tensor] = None
+    # bf16 with C % 64 == 0: the wgmma GEMM's projection stages (the
+    # resblock skip projection's layout): (C / 64, outputs, 64), step j,
+    # row o holding W[64 j + c, o] at c, each row in the 128-byte swizzle
+    wqkvs: Optional[Tensor] = None  # (C / 64, 3C, 64) of [Wq | Wk | Wv]
+    wos: Optional[Tensor] = None    # (C / 64, C, 64) of Wout
+    # the device pointers the launch passes, taken once here: gns, gnb,
+    # wqkv, bqkv, wo, bo, wqkvs, wos (0 for None)
+    ptrs: Tuple[int, ...] = ()
+
+
+def nin_stages(w: Tensor, dtype: torch.dtype, device) -> Tensor:
+    """A (cin, cout) NIN weight as the wgmma GEMM's projection stages,
+    (cin / 64, cout, 64): step j, row o holds w[64 j + c, o] at c."""
+    cin, cout = w.shape
+    wk = w.detach().to(device, dtype).reshape(cin // KC, KC, cout).permute(0, 2, 1)
+    return _swizzle128(wk.contiguous()).contiguous()
 
 
 def pack_attnblock_params(params: Tuple, dtype: torch.dtype,
                           device) -> PackedAttnblock:
+    """Repack NIN-layout block weights for the kernels (done once per module
+    and dtype by the caller, not per launch)."""
     gns, gnb, wq, bq, wk, bk, wv, bv, wo, bo = params
 
     def f32(t):
         return t.detach().to(device, torch.float32).contiguous()
 
     with torch.no_grad():
-        return PackedAttnblock(
-            channels=wq.shape[0], gns=f32(gns), gnb=f32(gnb),
-            wqkv=torch.cat([wq, wk, wv], 1).t().detach().to(device, dtype).contiguous(),
-            bqkv=f32(torch.cat([bq, bk, bv])),
-            wo=wo.t().detach().to(device, dtype).contiguous(), bo=f32(bo))
+        C = wq.shape[0]
+        wcat = torch.cat([wq, wk, wv], 1)
+        t = dict(gns=f32(gns), gnb=f32(gnb), wqkv=None, bqkv=f32(torch.cat([bq, bk, bv])),
+                 wo=None, bo=f32(bo), wqkvs=None, wos=None)
+        if dtype != torch.bfloat16:
+            t.update(wqkv=wcat.t().detach().to(device, dtype).contiguous(),
+                     wo=wo.t().detach().to(device, dtype).contiguous())
+        elif C % KC == 0:
+            t.update(wqkvs=nin_stages(wcat, dtype, device), wos=nin_stages(wo, dtype, device))
+        return PackedAttnblock(channels=C, ptrs=tuple(0 if v is None else v.data_ptr()
+                                                      for v in t.values()), **t)
+
+
+# The bf16 core's limits (csrc/fused_attnblock.cu): at most 4 chunks of 64
+# channels, a score row of at most AT_KEYS keys.
+AT_MAX_C = 256
+AT_KEYS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnblockPlan:
+    """The bf16 chain's q | k | v GEMM (3C outputs), tiled and split as a
+    resblock GEMM (ops/fused_resblock.py _gemm_plan: C / 64 projection K
+    steps), and the 6 ints the C side reads, (bm, bn, bh, bimg, splits,
+    per). The output NIN runs in the core and needs no plan."""
+    gemm: GemmPlan
+    ints: Tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=None)
+def attnblock_plan(N: int, H: int, W: int, C: int, sms: int = SMS,
+                   ws_elems: int = _cuda.SPLITK_WORKSPACE) -> AttnblockPlan:
+    g = _gemm_plan(N, H, W, 3 * C, C // KC, sms, ws_elems)
+    return AttnblockPlan(g, (g.bm, g.bn, g.box[1], g.box[2], g.splits, g.per))
+
+
+def check_attnblock_shape(dtype: torch.dtype, N: int, H: int, W: int, C: int,
+                          groups: int, sms: int = SMS) -> Optional[AttnblockPlan]:
+    """Raise on what the kernels for ``dtype`` do not take; the bf16 plan
+    (None for fp32, whose chain takes H * W <= 256 and C % 32 == 0). The
+    plan raises where the GEMMs' TMA boxes do not tile the map."""
+    if dtype not in _cuda.DTYPE_CODE:
+        raise ValueError(f"fused_attnblock takes fp32 or bf16, not {dtype}")
+    if H * W > AT_KEYS or C % groups:
+        raise ValueError(f"the attention kernels take H*W <= {AT_KEYS} and C divisible "
+                         f"by the groups; got {H}x{W}x{C}, {groups} groups")
+    if dtype != torch.bfloat16:
+        if C % 32:
+            raise ValueError(f"the fp32 attention kernel takes C % 32 == 0; got {C}")
+        return None
+    if C % KC or C > AT_MAX_C or groups > RB_GN_MAX_G:
+        raise ValueError(f"the bf16 attention kernels take C a multiple of {KC} up to "
+                         f"{AT_MAX_C} in at most {RB_GN_MAX_G} groups; got {C} in {groups}")
+    return attnblock_plan(N, H, W, C, sms)
 
 
 def _launch(x: Tensor, params: Tuple, num_groups: int, eps: float,
             rescale: bool, packed: Optional[PackedAttnblock]) -> Tensor:
     dev, dtype = x.device, x.dtype
-    if dtype not in _cuda.DTYPE_CODE:
-        raise ValueError(f"fused_attnblock takes fp32 or bf16, not {dtype}")
+    if x.ndim != 4:
+        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
     N, H, W, C = x.shape
-    if H * W > 256 or C % 32 or C % num_groups:
-        raise ValueError(f"the attention kernel takes H*W <= 256, C % 32 == 0 "
-                         f"and C divisible by the groups; got {H}x{W}x{C}, "
-                         f"{num_groups} groups")
+    plan = check_attnblock_shape(dtype, N, H, W, C, num_groups, _cuda.num_sms(dev))
     pk = packed or pack_attnblock_params(params, dtype, dev)
-    if pk.channels != C or pk.wqkv.dtype != dtype or pk.wqkv.device != dev:
+    w = pk.wqkv if plan is None else pk.wqkvs
+    if pk.channels != C or w is None or w.dtype != dtype or w.device != dev:
         raise ValueError("packed weights do not match the input")
     p_x = _cuda.check_operand(x, "x", dev, dtype)
     out = torch.empty_like(x)
     rows = N * H * W * x.element_size()
-    # h = GN(x), q|k|v, attention output; buf owns the memory while queued
-    buf, (h, qkv, att), ws = _cuda.scratch(dev, rows * C, rows * 3 * C, rows * C)
+    # h = GN(x), q|k|v, the attention output (fp32; bf16 keeps it in the
+    # core); buf owns the memory while queued
+    buf, (h, qkv, att), ws = _cuda.scratch(dev, rows * C, rows * 3 * C,
+                                           rows * C if plan is None else 0)
+    gns, gnb, wqkv, bqkv, wo, bo, wqkvs, wos = pk.ptrs
     err = _cuda.lib().diffpure_attnblock_fwd(
-        _cuda.DTYPE_CODE[dtype], p_x, N, H, W, C, pk.gns.data_ptr(),
-        pk.gnb.data_ptr(), num_groups, pk.wqkv.data_ptr(), pk.bqkv.data_ptr(),
-        pk.wo.data_ptr(), pk.bo.data_ptr(), eps,
-        INV_SQRT2 if rescale else 1.0, h, qkv, att, ws,
-        _cuda.SPLITK_WORKSPACE, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _cuda.DTYPE_CODE[dtype], p_x, N, H, W, C, gns, gnb, num_groups, wqkv, bqkv,
+        wo, bo, eps, INV_SQRT2 if rescale else 1.0, h, qkv, att, ws,
+        _cuda.SPLITK_WORKSPACE, out.data_ptr(), wqkvs, wos,
+        None if plan is None else _plan_ints(plan), _cuda.stream(dev))
     _cuda.check(err, "fused_attnblock kernel")
     return out
 

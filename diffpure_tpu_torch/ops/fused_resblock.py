@@ -502,8 +502,9 @@ def _launch(x1: Tensor, x2: Optional[Tensor], temb_row: Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_ints(plan: ResblockBwdPlan):
-    """The plan's ints as the C array the launch passes (kept alive here)."""
+def _plan_ints(plan):
+    """A plan's ints (ResblockBwdPlan, fused_attnblock's AttnblockPlan) as the
+    C array the launch passes (kept alive here)."""
     return (ctypes.c_int * len(plan.ints))(*plan.ints)
 
 
