@@ -9,7 +9,9 @@ Phases, each fatal on failure:
      kernels from diffpure_tpu_torch/csrc (timed); the count of wgmma
      (HGMMA) instructions in the SASS of the halo conv, flash attention,
      the CIFAR block GEMM and the attention block's core, which must be
-     non-zero for their bf16 kernels;
+     non-zero for their bf16 kernels; the fp32 kernels of #3's chain and
+     #10 (FP32_KERNELS) must hold no tensor-core instruction (HMMA, HGMMA:
+     TF32 stays off) and spill nothing (-Xptxas -v);
   2. each hand-written kernel against its plain PyTorch version on the card,
      at every shape the CIFAR-10 NCSN++ gives it, batch 8, bf16 and fp32,
      and the bf16 blocks again at batch 128 (the attention block also at
@@ -17,11 +19,12 @@ Phases, each fatal on failure:
      CUDA-event time, the kernels' device time (profiler), the plain time,
      and for the bf16 blocks TFLOP/s, the share of the bound and cuDNN's
      convs as a yardstick; for the attention block the device time by
-     chain step (GN, qkv GEMM, core; the bf16 core holds the output NIN,
-     fp32 runs it as a GEMM), the bound and a PyTorch
-     yardstick (attn_yardstick); a bf16 attention block that launches the
-     old GEMM, GN or core kernel (OLD_ATTN_KERNELS) fails; and the
-     attention block with an Inf in one example, whose neighbours must
+     chain step (GN, qkv GEMM, core with the output NIN), the bound, a
+     PyTorch yardstick (attn_yardstick) and in fp32 the core alone as
+     F.scaled_dot_product_attention under each backend
+     (sdpa_core_yardstick); an attention block that launches an old GEMM,
+     GN or core kernel (OLD_ATTN_KERNELS) or a second, out GEMM fails; and
+     the attention block with an Inf in one example, whose neighbours must
      agree with the plain version (phase_attn_isolation);
   3. the slice: DefendedModel (full-width configs/cifar10.yml NCSN++ with a
      bf16 torso + WRN-28-10, seeded random weights) on 8 seeded images at
@@ -70,9 +73,13 @@ Phases, each fatal on failure:
      fp32 purification, kernels (card) against plain (CPU), same noise;
   2d. (run after phase 2c) GroupNorm+SiLU (#10) against its plain version
      at every shape the full-width score_sde DDPM gives it at batch 8 (a
-     census of its GNSiLU calls over one evaluation), and fused bias +
-     leaky ReLU (#11, on no path) at the DDPM's feature-map shapes and an
-     odd one, bf16 and fp32; kernel, plain and bound times;
+     census of its GNSiLU calls over one evaluation) and at a shape off the
+     census that takes its L2 route (GN_OFF_CENSUS), and fused bias + leaky
+     ReLU (#11, on no path) at the DDPM's feature-map shapes and an odd
+     one, bf16 and fp32; kernel (CUDA events), device (profiler), plain and
+     bound times, per shape and per evaluation, and F.silu(F.group_norm(.))
+     as #10's yardstick; a #10 call that launches the old kernel
+     (OLD_GN_KERNELS) fails;
   10. the DDPM slice: DefendedModel (full-width DDPM, fp32, 35,218,947
      parameters + WRN-28-10) on 8 seeded images at t*=100 through
      get_accuracy under inference_mode, cold then warm; the launch
@@ -101,6 +108,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -192,14 +200,20 @@ ATTN_CENSUS = {("fused_attnblock", "none", 16, 256, 0, 256): 9,
                ("fused_attnblock", "none", 4, 256, 0, 256): 1}
 # Its chain's launches by kernel-name fragment: the GroupNorm pass, the NIN
 # GEMMs (ATTN_GEMMS, in launch order; a split-K pass counts to the GEMM
-# before it; the bf16 chain has only the first: its output NIN runs in the
-# core), the attention core. The bf16 chain launches none of
-# OLD_ATTN_KERNELS (phase 2).
-ATTN_KINDS = (("gn", ("gn_apply_kernel", "rb_gn_kernel")),
-              ("gemm", ("igemm_", "rb_wgmma_kernel")), ("splitk", ("splitk_",)),
-              ("core", ("attn_kernel", "attn_wgmma_kernel")))
+# before it), the attention core. Both chains have only the first GEMM:
+# their output NIN runs in the core (bf16 attn_wgmma_kernel on wgmma + TMA,
+# fp32 attn_f32_kernel on the FMA units; their GN passes rb_gn_kernel and
+# gn_regs_kernel, the fp32 q | k | v GEMM attn_qkv_f32_kernel). A block
+# that launches a kernel of OLD_ATTN_KERNELS, or an out GEMM, fails (phase
+# 2): the old fp32 chain was gn_apply_kernel, two igemm_f32_kernel GEMMs
+# and attn_kernel, the old bf16 one igemm_bf16_kernel.
+ATTN_KINDS = (("gn", ("gn_apply_kernel", "rb_gn_kernel", "gn_regs_kernel")),
+              ("gemm", ("igemm_", "rb_wgmma_kernel", "attn_qkv_f32_kernel")),
+              ("splitk", ("splitk_", "attn_qkv_sum_kernel")),
+              ("core", ("attn_kernel", "attn_wgmma_kernel", "attn_f32_kernel")))
 ATTN_GEMMS = ("qkv GEMM", "out GEMM")
-OLD_ATTN_KERNELS = ("gn_apply_kernel", "igemm_bf16_kernel", "attn_kernel")
+OLD_ATTN_KERNELS = ("gn_apply_kernel", "igemm_", "attn_kernel")
+OLD_ATTN_STEPS = (ATTN_GEMMS[1],)
 # The ImageNet-256 slice: the full-width imagenet256_config ADM (bf16 torso)
 # + ResNet-50 at t*=150, batch 4 (run_scripts/imagenet/run_in_rand_inf.sh).
 ADM_N = 4
@@ -225,6 +239,11 @@ ADM_KERNELS = {
 # both.
 FLASH_WIDTHS_OFF_CENSUS = ((64, 1024, 32), (16, 1024, 128), (32, 1024, 48), (16, 1024, 96),
                            (8, 1024, 160), (8, 1024, 256), (32, 1024, 36))
+# The fp32 kernels of #3's chain and #10 (both dtypes), which must hold no
+# tensor-core instruction (HMMA, HGMMA: TF32 stays off) and spill nothing
+# (phase 1).
+FP32_KERNELS = ("attn_f32_kernel", "attn_qkv_f32_kernel", "attn_qkv_sum_kernel",
+                "gnsilu_regs_kernel", "gn_regs_kernel", "gnsilu_l2_kernel", "gn_l2_kernel")
 # The bf16 kernels that must run on wgmma: HGMMA in their SASS (phase 1).
 WGMMA_KERNELS = ("halo_wgmma_kernel", "flash_wgmma_kernel", "rb_wgmma_kernel",
                  "attn_wgmma_kernel")
@@ -255,6 +274,14 @@ DDPM_KERNELS = {
 # multiple of the 16-byte vector width. (shape, bias)
 FLR_CASES = (((N, 32, 32, 128), True), ((N, 16, 16, 256), True), ((N, 16, 16, 256), False),
              ((N, 8, 8, 512), True), ((N, 4, 4, 256), True), ((7, 9, 11, 13), True))
+# #10 off the census: a 64 x 64 map of 512 channels, whose (example, group)
+# slices (4096 x 16 values) are above the registers route's budget and take
+# the L2 route (ops/groupnorm.py gn_silu_plan). No #10 call may launch the
+# old kernel (OLD_GN_KERNELS); this one must launch the L2 route's
+# (GN_L2_FRAGMENT).
+GN_OFF_CENSUS = ((N, 64, 64, 512),)
+OLD_GN_KERNELS = ("gn_silu_kernel",)
+GN_L2_FRAGMENT = "_l2_kernel"
 # Phase 11, card against CPU, max abs error over max |CPU|: the t*=5 fp32
 # DDPM purification as the CIFAR slice's; one NCSN++ 'ddpm' evaluation as
 # phase 9's ADM one (fp32: summation order; bf16: card and CPU round at
@@ -349,6 +376,46 @@ def block_inputs(torch, dev, i, name, rs, H, c1, c2, cout, n=N):
     return tuple(params), normal(n, H, H, cin), normal(n, cout, scale=0.3), normal
 
 
+# A process opens only so many profiler sessions before they come back
+# empty (a run of this script that opened about 190 failed in phase 2b):
+# the per-shape records with many small parts share sessions
+# (device_ms_many), and the cuDNN yardsticks' device time is taken at batch
+# 8 only (CUDA events at every batch).
+YARDSTICK_DEVICE_N = N
+
+
+def device_ms_many(torch, fns, reps=20):
+    """The device time per call of each of ``fns`` (ms) and the names of
+    the kernels it launched, from one profiler session: each fn runs
+    ``reps`` times back to back, then a spin kernel (torch.cuda._sleep)
+    closes its share of the session's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler session now and then records no kernel: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for f in fns:
+                for _ in range(reps):
+                    f()
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+                     key=lambda e: e.time_range.start)
+        out, us, names = [], 0.0, set()
+        for e in evs:
+            if "spin_kernel" in e.name:
+                out.append((us / 1e3 / reps, sorted(names)))
+                us, names = 0.0, set()
+            else:
+                us += e.time_range.end - e.time_range.start
+                names.add(e.name)
+        if len(out) == len(fns) and all(ms > 0 for ms, _ in out):
+            return out
+    raise AssertionError("three profiler sessions did not record every function's kernels")
+
+
 def device_ms(torch, fn, reps=10):
     """The kernels' own device time per call of fn, from the profiler over
     ``reps`` back-to-back calls (without the host's gaps between them): the
@@ -400,7 +467,8 @@ def conv_yardstick(torch, params, rs, H, cin, cout, n):
         F.conv2d(a2, w1, padding=1)
         if wp is not None:
             F.conv2d(xs, wp)
-    return cuda_ms(torch, call), device_ms(torch, call)["total"]
+    return cuda_ms(torch, call), (device_ms(torch, call)["total"] if n == YARDSTICK_DEVICE_N
+                                  else None)
 
 
 def phase_kernels(torch, dev, shapes, n=N, dtypes=("bfloat16", "float32")):
@@ -469,6 +537,7 @@ def phase_kernels(torch, dev, shapes, n=N, dtypes=("bfloat16", "float32")):
                     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES
                     old = [k for k in dev_ms["kernels"]
                            if any(f in k for f in OLD_ATTN_KERNELS)]
+                    old += [k for k in OLD_ATTN_STEPS if k in dev_ms["steps"]]
                     rec.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
                                bound_by="operations" if t_ops >= t_bytes else "bytes",
                                tflops=flops / rec["device_ms"] / 1e9,
@@ -477,14 +546,18 @@ def phase_kernels(torch, dev, shapes, n=N, dtypes=("bfloat16", "float32")):
                     steps = ", ".join(f"{k} {v:.4f}" for k, v in dev_ms["steps"].items())
                     line = (f" ({steps}; {rec['tflops']:.1f} TFLOP/s, "
                             f"{rec['bound_share']:.3f} of bound)")
-                    if dtype_name == "bfloat16":
-                        rec.update(attn_yardstick(torch, x, params, g1, want))
-                        line += (f" PyTorch yardstick {rec['library_ms']:.4f} ms (device "
-                                 f"{rec['library_device_ms']:.4f}, rel err "
-                                 f"{rec['library_rel_err']:.1e})")
-                        if old:
-                            rec["ok"] = ok = False
-                            line += f" OLD KERNELS {old}"
+                    rec.update(attn_yardstick(torch, x, params, g1, want))
+                    line += (f" PyTorch yardstick {rec['library_ms']:.4f} ms (device "
+                             f"{rec['library_device_ms']:.4f}, rel err "
+                             f"{rec['library_rel_err']:.1e})")
+                    if dtype_name == "float32":
+                        core = sdpa_core_yardstick(torch, x, params, g1)
+                        rec["sdpa_core"] = core
+                        line += (f"; core as SDPA: {core['library_backend']} device "
+                                 f"{core['library_device_ms']} ms")
+                    if old:
+                        rec["ok"] = ok = False
+                        line += f" OLD KERNELS {old}"
                 elif dtype_name == "bfloat16":
                     flops, nbytes = block_cost(name, rs, H, c1, c2, cout, n, 2)
                     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES
@@ -497,7 +570,7 @@ def phase_kernels(torch, dev, shapes, n=N, dtypes=("bfloat16", "float32")):
                     rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
                     line = (f" ({rec['tflops']:.1f} TFLOP/s, GEMM {rec['gemm_tflops']:.1f}, "
                             f"{rec['bound_share']:.3f} of bound) cuDNN convs {lib_ms:.4f} ms "
-                            f"(device {lib_dev:.4f})")
+                            + (f"(device {lib_dev:.4f})" if lib_dev is not None else ""))
             records.append(rec)
             log(f"  {name:18s} {rs:4s} {H:2d}x{H:<2d} {c1:3d}+{c2:<3d}->{cout:3d} "
                 f"b{n:<3d} {dtype_name:8s} rel err {err / scale:.2e} <= {REL[dtype_name]:.0e} "
@@ -668,6 +741,52 @@ def attn_yardstick(torch, x, params, groups, want):
                     library_rel_err=rel)
 
 
+def sdpa_core_yardstick(torch, x, params, groups, reps=20):
+    """The attention block's core alone, softmax(q k^T / sqrt(C)) v, as
+    F.scaled_dot_product_attention on (N, 1, HW, C) views of q, k, v (from
+    the plain GroupNorm and NIN in x's dtype), once under each backend that
+    takes them: device ms (profiler) and CUDA-event ms per call, and the
+    error against the plain core. The fastest backend by device time that
+    agrees within REL is the core's library time. On no path of the port."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gns, gnb, wq, bq, wk, bk, wv, bv = (t.to(x.dtype) for t in params[:8])
+    n, H, W, C = x.shape
+    with torch.inference_mode():
+        h = F.group_norm(x.permute(0, 3, 1, 2), groups, gns, gnb, 1e-6).permute(0, 2, 3, 1)
+        q, k, v = ((h.reshape(n, 1, H * W, C) @ w + b).contiguous()
+                   for w, b in ((wq, bq), (wk, bk), (wv, bv)))
+        s = (q.float() @ k.float().transpose(-1, -2)) * C ** -0.5
+        want = torch.softmax(s, dim=-1) @ v.float()
+    rel_tol = REL["float32" if x.dtype == torch.float32 else "bfloat16"]
+    backends, calls = {}, {}
+    for b in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"):
+        backend = getattr(SDPBackend, b, None)
+        if backend is None:
+            continue
+
+        def call(backend=backend):
+            with sdpa_kernel(backend), torch.inference_mode():
+                return F.scaled_dot_product_attention(q, k, v, scale=C ** -0.5)
+        try:
+            out = call()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            backends[b] = dict(refused=str(e).splitlines()[0][:200])
+            continue
+        err = float((out.float() - want).abs().max() / want.abs().max())
+        backends[b] = dict(ms=cuda_ms(torch, call, reps), rel_err=err, ok=err <= rel_tol)
+        calls[b] = call
+    for b, (ms, _) in zip(calls, device_ms_many(torch, list(calls.values()))):
+        backends[b]["device_ms"] = ms
+    agree = {b: r["device_ms"] for b, r in backends.items() if r.get("ok")}
+    best = min(agree, key=agree.get) if agree else None
+    return dict(library_device_ms=agree.get(best),
+                library_ms=backends[best]["ms"] if best else None, library_backend=best,
+                library_backends=backends)
+
+
 def bwd_device_ms(torch, fn, reps=10):
     """The backward kernel's own device time per call of fn, from the
     profiler over ``reps`` back-to-back calls: the total, each step of the
@@ -724,7 +843,8 @@ def bwd_conv_yardstick(torch, params, rs, H, cin, cout, n):
         F.conv_transpose2d(dc1, w0, padding=1)
         if wp is not None:
             F.conv_transpose2d(g, wp)
-    return cuda_ms(torch, call), device_ms(torch, call)["total"]
+    return cuda_ms(torch, call), (device_ms(torch, call)["total"] if n == YARDSTICK_DEVICE_N
+                                  else None)
 
 
 def phase_bwd_kernels(torch, dev, shapes, n=N, dtypes=("float32", "bfloat16"),
@@ -803,7 +923,8 @@ def phase_bwd_kernels(torch, dev, shapes, n=N, dtypes=("float32", "bfloat16"),
                 line = (f" (recompute {sh['recompute']:.4f}, GEMMs {sh['gemms']:.4f}, GN bwd "
                         f"{sh['gn_backward']:.4f}; {rec['tflops']:.1f} TFLOP/s, "
                         f"{rec['bound_share']:.3f} of bound) cuDNN products {lib_ms:.4f} ms "
-                        f"(device {lib_dev:.4f})" + (f" OLD KERNELS {old}" if old else ""))
+                        + (f"(device {lib_dev:.4f})" if lib_dev is not None else "")
+                        + (f" OLD KERNELS {old}" if old else ""))
             records.append(rec)
             plain_s = "" if rec["plain_ms"] is None else f" plain {rec['plain_ms']:.4f} ms"
             log(f"  {name + '_bwd':22s} {rs:4s} {H:2d}x{H:<2d} {c1:3d}+{c2:<3d}->{cout:3d} "
@@ -901,22 +1022,51 @@ def adm_cost(name, shape, esize):
     return 6 * elems, 2 * elems * esize + 2 * ADM_N * C * 4  # gn_film_silu_apply
 
 
-def sass_wgmma(torch, lib_path):
-    """{kernel function: count of HGMMA (wgmma) instructions} in the built
-    library's SASS, by cuobjdump from the toolkit that built it."""
+def sass_counts(torch, lib_path, mnemonics=("HGMMA", "HMMA")):
+    """{mnemonic: {kernel function: count}} of tensor-core instructions
+    (HGMMA: wgmma; HMMA: mma.sync, TF32 included) in the built library's
+    SASS, by cuobjdump from the toolkit that built it."""
+    import re
     from diffpure_tpu_torch.ops._cuda import _nvcc
 
     tool = Path(_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    counts, fn = {}, None
+    counts, fn = {m: {} for m in mnemonics}, None
+    pats = {m: re.compile(rf"\b{m}\b") for m in mnemonics}
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            counts[fn] += 1
+            for m in mnemonics:
+                counts[m][fn] = 0
+        elif fn is not None:
+            for m in mnemonics:
+                if pats[m].search(line):
+                    counts[m][fn] += 1
     return counts
+
+
+def ptxas_report(text, fragments):
+    """{entry function: {registers, spill}} from nvcc's -Xptxas -v report
+    (the build log), for the functions whose names hold one of
+    ``fragments``; spill: bytes of spill stores and loads."""
+    import re
+
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1) if any(f in m.group(1) for f in fragments) else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(cur, {})["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
 
 
 def sdpa_yardstick(torch, q, k, v, want, rel, reps, warm):
@@ -1119,13 +1269,17 @@ def profile_eval(torch, model, x, t, evals=3):
                 model(x, t)
             torch.cuda.synchronize()
             wall_ms = (time.time() - t0) * 1e3
-    families = (("halo conv", "halo_"), ("group stats", "stats_kernel"),
-                ("GN apply", "apply_kernel"), ("flash attention", "flash_"),
-                ("GN+SiLU (#10)", "gn_silu_kernel"),
-                ("attention block (#3)", ("attn_kernel", "attn_wgmma_kernel")),
-                ("convs and matmuls (cuDNN / cuBLAS)", ("conv", "gemm", "xmma", "cutlass",
-                                                         "sm90", "implicit")),
-                ("elementwise", "elementwise"), ("reductions", "reduce"))
+    families = (
+        # the whole attention block: its fp32 chain's GN pass and GEMMs too (no
+        # other kernel of these models launches them)
+        ("attention block (#3)", ("attn_", "gn_regs_kernel", "gn_apply_kernel", "igemm_f32",
+                                  "splitk_epilogue")),
+        ("halo conv", "halo_"), ("group stats", "stats_kernel"),
+        ("GN apply", "apply_kernel"), ("flash attention", "flash_"),
+        ("GN+SiLU (#10)", ("gn_silu_kernel", "gnsilu_")),
+        ("convs and matmuls (cuDNN / cuBLAS)", ("conv", "gemm", "xmma", "cutlass",
+                                                 "sm90", "implicit")),
+        ("elementwise", "elementwise"), ("reductions", "reduce"))
     by, kernels = {}, []
     for e in prof.key_averages():
         # the kernels' own events (the CPU ops that launched them carry
@@ -1147,8 +1301,10 @@ def profile_eval(torch, model, x, t, evals=3):
 # Kernel-name fragments of the CIFAR block chains' launches (#1/#2 and #3):
 # the GroupNorm pass, the GEMM (the mma.sync one and the wgmma one), the
 # split-K pass, the attention core.
-CHAIN_KINDS = (("gn", ("gn_apply_kernel", "rb_gn_kernel")), ("gemm", ("igemm_", "rb_wgmma_kernel")),
-               ("splitk", ("splitk_",)), ("attn", ("attn_kernel", "attn_wgmma_kernel")))
+CHAIN_KINDS = (("gn", ("gn_apply_kernel", "rb_gn_kernel", "gn_regs_kernel")),
+               ("gemm", ("igemm_", "rb_wgmma_kernel", "attn_qkv_f32_kernel")),
+               ("splitk", ("splitk_", "attn_qkv_sum_kernel")),
+               ("attn", ("attn_kernel", "attn_wgmma_kernel", "attn_f32_kernel")))
 
 
 def chain_steps(prof, evals):
@@ -1503,19 +1659,37 @@ def ddpm_census(torch, ddpm, x):
     return dict(gn), dict(attn), flops
 
 
+def gn_yardstick(torch, x, scale, bias, groups):
+    """F.silu(F.group_norm(.)) on the NCHW view of the NHWC map, in its
+    dtype: #10's yardstick (two PyTorch calls, on no path of the port), as
+    a function whose output is NHWC."""
+    import torch.nn.functional as F
+
+    xc = x.permute(0, 3, 1, 2)
+    s, b = scale.to(x.dtype), bias.to(x.dtype)
+    return lambda: F.silu(F.group_norm(xc, groups, s, b, 1e-6)).permute(0, 2, 3, 1)
+
+
 def phase_gn_act_kernels(torch, dev, gn_shapes):
-    """#10 at every (H, C) of the DDPM census, batch N, and #11 at
-    FLR_CASES, each against its plain version on the card, bf16 and fp32;
-    per-shape records with kernel, plain and bound times. Both compute in
-    fp32 (FMA units) whatever the dtype; #10 does ~10 operations per
-    element (sum, squared deviation, normalise, affine, SiLU), #11 3."""
+    """#10 at every (H, C) of the DDPM census, batch N, and at
+    GN_OFF_CENSUS, and #11 at FLR_CASES, each against its plain version on
+    the card, bf16 and fp32; per-shape records with kernel (CUDA events),
+    device (profiler, back-to-back calls, every case in one session) and
+    plain times, the bound and the launched kernels' names; for #10 its
+    plan's route and the yardstick F.silu(F.group_norm(.)) (gn_yardstick).
+    Both compute in fp32 (FMA units) whatever the dtype; #10 does ~10
+    operations per element (sum, squared deviation, normalise, affine,
+    SiLU), #11 3. A #10 call that launches a kernel of OLD_GN_KERNELS
+    fails, and so does a shape off the census whose kernel is not the L2
+    route's (GN_L2_FRAGMENT)."""
     import numpy as np
     from diffpure_tpu_torch.ops import fused_act, groupnorm
 
     cases = [("group_norm_silu_fused", (N, H, H, C), True, calls)
              for (H, C), calls in sorted(gn_shapes.items())]
+    cases += [("group_norm_silu_fused", shape, True, 0) for shape in GN_OFF_CENSUS]
     cases += [("fused_leaky_relu", shape, bias, 0) for shape, bias in FLR_CASES]
-    records = []
+    records, timed = [], []
     for i, (name, shape, with_bias, calls) in enumerate(cases):
         rng = np.random.default_rng(3000 + i)
         C = shape[-1]
@@ -1526,20 +1700,24 @@ def phase_gn_act_kernels(torch, dev, gn_shapes):
             esize = 2 if dtype_name == "bfloat16" else 4
             x = x32.to(dtype)
             elems = x.numel()
+            yard = None
             if name == "group_norm_silu_fused":
-                kern = lambda: groupnorm.group_norm_silu_fused(x, s, b, 32, 1e-6)  # noqa: E731
-                plain = lambda: groupnorm.group_norm_silu_fused_reference(  # noqa: E731
-                    x, s, b, 32, 1e-6)
+                kern = functools.partial(groupnorm.group_norm_silu_fused, x, s, b, 32, 1e-6)
+                plain = functools.partial(groupnorm.group_norm_silu_fused_reference,
+                                          x, s, b, 32, 1e-6)
+                yard = gn_yardstick(torch, x, s, b, 32)
                 flops, nbytes = 10 * elems, 2 * elems * esize + 2 * C * 4
             else:
-                bias = b.to(dtype) if with_bias else None
-                kern = lambda: fused_act.fused_leaky_relu(x, bias)  # noqa: E731
-                plain = lambda: fused_act.fused_leaky_relu_reference(x, bias)  # noqa: E731
+                kern = functools.partial(fused_act.fused_leaky_relu, x,
+                                         b.to(dtype) if with_bias else None)
+                plain = functools.partial(fused_act.fused_leaky_relu_reference, x,
+                                          b.to(dtype) if with_bias else None)
                 flops = 3 * elems
                 nbytes = 2 * elems * esize + (C * esize if with_bias else 0)
-            got = kern()
-            torch.cuda.synchronize()
-            want = plain()
+            with torch.inference_mode():
+                got = kern()
+                torch.cuda.synchronize()
+                want = plain()
             err = float((got.float() - want.float()).abs().max())
             scale = float(want.float().abs().max())
             ok = bool(torch.isfinite(got.float()).all()) and got.dtype == dtype \
@@ -1551,11 +1729,48 @@ def phase_gn_act_kernels(torch, dev, gn_shapes):
                        plain_ms=cuda_ms(torch, plain, 50, 5), library_ms=None, flops=flops,
                        bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
                        bound_by="operations" if t_ops >= t_bytes else "bytes", ok=ok)
+            if yard is not None:
+                with torch.inference_mode():
+                    ygot = yard()
+                rec.update(yardstick_ms=cuda_ms(torch, yard, 50, 5),
+                           yardstick_rel_err=float((ygot.float() - want.float()).abs().max())
+                           / scale,
+                           route=groupnorm.gn_silu_plan(shape[0], shape[1] * shape[2], C, 32,
+                                                        dtype).route)
             records.append(rec)
-            log(f"  {name:21s} {str(shape):18s} {'' if with_bias else 'no bias ':8s}"
-                f"x{calls:<2d} {dtype_name:8s} rel err {err / scale:.2e} <= "
-                f"{REL[dtype_name]:.0e} kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} "
-                f"ms bound {rec['bound_ms']:.4f} ms {'ok' if ok else 'FAIL'}")
+            timed.append((rec, kern, yard))
+    # the kernels' and the yardsticks' device time, all in one session
+    fns = [f for _, kern, yard in timed for f in (kern, yard) if f is not None]
+    with torch.inference_mode():
+        dev_times = iter(device_ms_many(torch, fns))
+    for rec, kern, yard in timed:
+        rec["device_ms"], rec["device_kernels"] = next(dev_times)
+        line = ""
+        if yard is not None:
+            rec["yardstick_device_ms"] = next(dev_times)[0]
+            names = rec["device_kernels"]
+            if any(f in k for k in names for f in OLD_GN_KERNELS) or (
+                    rec["calls_per_eval"] == 0 and not any(GN_L2_FRAGMENT in k for k in names)):
+                rec["ok"] = False
+                line = f" KERNELS {names}"
+            line = (f" yardstick device {rec['yardstick_device_ms'] * 1e3:.2f} us "
+                    f"{rec['route']}" + line)
+        log(f"  {rec['kernel']:21s} {str(tuple(rec['shape'])):18s} "
+            f"{'' if rec['bias'] else 'no bias ':8s}x{rec['calls_per_eval']:<2d} "
+            f"{rec['dtype']:8s} rel err {rec['rel_err']:.2e} <= {rec['rel_tol']:.0e} kernel "
+            f"{rec['ms']:.4f} ms device {rec['device_ms'] * 1e3:.2f} us plain "
+            f"{rec['plain_ms']:.4f} ms bound {rec['bound_ms'] * 1e3:.2f} us{line} "
+            f"{'ok' if rec['ok'] else 'FAIL'}")
+    for name in ("group_norm_silu_fused", "fused_leaky_relu"):
+        for dtype_name in ("float32", "bfloat16"):
+            mine = [r for r in records if r["kernel"] == name and r["dtype"] == dtype_name
+                    and (r["calls_per_eval"] or name == "fused_leaky_relu")]
+            calls = [r["calls_per_eval"] or 1 for r in mine]
+            log(f"  {name} {dtype_name}: device "
+                f"{sum(r['device_ms'] * c for r, c in zip(mine, calls)):.4f} ms, bound "
+                f"{sum(r['bound_ms'] * c for r, c in zip(mine, calls)):.4f} ms "
+                + ("per DDPM evaluation (batch 8)" if name == "group_norm_silu_fused"
+                   else "over its shapes (one call each)"))
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} GroupNorm+SiLU / leaky ReLU checks failed: {bad}")
@@ -1712,13 +1927,29 @@ def main() -> int:
     build_log = _cuda.BUILD_DIR / "build.log"
     if build_log.exists():
         (OUT / "build.log").write_text(build_log.read_text())
-    wgmma = sass_wgmma(torch, _cuda.build())
+    sass = sass_counts(torch, _cuda.build())
+    wgmma = sass["HGMMA"]
     for fn, n in sorted(wgmma.items()):
         if any(k in fn for k in ("halo", "flash", "rb_wgmma", "attn_wgmma")):
             log(f"  SASS: {n:5d} HGMMA in {fn}")
     no_wgmma = [k for k in WGMMA_KERNELS if not any(k in fn and n for fn, n in wgmma.items())]
     if no_wgmma:
         raise AssertionError(f"no wgmma (HGMMA) in the SASS of {no_wgmma}")
+    # the fp32 kernels stay on the FMA units (TF32 off): no tensor-core
+    # instruction of either kind, and no spill
+    fp32_fns = {fn: sass["HMMA"][fn] + wgmma[fn] for fn in wgmma
+                if any(k in fn for k in FP32_KERNELS)}
+    missing = [k for k in FP32_KERNELS if not any(k in fn for fn in fp32_fns)]
+    tensor = {fn: n for fn, n in fp32_fns.items() if n}
+    report = ptxas_report(build_log.read_text(), FP32_KERNELS)
+    spills = {fn: r for fn, r in report.items() if r.get("spill")}
+    regs = sorted({r.get("registers") for r in report.values()})
+    log(f"  SASS: {len(fp32_fns)} fp32 kernel functions ({', '.join(FP32_KERNELS)}), "
+        f"{sum(fp32_fns.values())} HMMA / HGMMA; -Xptxas -v: {len(report)} entries, "
+        f"{len(spills)} with spills, registers {regs}")
+    if missing or tensor or spills or not report:
+        raise AssertionError(f"fp32 kernels: missing {missing}, tensor-core instructions "
+                             f"{tensor}, spills {spills}")
     phase_done("1")
     if args.profile_cifar:
         profile_cifar(torch, dev, smi)

@@ -52,10 +52,8 @@
 // never leaves its example, and its rows past HW (queries and keys) are the
 // tensor unit's zeros, so no example reads another's values, finite or not.
 //
-// fp32 (attnblock_fwd_f32): the FMA chain, common.cuh gn_apply_kernel and
-// launch_gemm (fp32 FMAs, never TF32), and attn_kernel: one block per
-// (example, 16 queries), the fp32 score rows in shared memory, a
-// warp-per-row softmax, P @ V with each thread owning a channel.
+// fp32 (attnblock_fwd_f32, attnblock_f32.cu): three launches on the FMA
+// units (never TF32); that file says what bounds them and what they do.
 // No cuBLAS, no library attention: every product is a kernel in this
 // directory.
 #include "common.cuh"
@@ -64,6 +62,15 @@
 #include "igemm_wgmma.cuh"
 
 using namespace dp;
+
+namespace dp {
+// the fp32 chain, in attnblock_f32.cu
+cudaError_t attnblock_fwd_f32(const float* x, int N, int H, int W, int C, const float* gns,
+                              const float* gnb, int G, const float* wqkv, const float* bqkv,
+                              const float* wo, const float* bo, float eps, float oscale,
+                              float* h, float* qkv, float* ws, long ws_elems, float* out,
+                              const int* plan, cudaStream_t st);
+}  // namespace dp
 
 namespace {
 
@@ -380,163 +387,29 @@ cudaError_t attnblock_fwd_wgmma(const bf16* x, int N, int H, int W, int C, const
   }
 }
 
-// ---------------------------------------------------------------------------
-// fp32: the FMA chain
-// ---------------------------------------------------------------------------
-
-constexpr int QT = 16;   // queries per block
-constexpr int KCH = 32;  // channels of K staged in shared memory at a time
-
-__global__ void __launch_bounds__(NT)
-attn_kernel(const float* __restrict__ qkv, int hw, int C, float sm_scale, float* __restrict__ att) {
-  extern __shared__ __align__(16) float sm[];
-  float* S = sm;            // [QT][hw] scores, then probabilities
-  float* Q = S + QT * hw;   // [QT][C]
-  float* Kc = Q + QT * C;   // [hw][KCH + 1], padded against bank conflicts
-  const int tid = threadIdx.x, n = blockIdx.y, q0 = blockIdx.x * QT;
-  const int nq = min(QT, hw - q0);
-  const long row = 3L * C;
-  const float* base = qkv + (long)n * hw * row;
-
-  for (int e = tid; e < QT * C; e += NT) {
-    const int i = e / C, c = e - i * C;
-    Q[e] = i < nq ? base[(q0 + i) * row + c] : 0.f;
-  }
-
-  // scores: thread j owns key j (hw <= NT), K staged KCH channels at a time
-  float s[QT];
-#pragma unroll
-  for (int i = 0; i < QT; ++i) s[i] = 0.f;
-  for (int c0 = 0; c0 < C; c0 += KCH) {
-    __syncthreads();
-    for (int e = tid; e < hw * KCH; e += NT) {
-      const int j = e / KCH, cc = e - j * KCH;
-      Kc[j * (KCH + 1) + cc] = base[j * row + C + c0 + cc];
-    }
-    __syncthreads();
-    if (tid < hw) {
-#pragma unroll 4
-      for (int cc = 0; cc < KCH; ++cc) {
-        const float kv = Kc[tid * (KCH + 1) + cc];
-#pragma unroll
-        for (int i = 0; i < QT; ++i) s[i] = fmaf(Q[i * C + c0 + cc], kv, s[i]);
-      }
-    }
-  }
-  if (tid < hw) {
-#pragma unroll
-    for (int i = 0; i < QT; ++i) S[i * hw + tid] = s[i] * sm_scale;
-  }
-  __syncthreads();
-
-  // softmax in fp32, one warp per query row
-  const int lane = tid & 31;
-  for (int i = tid >> 5; i < nq; i += NT / 32) {
-    float* r = S + i * hw;
-    float mx = -INFINITY;
-    for (int j = lane; j < hw; j += 32) mx = fmaxf(mx, r[j]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.f;
-    for (int j = lane; j < hw; j += 32) {
-      const float e = expf(r[j] - mx);
-      r[j] = e;
-      sum += e;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    for (int j = lane; j < hw; j += 32) r[j] = r[j] / sum;
-  }
-  __syncthreads();
-
-  // a = P @ V: thread owns channel c; V rows are read coalesced across threads
-  for (int c = tid; c < C; c += NT) {
-    float o[QT];
-#pragma unroll
-    for (int i = 0; i < QT; ++i) o[i] = 0.f;
-    for (int j = 0; j < hw; ++j) {
-      const float v = base[j * row + 2 * C + c];
-#pragma unroll
-      for (int i = 0; i < QT; ++i) o[i] = fmaf(S[i * hw + j], v, o[i]);
-    }
-    for (int i = 0; i < nq; ++i) att[((long)n * hw + q0 + i) * C + c] = o[i];
-  }
-}
-
-cudaError_t attnblock_fwd_f32(const void* x, int N, int H, int W, int C, const float* gns,
-                              const float* gnb, int G, const void* wqkv, const float* bqkv,
-                              const void* wo, const float* bo, float eps, float oscale, void* h,
-                              void* qkv, void* att, float* ws, long ws_elems, void* out,
-                              cudaStream_t st) {
-  const int hw = H * W;
-  if (hw > NT || C % KCH) return cudaErrorInvalidValue;
-  const Src xs = {x, nullptr, C, 0, H, W, 0};
-  const GnArgs gn = {xs, G, gns, gnb, eps, 0, RS_NONE, h, nullptr};
-  cudaError_t err = launch_gn_apply<float>(gn, N, st);
-  if (err != cudaSuccess) return err;
-
-  GemmArgs q = {};
-  q.M = N * hw;
-  q.Nc = 3 * C;
-  q.K = q.Kmain = C;
-  q.Ho = H;
-  q.Wo = W;
-  q.taps = 1;
-  q.src = Src{h, nullptr, C, 0, H, W, 0};
-  q.w = wqkv;
-  q.bias = bqkv;
-  q.oscale = 1.f;
-  q.out = qkv;
-  q.out_f32 = 0;
-  if ((err = launch_gemm<float>(q, ws, ws_elems, st)) != cudaSuccess) return err;
-
-  const size_t smem = sizeof(float) * ((size_t)QT * hw + (size_t)QT * C + (size_t)hw * (KCH + 1));
-  if ((err = cudaFuncSetAttribute(attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)) != cudaSuccess)
-    return err;
-  attn_kernel<<<dim3((hw + QT - 1) / QT, N), NT, smem, st>>>(
-      static_cast<const float*>(qkv), hw, C, 1.0f / sqrtf((float)C), static_cast<float*>(att));
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  GemmArgs o = {};
-  o.M = N * hw;
-  o.Nc = C;
-  o.K = o.Kmain = C;
-  o.Ho = H;
-  o.Wo = W;
-  o.taps = 1;
-  o.src = Src{att, nullptr, C, 0, H, W, 0};
-  o.w = wo;
-  o.bias = bo;
-  o.has_resid = 1;
-  o.resid = xs;
-  o.oscale = oscale;
-  o.out = out;
-  o.out_f32 = 0;
-  return launch_gemm<float>(o, ws, ws_elems, st);
-}
-
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 fp32, 1 bf16. Scratch: h (N*H*W, C), qkv (N*H*W, 3C) and att
-// (N*H*W, C) in the compute dtype (att: fp32 only), ws (ws_elems fp32) for
-// split-K partials. fp32 reads wqkv (3C, C) = [Wq | Wk | Wv]^T (one row per
-// output channel) and wo (C, C) = Wout^T, and requires H*W <= 256 and C %
-// 32 == 0. bf16 reads wqkvs (C / 64, 3C, 64) and wos (C / 64, C, 64), the
-// weight stages of ops/fused_attnblock.py (step j: input channels 64 j..,
-// each row in the 128-byte swizzle), and plan (6 ints: (bm, bn, bh, bimg,
-// splits, per) of the q|k|v GEMM), and requires C % 64 == 0, C <= 256, H*W
-// <= 256 with the GEMM's boxes tiling the map. bqkv (3C) and bo
-// (C) are fp32. Returns cudaGetLastError() of the first failing step, or
-// cudaErrorInvalidValue for a shape or plan the chain does not take.
+// dtype: 0 fp32, 1 bf16. Scratch: h (N*H*W, C) and qkv (N*H*W, 3C) in the
+// compute dtype, ws (ws_elems fp32) for split-K partials. bqkv (3C) and bo
+// (C) are fp32. fp32 reads wqkv (3C, C) = [Wq | Wk | Wv]^T (one row per
+// output channel) and wo (C, C) = Wout^T, and plan (11 ints: the GroupNorm
+// pass's (route, vw, nv, tps, threads), the core's (kj, kjo, ck, osplit),
+// the q|k|v GEMM's K slices and the core's ring stages), and requires H*W
+// <= 256 and C % 32 == 0. bf16 reads wqkvs (C /
+// 64, 3C, 64) and wos (C / 64, C, 64), the weight stages of
+// ops/fused_attnblock.py (step j: input channels 64 j.., each row in the
+// 128-byte swizzle), and plan (6 ints: (bm, bn, bh, bimg, splits, per) of
+// the q|k|v GEMM), and requires C % 64 == 0, C <= 256, H*W <= 256 with the
+// GEMM's boxes tiling the map. Returns cudaGetLastError() of the first
+// failing step, or cudaErrorInvalidValue for a shape or plan the chain
+// does not take.
 int diffpure_attnblock_fwd(int dtype, const void* x, int N, int H, int W, int C,
                            const float* gns, const float* gnb, int G, const void* wqkv,
                            const float* bqkv, const void* wo, const float* bo, float eps,
-                           float oscale, void* h, void* qkv, void* att,
-                           float* ws, long ws_elems, void* out, const void* wqkvs,
-                           const void* wos, const int* plan, void* stream) {
+                           float oscale, void* h, void* qkv, float* ws, long ws_elems, void* out,
+                           const void* wqkvs, const void* wos, const int* plan, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return attnblock_fwd_wgmma(static_cast<const bf16*>(x), N, H, W, C, gns, gnb, G,
@@ -544,8 +417,10 @@ int diffpure_attnblock_fwd(int dtype, const void* x, int N, int H, int W, int C,
                                static_cast<const bf16*>(wos), bo, eps, oscale,
                                static_cast<bf16*>(h), static_cast<bf16*>(qkv), ws, ws_elems,
                                static_cast<bf16*>(out), plan, st);
-  return attnblock_fwd_f32(x, N, H, W, C, gns, gnb, G, wqkv, bqkv, wo, bo, eps, oscale, h, qkv,
-                           att, ws, ws_elems, out, st);
+  return attnblock_fwd_f32(static_cast<const float*>(x), N, H, W, C, gns, gnb, G,
+                           static_cast<const float*>(wqkv), bqkv, static_cast<const float*>(wo),
+                           bo, eps, oscale, static_cast<float*>(h), static_cast<float*>(qkv), ws,
+                           ws_elems, static_cast<float*>(out), plan, st);
 }
 
 }  // extern "C"

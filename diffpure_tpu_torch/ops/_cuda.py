@@ -100,7 +100,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.diffpure_attnblock_fwd.argtypes = [
         I, P, I, I, I, I,                 # dtype, x, N, H, W, C
         P, P, I, P, P, P, P,              # gns, gnb, G, wqkv, bqkv, wo, bo
-        F, F, P, P, P,                    # eps, oscale, h, qkv, att
+        F, F, P, P,                       # eps, oscale, h, qkv
         P, L, P, P, P, P, P]              # ws, ws_elems, out, wqkvs, wos, plan, stream
     lib.diffpure_attnblock_fwd.restype = I
     lib.diffpure_group_stats.argtypes = [
@@ -118,7 +118,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         I, P, P, P, I, I, I, I, F, P, P]  # dtype, q, k, v, BH, T, D, dt, sm_scale, out, stream
     lib.diffpure_flash_attention.restype = I
     lib.diffpure_gn_silu.argtypes = [
-        I, P, P, P, I, I, I, I, F, P, P]  # dtype, x, gamma, beta, N, HW, C, G, eps, out, stream
+        I, P, P, P, I, I, I, I, F, P,     # dtype, x, gamma, beta, N, HW, C, G, eps, out
+        P, P]                             # plan, stream
     lib.diffpure_gn_silu.restype = I
     lib.diffpure_fused_leaky_relu.argtypes = [
         I, P, P, L, I, F, F, P, P]        # dtype, x, bias, total, C, slope, scale, out, stream

@@ -3,7 +3,8 @@
 Port of diffpure_tpu/ops/fused_attnblock.py: ``fused_attnblock_reference``
 (:151) in plain PyTorch, and ``fused_attnblock``, a
 ``torch.autograd.Function`` whose forward is the CUDA kernel in
-``csrc/fused_attnblock.cu`` (replacing ``fused_attnblock_pallas``, :106) and
+``csrc/fused_attnblock.cu`` (bf16) and ``csrc/attnblock_f32.cu`` (fp32)
+(replacing ``fused_attnblock_pallas``, :106) and
 whose backward is autograd of the plain version, as JAX's ``_fab_bwd``
 (:200-206) is: the TPU has no attention backward kernel either. On a CPU
 tensor the forward runs the plain version; on a CUDA tensor it launches the
@@ -14,8 +15,10 @@ NIN on the wgmma GEMM of ``csrc/igemm_wgmma.cuh`` (weights from
 ``pack_attnblock_params``' pre-swizzled stages, tiles and split-K from
 ``attnblock_plan``), and the HW x HW core with the output NIN folded in,
 on wgmma + TMA; it takes what ``check_attnblock_shape`` passes and raises
-on the rest. fp32
-runs a chain on the FMA units (TF32 stays off).
+on the rest. fp32 runs a chain on the FMA units (TF32 stays off): the
+GroupNorm pass of kernel #10 without its SiLU, the q | k | v NIN as an fp32
+GEMM, and a register-tiled core with the output NIN folded in, planned by
+``attnblock_f32_plan``.
 
 The block: GN -> q, k, v = NIN(h) -> softmax(q k^T C^-1/2) in fp32 -> @ v
 -> NIN -> + x, times 1/sqrt(2) when rescaled. NIN weights are (in, out).
@@ -31,7 +34,7 @@ import torch
 from diffpure_tpu_torch.ops import _cuda
 from diffpure_tpu_torch.ops.fused_resblock import INV_SQRT2, KC, RB_GN_MAX_G, SMS, \
     GemmPlan, _gemm_plan, _plan_ints
-from diffpure_tpu_torch.ops.groupnorm import group_norm
+from diffpure_tpu_torch.ops.groupnorm import GnSiluPlan, gn_silu_plan, group_norm
 from diffpure_tpu_torch.ops.halo_conv import _swizzle128
 
 Tensor = torch.Tensor
@@ -145,21 +148,104 @@ def attnblock_plan(N: int, H: int, W: int, C: int, sms: int = SMS,
 def check_attnblock_shape(dtype: torch.dtype, N: int, H: int, W: int, C: int,
                           groups: int, sms: int = SMS) -> Optional[AttnblockPlan]:
     """Raise on what the kernels for ``dtype`` do not take; the bf16 plan
-    (None for fp32, whose chain takes H * W <= 256 and C % 32 == 0). The
-    plan raises where the GEMMs' TMA boxes do not tile the map."""
+    (None for fp32, whose chain takes H * W <= 256 and C % 32 == 0 and is
+    planned by ``attnblock_f32_plan``). The bf16 plan raises where the
+    GEMMs' TMA boxes do not tile the map.
+
+    What bounds the chains on this card, and what they do about it: bf16
+    runs on the tensor cores, where at batch 8 the three launches' latencies
+    and at batch 128 the q | k | v GEMM (K is only C / 64 steps) set the
+    time; its core keeps whole score rows and a in registers and runs the
+    output NIN from them. fp32 runs on the FMA units, where a thread's
+    register tile must feed about 16 FMAs per 16-byte shared load (8 x 8
+    outputs) for the FMAs, not shared memory, to set the pace: the q | k |
+    v GEMM takes 128 x 96 tiles of 8 x 8 a thread, the core 16 queries a
+    block with 8 x 8 tiles and the contraction split over four warps, K, V
+    and Wout^T streaming from L2 through a cp.async ring, the output NIN
+    from a on chip; ``attnblock_f32_plan`` tiles it."""
     if dtype not in _cuda.DTYPE_CODE:
         raise ValueError(f"fused_attnblock takes fp32 or bf16, not {dtype}")
     if H * W > AT_KEYS or C % groups:
         raise ValueError(f"the attention kernels take H*W <= {AT_KEYS} and C divisible "
                          f"by the groups; got {H}x{W}x{C}, {groups} groups")
     if dtype != torch.bfloat16:
-        if C % 32:
-            raise ValueError(f"the fp32 attention kernel takes C % 32 == 0; got {C}")
+        if C % AF_CK:
+            raise ValueError(f"the fp32 attention kernel takes C % {AF_CK} == 0; got {C}")
         return None
     if C % KC or C > AT_MAX_C or groups > RB_GN_MAX_G:
         raise ValueError(f"the bf16 attention kernels take C a multiple of {KC} up to "
                          f"{AT_MAX_C} in at most {RB_GN_MAX_G} groups; got {C} in {groups}")
     return attnblock_plan(N, H, W, C, sms)
+
+
+# The fp32 core (csrc/attnblock_f32.cu attn_f32_kernel): 16 queries a
+# block, chunks of 32 channels (keys) through a ring of four stages of 256
+# rows (two where shared memory does not hold four), score rows of 128 kj
+# keys (kj 1 or 2), output passes of 128 kjo channels.
+AF_QT = 16
+AF_CK = 32
+QK_BM, QK_BN = 128, 96  # the fp32 q | k | v GEMM's tile (attn_qkv_f32_kernel)
+AF_SMEM_MAX = 232448  # bytes of shared memory a block may opt into
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnblockF32Plan:
+    """The fp32 chain: the GroupNorm pass (``gn``, kernel #10's planner),
+    the core's key width ``kj`` (128 kj keys a score row), its output NIN's
+    pass width ``kjo`` (128 kjo channels) and ``osplit`` (the output
+    channels split over that many blocks of the same queries, where the
+    (query tiles, examples) grid leaves most SMs idle), its grid and shared
+    memory; ``ksplit``, the K slices of the q | k | v GEMM (128 x 96 tiles)
+    where its tiles leave most SMs idle; ``stages``, the core's ring depth
+    (4, or 2 where shared memory does not hold 4); and the 11 ints the C
+    side reads (the GN's 5, then kj, kjo, 32, osplit, ksplit, stages)."""
+    gn: GnSiluPlan
+    kj: int
+    kjo: int
+    osplit: int
+    ksplit: int
+    stages: int
+    grid: Tuple[int, int, int]
+    smem: int
+    ints: Tuple[int, ...]
+
+
+def _f32_smem(C: int, kj: int, stages: int) -> int:
+    return 4 * (AF_QT * (C + 4) + AF_QT * (128 * kj + 4) + stages * 256 * (AF_CK + 4))
+
+
+@functools.lru_cache(maxsize=None)
+def attnblock_f32_plan(N: int, H: int, W: int, C: int, groups: int,
+                       sms: int = SMS) -> AttnblockF32Plan:
+    """Tile the fp32 chain at (N, H, W, C): 16 queries a block, a score row
+    of 128 keys (H * W <= 128) or 256; the output channels split in powers
+    of two, into slices of at least 128 (a pass's width), while the blocks
+    stay within the SMs. Raises where the shape's Q and a rows outgrow
+    shared memory (C above about 2200)."""
+    check_attnblock_shape(torch.float32, N, H, W, C, groups, sms)
+    hw = H * W
+    kj = 1 if hw <= 128 else 2
+    tiles = -(-hw // AF_QT) * N
+    osplit = 1
+    while tiles * osplit * 2 <= sms and C % (osplit * 2 * AF_CK) == 0 \
+            and C // (osplit * 2) >= 128:
+        osplit *= 2
+    kjo = 1 if C // osplit <= 128 else 2
+    stages = 4 if _f32_smem(C, kj, 4) <= AF_SMEM_MAX else 2
+    smem = _f32_smem(C, kj, stages)
+    if smem > AF_SMEM_MAX:
+        raise ValueError(f"the fp32 attention core holds 16 rows of q and of a in shared "
+                         f"memory: {smem} bytes at C = {C}, above {AF_SMEM_MAX}")
+    gn = gn_silu_plan(N, hw, C, groups, torch.float32, sms)
+    # the GEMM: K slices of at least 64 channels (two steps) while its tiles
+    # fill at most half the SMs and the partials fit the workspace
+    gemm_tiles = -(-(N * hw) // QK_BM) * (3 * C // QK_BN)
+    ksplit = 1
+    while gemm_tiles * ksplit * 2 <= sms and C % (ksplit * 2 * 64) == 0 \
+            and ksplit * 2 * N * hw * 3 * C <= _cuda.SPLITK_WORKSPACE:
+        ksplit *= 2
+    return AttnblockF32Plan(gn, kj, kjo, osplit, ksplit, stages, (-(-hw // AF_QT), N, osplit),
+                            smem, gn.ints + (kj, kjo, AF_CK, osplit, ksplit, stages))
 
 
 def _launch(x: Tensor, params: Tuple, num_groups: int, eps: float,
@@ -168,24 +254,25 @@ def _launch(x: Tensor, params: Tuple, num_groups: int, eps: float,
     if x.ndim != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
     N, H, W, C = x.shape
-    plan = check_attnblock_shape(dtype, N, H, W, C, num_groups, _cuda.num_sms(dev))
+    sms = _cuda.num_sms(dev)
+    plan = check_attnblock_shape(dtype, N, H, W, C, num_groups, sms) \
+        or attnblock_f32_plan(N, H, W, C, num_groups, sms)
     pk = packed or pack_attnblock_params(params, dtype, dev)
-    w = pk.wqkv if plan is None else pk.wqkvs
+    w = pk.wqkvs if dtype == torch.bfloat16 else pk.wqkv
     if pk.channels != C or w is None or w.dtype != dtype or w.device != dev:
         raise ValueError("packed weights do not match the input")
     p_x = _cuda.check_operand(x, "x", dev, dtype)
     out = torch.empty_like(x)
     rows = N * H * W * x.element_size()
-    # h = GN(x), q|k|v, the attention output (fp32; bf16 keeps it in the
-    # core); buf owns the memory while queued
-    buf, (h, qkv, att), ws = _cuda.scratch(dev, rows * C, rows * 3 * C,
-                                           rows * C if plan is None else 0)
+    # h = GN(x) and q|k|v (the attention output stays in the core); buf
+    # owns the memory while queued
+    buf, (h, qkv), ws = _cuda.scratch(dev, rows * C, rows * 3 * C)
     gns, gnb, wqkv, bqkv, wo, bo, wqkvs, wos = pk.ptrs
     err = _cuda.lib().diffpure_attnblock_fwd(
         _cuda.DTYPE_CODE[dtype], p_x, N, H, W, C, gns, gnb, num_groups, wqkv, bqkv,
-        wo, bo, eps, INV_SQRT2 if rescale else 1.0, h, qkv, att, ws,
-        _cuda.SPLITK_WORKSPACE, out.data_ptr(), wqkvs, wos,
-        None if plan is None else _plan_ints(plan), _cuda.stream(dev))
+        wo, bo, eps, INV_SQRT2 if rescale else 1.0, h, qkv, ws,
+        _cuda.SPLITK_WORKSPACE, out.data_ptr(), wqkvs, wos, _plan_ints(plan),
+        _cuda.stream(dev))
     _cuda.check(err, "fused_attnblock kernel")
     return out
 

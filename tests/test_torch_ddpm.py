@@ -30,7 +30,7 @@ from diffpure_tpu_torch.models.registry import create_model, get_model_cls
 from diffpure_tpu_torch.purify import PurifyConfig, purify_sde
 from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
 from test_torch_purify import JaxNoise
-from torch_parity import DTYPES, assert_close, normal, np32, to_torch
+from torch_parity import DTYPES, assert_close, ddpm_census, normal, np32, to_torch
 
 LAYER, MODEL = 1e-5, 1e-4
 SMALL = dict(nf=32, ch_mult=(1, 2), image_size=16, attn_resolutions=(8,))
@@ -175,3 +175,16 @@ def test_purify_sde_through_ddpm_matches_jax():
         got = purify_sde(model, to_torch(x01) * 2.0 - 1.0, JaxNoise(key),
                          PurifyConfig(t=4, grad_mode="none"))
     assert_close(got, want, MODEL, "purify_sde through the DDPM")
+
+
+def test_ddpm_census_is_the_kernels_path():
+    """The full-width DDPM's kernel calls per evaluation, walked on the meta
+    device: 44 GNSiLU (#10) at 11 (H, C) shapes, and 4 attention blocks
+    (#3), 3 at 16x16x256 and the middle block at 4x4x256, what
+    chip_smoke.py's phase 10 counts 100 times over."""
+    gn, attn = ddpm_census()
+    assert gn == {(32, 128): 7, (32, 256): 2, (32, 384): 1, (16, 128): 1, (16, 256): 6,
+                  (16, 384): 1, (16, 512): 2, (8, 256): 7, (8, 512): 3, (4, 256): 11,
+                  (4, 512): 3}
+    assert sum(gn.values()) == 44
+    assert attn == {(16, 256): 3, (4, 256): 1}

@@ -2,8 +2,10 @@
 on CPU tensors) against the TPU kernel #3 fused_attnblock_pallas in Pallas
 interpret mode, and the plain parts of its bf16 chain on the card (the NIN
 weight stages, the GEMM plans over the CIFAR NCSN++'s attention census,
-the shape gate). The CUDA kernels are checked on the card by chip_smoke.py
-(phase 2, against the plain version at batch 8, 16 and 128)."""
+the shape gate), and of its fp32 chain (attnblock_f32_plan over the
+NCSN++'s and the score_sde DDPM's attention census). The CUDA kernels are
+checked on the card by chip_smoke.py (phase 2, against the plain version at
+batch 8, 16 and 128)."""
 from collections import Counter
 
 import numpy as np
@@ -16,7 +18,8 @@ from diffpure_tpu_torch.models import layers, ncsnpp_from_config
 from diffpure_tpu_torch.ops import _cuda
 from diffpure_tpu_torch.ops import fused_attnblock as fab
 from diffpure_tpu_torch.ops import fused_resblock as frb
-from torch_parity import DTYPES, REL, assert_close, attnblock_params, \
+from diffpure_tpu_torch.ops import groupnorm
+from torch_parity import DTYPES, REL, assert_close, attnblock_params, ddpm_census, \
     normal, to_jax, to_torch
 
 
@@ -207,3 +210,55 @@ def test_attnblock_has_no_route_off_the_cpu_but_the_kernel():
     with pytest.raises(ValueError, match="cpu or cuda"):
         fab.fused_attnblock(x, p, num_groups=16)
     assert fab.fused_attnblock.launches == launches
+
+
+@pytest.mark.parametrize("batch", [8, 16, 128])
+def test_attnblock_f32_plan_covers_the_census(attn_census, batch):
+    """The fp32 chain at every attention shape of the NCSN++ and the DDPM:
+    the grid's 16-query tiles cover each (example, query) once, the output
+    slices and passes of 128 kjo channels each output channel once, a score
+    row of 128 kj keys holds the map, shared memory stays within 227 KB,
+    the q | k | v GEMM's K slices tile C in steps of 32 with partials that
+    fit the workspace, the GroupNorm pass is #10's plan, and the 11 ints the
+    C side reads."""
+    _, ddpm_attn = ddpm_census()
+    for H, C in sorted(set(attn_census) | set(ddpm_attn)):
+        p = fab.attnblock_f32_plan(batch, H, H, C, 32)
+        hw = H * H
+        qt, n, osplit = p.grid
+        assert n == batch and osplit == p.osplit and qt == -(-hw // fab.AF_QT)
+        q = np.arange(qt)[:, None] * fab.AF_QT + np.arange(fab.AF_QT)[None, :]
+        q = q[q < hw]
+        assert np.array_equal(np.sort(q), np.arange(hw))
+        assert C % osplit == 0 and (C // osplit) % 4 == 0
+        ocols, width = C // osplit, 128 * p.kjo
+        o = [z * ocols + op * width + r for z in range(osplit)
+             for op in range(-(-ocols // width)) for r in range(width) if op * width + r < ocols]
+        assert sorted(o) == list(range(C))
+        assert p.kj in (1, 2) and p.kjo in (1, 2) and 128 * p.kj >= hw
+        assert p.stages in (2, 4)
+        assert p.smem == 4 * (16 * (C + 4) + 16 * (128 * p.kj + 4) + p.stages * 256 * 36)
+        assert p.smem <= fab.AF_SMEM_MAX
+        assert C % (32 * p.ksplit) == 0 and 3 * C % fab.QK_BN == 0
+        assert p.ksplit == 1 or p.ksplit * batch * hw * 3 * C <= _cuda.SPLITK_WORKSPACE
+        assert p.gn == groupnorm.gn_silu_plan(batch, hw, C, 32, torch.float32)
+        assert p.ints == p.gn.ints + (p.kj, p.kjo, fab.AF_CK, p.osplit, p.ksplit, p.stages)
+
+
+def test_attnblock_f32_plan_fills_the_card_at_small_grids():
+    """The DDPM's 4 x 4 block at batch 8 (8 query tiles): the output
+    channels split over 2 blocks, the q | k | v GEMM's K over 4 slices; at
+    16 x 16 (128 tiles) neither splits."""
+    small, large = fab.attnblock_f32_plan(8, 4, 4, 256, 32), fab.attnblock_f32_plan(8, 16, 16, 256, 32)
+    assert (small.osplit, small.ksplit, small.kj, small.kjo) == (2, 4, 1, 1)
+    assert (large.osplit, large.ksplit, large.kj, large.kjo) == (1, 1, 2, 2)
+
+
+def test_attnblock_f32_plan_raises_where_shared_memory_ends():
+    """16 rows of q and of a (C + 4 floats each) stay in shared memory: the
+    census's C = 256 takes a ring of four stages, C = 2208 one of two; past
+    it the plan raises before any launch."""
+    assert fab.attnblock_f32_plan(8, 16, 16, 256, 32).stages == 4
+    assert fab.attnblock_f32_plan(8, 16, 16, 2208, 32).stages == 2
+    with pytest.raises(ValueError, match="shared"):
+        fab.attnblock_f32_plan(8, 16, 16, 2240, 32)

@@ -13,7 +13,7 @@ from diffpure_tpu.models.layers import GNSiLU as JaxGNSiLU
 from diffpure_tpu.ops import groupnorm as jgn
 from diffpure_tpu_torch.models.layers import GNSiLU
 from diffpure_tpu_torch.ops import groupnorm, launch_counts
-from torch_parity import DTYPES, REL, assert_close, normal, to_jax, to_torch
+from torch_parity import DTYPES, REL, assert_close, ddpm_census, normal, to_jax, to_torch
 
 FP32_OP = 1e-5
 TOL = {"float32": FP32_OP, "bfloat16": REL["bfloat16"]}
@@ -79,3 +79,85 @@ def test_wrapper_refuses_other_devices():
     x = torch.zeros(1, 2, 2, 8, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         groupnorm.group_norm_silu_fused(x, torch.ones(8), torch.zeros(8), 2)
+
+
+# The kernel's launch plan (ops/groupnorm.py gn_silu_plan, csrc/gn_silu.cuh),
+# checked as the kernel indexes: block b holds slices b * spb + t // tps,
+# a slice (n, g) = divmod(s, G); thread t of a slice its vectors t % tps +
+# k * tps, vector i at pixel i // vpp (by a float32 reciprocal), channels
+# (i % vpp) * vw.. of the group.
+TORCH_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _check_plan(p, N, HW, C, G, dtype):
+    cg, esize = C // G, torch.tensor([], dtype=dtype).element_size()
+    widths = (8, 4, 1) if dtype == torch.bfloat16 else (4, 1)
+    assert p.vw in widths and cg % p.vw == 0
+    assert p.vw == next(w for w in widths if cg % w == 0)  # 16 bytes where the group allows
+    assert p.threads <= 1024 and p.threads % 32 == 0
+    if p.route == "l2":
+        assert p.ints[0] == 1 and p.threads == p.tps == 1024 and p.blocks == N * G
+        return
+    nvec, vpp = HW * cg // p.vw, cg // p.vw
+    assert p.ints == (0, p.vw, p.nv, p.tps, p.threads)
+    assert 1 <= p.nv <= groupnorm.GNS_NV_MAX[p.vw]
+    assert p.tps & (p.tps - 1) == 0 and p.tps <= groupnorm.GNS_MAX_THREADS
+    assert p.threads % p.tps == 0 and (p.tps <= 32 or p.threads == p.tps)
+    assert p.tps * (p.nv - 1) < nvec <= p.tps * p.nv <= groupnorm.GNS_MAX_VECS
+    spb = p.threads // p.tps
+    assert 8 * spb * cg <= groupnorm.GNS_MAX_SMEM  # the staged gamma and beta
+    # every (example, group) once
+    s = np.arange(p.blocks)[:, None] * spb + np.arange(spb)[None, :]
+    s = s[s < N * G]
+    assert s.size == N * G and np.array_equal(np.sort(s), np.arange(N * G))
+    # every vector of a slice once, at the pixel the float reciprocal finds
+    i = (np.arange(p.tps)[:, None] + p.tps * np.arange(p.nv)[None, :]).ravel()
+    i = np.sort(i[i < nvec])
+    assert np.array_equal(i, np.arange(nvec))
+    rvpp = np.float32(1) / np.float32(vpp)
+    pix = ((i.astype(np.float32) + np.float32(0.5)) * rvpp).astype(np.int64)
+    assert np.array_equal(pix, i // vpp)
+
+
+@pytest.mark.parametrize("dtype", TORCH_DTYPES, ids=str)
+@pytest.mark.parametrize("batch", [8, 16, 128])
+def test_gn_silu_plan_covers_the_ddpm_census(batch, dtype):
+    """At every GNSiLU shape of the full-width DDPM the slices live in
+    registers (at most GNS_NV_MAX vectors a thread, at most 1024 threads a
+    slice), each (example, group) and each element once."""
+    gn, _ = ddpm_census()
+    for (H, C), _ in sorted(gn.items()):
+        p = groupnorm.gn_silu_plan(batch, H * H, C, 32, dtype)
+        assert p.route == "registers", (H, C)
+        _check_plan(p, batch, H * H, C, 32, dtype)
+
+
+@pytest.mark.parametrize("dtype", TORCH_DTYPES, ids=str)
+def test_gn_silu_plan_takes_the_l2_route_off_the_census(dtype):
+    """chip_smoke.py's shape off the census, 64 x 64 x 512 at batch 8: 4096
+    x 16 values a slice, above the register budget."""
+    p = groupnorm.gn_silu_plan(8, 64 * 64, 512, 32, dtype)
+    assert p.route == "l2"
+    _check_plan(p, 8, 64 * 64, 512, 32, dtype)
+
+
+# (N, H, W, C, G): single elements (C / G odd), vectors of 4 in bf16, tiny
+# maps, many slices, a slice just within and one past the register budget,
+# and a group whose staged gamma and beta outgrow a block's shared memory
+ODD_SHAPES = [(1, 1, 1, 1, 1), (2, 3, 5, 7, 7), (3, 9, 11, 96, 32), (2, 4, 4, 12, 3),
+              (200, 2, 2, 64, 32), (1, 32, 32, 256, 2), (1, 128, 128, 256, 2),
+              (1, 1, 1, 8192, 1), (2, 6, 5, 16, 2)]
+
+
+@pytest.mark.parametrize("dtype", TORCH_DTYPES, ids=str)
+@pytest.mark.parametrize("shape", ODD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_gn_silu_plan_takes_every_shape(shape, dtype):
+    """Every shape whose channels split into the groups gets a plan (the
+    kernel before this one took them all), and every plan holds."""
+    N, H, W, C, G = shape
+    _check_plan(groupnorm.gn_silu_plan(N, H * W, C, G, dtype), N, H * W, C, G, dtype)
+
+
+def test_gn_silu_plan_raises_off_the_groups():
+    with pytest.raises(ValueError, match="do not split"):
+        groupnorm.gn_silu_plan(1, 4, 10, 4, torch.float32)

@@ -76,3 +76,34 @@ def assert_close(got, want, rel, what=""):
     err = float(np.max(np.abs(got - want)))
     bound = rel * float(np.max(np.abs(want)))
     assert err <= bound, f"{what}: max abs err {err:.3g} > {bound:.3g}"
+
+
+def ddpm_census(batch=2):
+    """((H, C) -> GNSiLU calls, (H, C) -> attention block calls) over one
+    evaluation of the full-width score_sde DDPM (models/ddpm_v1.py), walked
+    on the meta device with GNSiLU and AttnBlockpp replaced by recorders of
+    their input shapes."""
+    from collections import Counter
+
+    import pytest
+    from diffpure_tpu_torch.models import layers
+    from diffpure_tpu_torch.models.registry import create_model
+
+    gn, attn = Counter(), Counter()
+
+    def record(counter):
+        def forward(self, x):
+            counter[(x.shape[1], x.shape[3])] += 1
+            return x
+        return forward
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(layers.GNSiLU, "forward", record(gn))
+    mp.setattr(layers.AttnBlockpp, "forward", record(attn))
+    try:
+        with torch.device("meta"):
+            model = create_model("ddpm")
+        model(torch.empty(batch, 32, 32, 3, device="meta"), torch.empty(batch, device="meta"))
+    finally:
+        mp.undo()
+    return dict(gn), dict(attn)
