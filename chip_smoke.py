@@ -87,7 +87,25 @@ Phases, each fatal on failure:
      0 for every other kernel;
   11. the t*=5 DDPM purification, and one evaluation of NCSN++ with
      resblock_type='ddpm' (2 blocks per level, fp32 and bf16), kernels
-     (card) against plain (CPU), same noise.
+     (card) against plain (CPU), same noise;
+  12. BPDA+EOT on the main path: the defence vote (timed), eval_bpda
+     through the bf16 CIFAR defence at t*=100, batch 4, 2 PGD steps, 2
+     attack and 4 defence reps, then one PGD step with the attack reps one
+     a call (the chunked seeds); x_adv must lie in the eps-ball and in
+     [0, 1], class_batch never turn from false to true, and the launch
+     counters read 40 / 36 / 10 x the NFE ledger's total, the backward
+     kernels 0 (phase_bpda);
+  13. DPM-Solver++(2M): DefendedModel with purify_dpm at t*=100 in 20
+     steps, bf16, batch 8, cold and warm (counters 40 / 36 / 10 x 20, the
+     ledger dpm_solver_pp = 20), then t*=5 in 3 steps and its input
+     gradient at batch 2, kernels (card) against plain (CPU), fp32 and bf16
+     (phase_dpm);
+  14. the CLI: python -m diffpure_tpu_torch.cli as a subprocess in a fresh
+     directory under chip_smoke_out/ with a seeded CIFAR-10 pickle fixture,
+     on the BPDA and the rand run scripts' flags (run_scripts/torch/
+     cifar10/) with tiny budgets and random weights, fp32; each run must
+     exit 0 and print its NFE report and results line, and the BPDA run
+     save x_adv_bpda.npy (phase_cli).
 
 Needs the CUDA toolkit (nvcc) and one card; exits non-zero without them.
 Writes details (per-shape records, the compiler's report) to
@@ -110,6 +128,7 @@ import argparse
 import ctypes
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -288,6 +307,24 @@ GN_L2_FRAGMENT = "_l2_kernel"
 # other places, #10 once where the plain chain rounds before the SiLU).
 DDPM_PURIFY_REL = 1e-4
 NCSN_DDPM_REL = {"float32": 2e-4, "bfloat16": 5e-2}
+# phase 12: BPDA+EOT through the main path's defence
+BPDA_N = 4
+BPDA_CFG = dict(adv_steps=2, eot_attack_reps=2, eot_defense_reps=4, defense_batch=4)
+# phase 13: DPM-Solver++(2M) steps (score evaluations) at t* = 100
+DPM_STEPS = 20
+# phase 14: the CLI on the run scripts' flags (run_scripts/torch/cifar10/),
+# with tiny budgets
+CLI_COMMON = ["--exp", "./exp_results", "--seed", "0", "--data_seed", "0", "--config",
+              "cifar10.yml", "--domain", "cifar10", "--diffusion_type", "sde",
+              "--score_type", "score_sde", "--adv_eps", "0.031373", "--classifier_name",
+              "cifar10-wideresnet-28-10", "--random_weights"]
+CLI_RUNS = {
+    "bpda": ["--adv_batch_size", "4", "--num_sub", "4", "--t", "100", "--attack_version",
+             "bpda", "--eot_defense_reps", "2", "--eot_attack_reps", "2", "--adv_steps", "1"],
+    "rand": ["--adv_batch_size", "4", "--num_sub", "4", "--t", "2", "--attack_version",
+             "rand", "--eot_iter", "1"],
+}
+CLI_TIMEOUT_S = 400
 
 
 def log(*a):
@@ -1864,6 +1901,206 @@ class FixedNoise:
         return self.src.brownian(it, i, like.cpu(), dt).to(like.device)
 
 
+def expected_counts(per_eval_scale):
+    """Launch counts of a run of ``per_eval_scale`` CIFAR NCSN++ score
+    evaluations with no gradient: 40 / 36 / 10 each, every other kernel 0."""
+    return {**{k: v[2] * per_eval_scale for k, v in KERNELS.items()},
+            **{k: 0 for k in (*BWD_KERNELS, *ADM_KERNELS, *DDPM_KERNELS)}}
+
+
+def phase_bpda(torch, score, clf, x, smi):
+    """Phase 12: BPDA+EOT (eval_bpda) through the main path's bf16 defence,
+    then one PGD step with the attack reps one a call (the chunked seeds
+    7000 + r). The labels are the defence's own vote (timed: the vote's
+    purified images per second), so every example starts defended. Fails
+    unless x_adv lies in the eps-ball and in [0, 1], class_batch has the
+    shape (steps + 2, batch) and never turns from false to true, and the
+    launch counters read 40 / 36 / 10 x the NFE ledger's total (the
+    backward kernels 0: BPDA cuts the purifier's gradient)."""
+    from diffpure_tpu_torch.attacks import BPDAEOTConfig, bpda_eot_attack, defense_predict
+    from diffpure_tpu_torch.eval import DefendedModel, eval_bpda
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.purify import PurifyConfig
+    from diffpure_tpu_torch.utils.prng import fold_in
+    from diffpure_tpu_torch.utils.profiling import count_nfe
+
+    score.dtype = torch.bfloat16
+    dm = DefendedModel(score, clf, PurifyConfig(t=EVALS, grad_mode="none"), log_every=0)
+    cfg = BPDAEOTConfig(**BPDA_CFG)
+    n = x.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with count_nfe() as vote_nfe:
+        y = defense_predict(dm.purify, dm.classify, x, fold_in(SEED + 30, 10_000), cfg)
+    torch.cuda.synchronize()
+    vote_s = time.time() - t0
+    images = cfg.eot_defense_reps * n
+    log(f"  the defence vote: {vote_s:.3f} s, NFE {vote_nfe.total()}, "
+        f"{images / vote_s:.3f} purified images/s on {smi}")
+    runs = dict(vote=dict(wall_s=vote_s, nfe=vote_nfe.total(),
+                          purified_images_per_s=images / vote_s))
+
+    def check(tag, x_adv, class_batch, steps, nfe, counts):
+        dist = float((x_adv - x).abs().max())
+        log(f"  {tag}: max |x_adv - x| {dist:.5f} <= eps {cfg.adv_eps:.5f}; defended per "
+            f"step {class_batch.sum(1).tolist()}; {nfe.report()}; launches {counts}")
+        if tuple(x_adv.shape) != tuple(x.shape) or not bool(torch.isfinite(x_adv).all()) \
+                or dist > cfg.adv_eps + 1e-6 or float(x_adv.min()) < 0 \
+                or float(x_adv.max()) > 1:
+            raise AssertionError(f"{tag}: x_adv leaves the eps-ball or [0, 1]")
+        if class_batch.shape != (steps + 2, n) or bool(
+                (class_batch[1:] & ~class_batch[:-1]).any()):
+            raise AssertionError(f"{tag}: class_batch {class_batch.astype(int).tolist()} has "
+                                 f"the wrong shape or turns from false to true")
+        want = expected_counts(nfe.total())
+        if nfe.total() <= 0 or counts != want:
+            raise AssertionError(f"{tag}: launch counts {counts} != 40/36/10 x the NFE "
+                                 f"ledger's {nfe.total()}: {want}")
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with count_nfe() as nfe:
+        res = eval_bpda(dm, x, y, SEED + 30, cfg, log=lambda s: log(f"  {s}"))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    check("eval_bpda", res["x_adv"], res["class_batch"], cfg.adv_steps, nfe, counts)
+    log(f"  eval_bpda: {wall:.3f} s on {smi}; init / robust accuracy {res['init_acc']:.3f} / "
+        f"{res['robust_acc']:.3f} (random weights: these numbers mean nothing)")
+    runs["eval_bpda"] = dict(wall_s=wall, nfe=dict(nfe.counts), counts=counts,
+                             class_batch=res["class_batch"].astype(int).tolist())
+
+    cfg1 = BPDAEOTConfig(**{**BPDA_CFG, "adv_steps": 1, "attack_batch": 1})
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with count_nfe() as nfe:
+        x_adv, class_batch = bpda_eot_attack(dm.purify, dm.classify, x, y, SEED + 31, cfg1)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    check("one PGD step, attack reps one a call", x_adv, class_batch, 1, nfe, counts)
+    runs["chunked"] = dict(wall_s=wall, nfe=dict(nfe.counts), counts=counts)
+    return runs
+
+
+def phase_dpm(torch, dev, score, clf, x01, x2, w2, smi):
+    """Phase 13: DefendedModel with DPM-Solver++(2M) purification at t*=100
+    in DPM_STEPS steps, bf16, cold and warm (launch counters 40 / 36 / 10 x
+    DPM_STEPS, the NFE ledger dpm_solver_pp = DPM_STEPS); then t*=5 in 3
+    steps and the input gradient of sum(w2 * purified) at batch 2, kernels
+    (card) against plain (CPU) with the same noise, fp32 and bf16, at
+    phase 4's and phase 6's tolerances."""
+    from diffpure_tpu_torch.eval import DefendedModel
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.purify import PurifyConfig
+    from diffpure_tpu_torch.utils.profiling import count_nfe
+
+    score.dtype = torch.bfloat16
+    n = x01.shape[0]
+    dm = DefendedModel(score, clf, PurifyConfig(diffusion_type="dpm", t=EVALS,
+                                                n_steps=DPM_STEPS, grad_mode="none"),
+                       log_every=0)
+    runs = []
+    for run in ("cold", "warm"):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.inference_mode(), count_nfe() as nfe:
+            logits = dm(x01, SEED + 32)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = launch_counts()
+        runs.append(dict(run=run, wall_s=wall, images_per_s=n / wall, counts=counts,
+                         nfe=dict(nfe.counts)))
+        log(f"  {run}: {wall:.3f} s, {n / wall:.3f} images/s on {smi}; {nfe.report()}; "
+            f"launches {counts}")
+        want = expected_counts(DPM_STEPS)
+        if counts != want or dict(nfe.counts) != {"dpm_solver_pp": DPM_STEPS}:
+            raise AssertionError(f"DPM: launch counts {counts} != {want} or NFE "
+                                 f"{dict(nfe.counts)}")
+    if tuple(logits.shape) != (n, 10) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"DPM: bad logits, shape {tuple(logits.shape)}")
+    checks = {}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        score.dtype = dtype
+        cfg = dict(diffusion_type="dpm", t=5, n_steps=3)
+        dm_f = DefendedModel(score, clf, PurifyConfig(**cfg, grad_mode="none"), log_every=0)
+        dm_g = DefendedModel(score, clf, PurifyConfig(**cfg, grad_mode="checkpoint"),
+                             log_every=0)
+        with torch.inference_mode():
+            got_f = dm_f.purify(x2, FixedNoise(SEED + 33)).cpu()
+        got_g = purify_grad(torch, dm_g, x2, w2, FixedNoise(SEED + 34)).cpu()
+        score.cpu()
+        with torch.inference_mode():
+            want_f = dm_f.purify(x2.cpu(), FixedNoise(SEED + 33))
+        want_g = purify_grad(torch, dm_g, x2.cpu(), w2, FixedNoise(SEED + 34))
+        score.to(dev)
+        for what, got, want, bound in (("purify", got_f, want_f, SLICE_REL[dtype_name]),
+                                       ("gradient", got_g, want_g, GRAD_REL[dtype_name])):
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            ok = bool(torch.isfinite(got).all()) and err <= bound * scale
+            checks[f"{dtype_name}/{what}"] = dict(max_abs_err=err, rel_err=err / scale,
+                                                  rel_tol=bound, ok=ok)
+            log(f"  {dtype_name:8s} {what:8s}: max |kernel - plain| {err:.3e} (rel "
+                f"{err / scale:.2e} <= {bound:.1e}) {'ok' if ok else 'FAIL'}")
+    score.dtype = torch.bfloat16
+    bad = [k for k, v in checks.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"DPM kernel against plain: {bad} disagree")
+    return runs, checks
+
+
+def phase_cli(rng):
+    """Phase 14: write a seeded cifar-10-batches-py/test_batch and the repo's
+    configs/cifar10.yml into a fresh directory under chip_smoke_out/, run
+    ``python -m diffpure_tpu_torch.cli`` there once per CLI_RUNS entry (the
+    script's default fp32 precision, --device cuda by default), and fail
+    unless each exits 0 and prints its NFE report and results line, and the
+    BPDA run saved x_adv_bpda.npy."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="cli_", dir=OUT))
+    (work / "dataset" / "cifar-10-batches-py").mkdir(parents=True)
+    with open(work / "dataset" / "cifar-10-batches-py" / "test_batch", "wb") as f:
+        pickle.dump({b"data": rng.integers(0, 256, (64, 3072), dtype=np.uint8),
+                     b"labels": rng.integers(0, 10, 64).tolist()}, f)
+    (work / "configs").mkdir()
+    shutil.copy(REPO / "configs" / "cifar10.yml", work / "configs" / "cifar10.yml")
+    runs = {}
+    for version, flags in CLI_RUNS.items():
+        cmd = [sys.executable, "-m", "diffpure_tpu_torch.cli", *CLI_COMMON, *flags]
+        t0 = time.time()
+        proc = subprocess.run(cmd, cwd=work, capture_output=True, text=True,
+                              timeout=CLI_TIMEOUT_S,
+                              env={**os.environ, "PYTHONPATH": str(REPO)})
+        wall = time.time() - t0
+        (OUT / f"cli_{version}.log").write_text(proc.stdout + "\n---- stderr\n" + proc.stderr)
+        lines = proc.stdout.splitlines()
+        nfe = [ln for ln in lines if ln.startswith("NFE total=")]
+        results = [ln for ln in lines if ln.startswith("results: {")]
+        log_dir = work / "exp_results" / "images" / "cifar10-wideresnet-28-10" / \
+            f"sde_{version}" / "seed0" / "data0"
+        saved = sorted(p.name for p in log_dir.glob("*.npy"))
+        runs[version] = dict(rc=proc.returncode, wall_s=wall, nfe=nfe, results=results,
+                             saved=saved)
+        log(f"  {version}: rc {proc.returncode}, {wall:.1f} s (process start, build of the "
+            f"models, the run) on the card; {nfe[-1] if nfe else 'no NFE report'}; "
+            f"{results[-1][:160] if results else 'no results line'}; saved {saved}")
+        if proc.returncode != 0 or not nfe or not results or (
+                version == "bpda" and "x_adv_bpda.npy" not in saved):
+            log(proc.stderr[-3000:])
+            raise AssertionError(f"the CLI's {version} run failed (chip_smoke_out/"
+                                 f"cli_{version}.log)")
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-after", choices=("2b", "2c", "2d"), default=None,
@@ -2434,6 +2671,25 @@ def main() -> int:
         raise AssertionError(f"DDPM card against CPU: {bad} disagree")
     phase_done("11")
 
+    # ---- phase 12 -----------------------------------------------------------
+    log(f"== phase 12: eval_bpda (BPDA+EOT), t*={EVALS}, bf16 NCSN++ + WRN-28-10, batch "
+        f"{BPDA_N}, {BPDA_CFG}")
+    bpda_runs = phase_bpda(torch, score, clf, x01[:BPDA_N], smi)
+    phase_done("12")
+
+    # ---- phase 13 -----------------------------------------------------------
+    log(f"== phase 13: DPM-Solver++(2M) purification, t*={EVALS}, {DPM_STEPS} steps, bf16, "
+        f"batch {N}; t*=5 in 3 steps and its input gradient, kernels (GPU) against plain "
+        f"(CPU)")
+    dpm_runs, dpm_checks = phase_dpm(torch, dev, score, clf, x01, x6, w6, smi)
+    phase_done("13")
+
+    # ---- phase 14 -----------------------------------------------------------
+    log("== phase 14: the CLI, python -m diffpure_tpu_torch.cli, on the BPDA and the rand "
+        "run scripts' flags with tiny budgets, seeded CIFAR-10 fixture, random weights")
+    cli_runs = phase_cli(rng)
+    phase_done("14")
+
     # ---- report -------------------------------------------------------------
     kernels = []
     for name, (source, replaces, *_) in {**KERNELS, **BWD_KERNELS}.items():
@@ -2503,7 +2759,8 @@ def main() -> int:
         adm_shapes=adm_records, flash_widths=flash_width_records, adm_per_eval=adm_per_eval,
         adm_runs=adm_runs,
         adm_checks=adm_checks, gn_act_shapes=gn_act_records, ddpm_census=ddpm_shapes,
-        ddpm_runs=ddpm_runs, ddpm_checks=ddpm_checks, phase_s=phase_s, kernels=kernels),
+        ddpm_runs=ddpm_runs, ddpm_checks=ddpm_checks, bpda_runs=bpda_runs, dpm_runs=dpm_runs,
+        dpm_checks=dpm_checks, cli_runs=cli_runs, phase_s=phase_s, kernels=kernels),
         indent=1))
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(json.dumps({"kernels": kernels}))

@@ -1,8 +1,11 @@
 from diffpure_tpu_torch.attacks.apgd import APGDConfig, apgd_attack
 from diffpure_tpu_torch.attacks.autoattack import AutoAttack, AutoAttackConfig
+from diffpure_tpu_torch.attacks.bpda_eot import BPDAEOTConfig, bpda_eot_attack, \
+    defense_predict
 from diffpure_tpu_torch.attacks.losses import ce_loss, cw_f6_loss, \
     dlr_loss, dlr_loss_targeted, margin_loss
 
 __all__ = ["APGDConfig", "apgd_attack", "AutoAttack", "AutoAttackConfig",
+           "BPDAEOTConfig", "bpda_eot_attack", "defense_predict",
            "ce_loss", "cw_f6_loss", "dlr_loss", "dlr_loss_targeted",
            "margin_loss"]

@@ -1,0 +1,158 @@
+"""Command-line entry point, the eval_sde_adv / eval_sde_adv_bpda counterpart
+(port of diffpure_tpu/cli.py; ref eval_sde_adv.py:211-323,
+eval_sde_adv_bpda.py:177-279):
+
+    python -m diffpure_tpu_torch.cli --config cifar10.yml --domain cifar10 ...
+
+Builds the defended model from the YAML config and the checkpoints under
+./pretrained/ (score_sde/checkpoint_8.pth, classifiers/<name>.pt), loads
+the evaluation subset from ./dataset/ and runs the requested attack
+protocol. ``--random_weights`` (or a missing checkpoint, with a warning)
+runs the pipeline on seeded random weights. The models and the data go to
+``--device`` (default ``cuda``); ``cuda`` with no card raises. The port
+runs the ``cifar10`` domain; ImageNet and CelebA-HQ wait for ROADMAP items
+16 and 17, the multi-GPU split for item 20.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from diffpure_tpu_torch.config import build_parser, load_config, make_log_dir
+from diffpure_tpu_torch.utils import seed_everything, setup_run_logging
+from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
+
+_LATER_DOMAINS = {"imagenet": "Slice 3 item 16", "celebahq": "Slice 4 item 17"}
+
+
+def _check_domain(domain: str) -> None:
+    for name, item in _LATER_DOMAINS.items():
+        if name in domain:
+            raise NotImplementedError(
+                f"domain {domain!r} waits for ROADMAP {item}")
+    if "cifar10" not in domain:
+        raise NotImplementedError(f"unknown domain {domain!r}")
+
+
+def _load_weights(model: torch.nn.Module, sd, device: torch.device) -> torch.nn.Module:
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
+    return model.eval().requires_grad_(False).to(device)
+
+
+def build_score_model(args, config, device: torch.device) -> torch.nn.Module:
+    """The NCSN++ epsilon model for the cifar10 domain
+    (ref eval_sde_adv.py:40-55, runners/diffpure_sde.py:160-190). Built
+    from the YAML as the reference's create_model; the torso in bf16 under
+    ``--precision bf16``. Weights frozen: attacks differentiate the input."""
+    from diffpure_tpu_torch.models import ncsnpp_from_config
+    from diffpure_tpu_torch.models.convert import load_score_sde_checkpoint
+
+    _check_domain(args.domain)
+    dtype = torch.bfloat16 if args.precision == "bf16" else None
+    model = ncsnpp_from_config(config, dtype=dtype)
+    ckpt = "pretrained/score_sde/checkpoint_8.pth"
+    if args.random_weights or not os.path.exists(ckpt):
+        sd = seeded_normal_state_dict(model, 0)
+        if not args.random_weights:
+            print(f"WARNING: {ckpt} missing; using random weights")
+    else:
+        sd = load_score_sde_checkpoint(ckpt)
+    return _load_weights(model, sd, device)
+
+
+def build_classifier(args, device: torch.device) -> torch.nn.Module:
+    """Classifier taking [0, 1] NHWC images (ref utils.py:143-253), robustbench
+    keys from pretrained/classifiers/<name>.pt; the port's registry raises
+    for the classifiers it does not have."""
+    from diffpure_tpu_torch.classifiers import get_classifier
+    from diffpure_tpu_torch.models.convert import load_torch_state_dict, \
+        strip_module_prefix
+
+    name = args.classifier_name
+    model = get_classifier(name)
+    ckpt = f"pretrained/classifiers/{name}.pt"
+    if args.random_weights or not os.path.exists(ckpt):
+        sd = seeded_normal_state_dict(model, 1)
+        if not args.random_weights:
+            print(f"WARNING: classifier ckpt {ckpt} missing; random weights")
+    else:
+        sd = load_torch_state_dict(ckpt)
+        for key in ("state_dict", "model_state_dict"):
+            if isinstance(sd, dict) and key in sd:
+                sd = sd[key]
+                break
+        sd = strip_module_prefix(sd)
+    return _load_weights(model, sd, device)
+
+
+def _attack_kwargs(args) -> dict:
+    """The attack's config fields by version (JAX cli.py:163-183)."""
+    if args.attack_version in ("standard", "rand", "custom"):
+        return dict(norm=args.lp_norm, eps=args.adv_eps,
+                    eot_iter=args.eot_iter if args.attack_version == "rand" else 1,
+                    apgd_iters_per_dispatch=args.attack_dispatch_iters)
+    if args.attack_version == "bpda":
+        return dict(adv_eps=args.adv_eps, adv_eta=args.adv_eta,
+                    adv_steps=args.adv_steps,
+                    eot_defense_reps=args.eot_defense_reps,
+                    eot_attack_reps=args.eot_attack_reps,
+                    defense_batch=args.eot_defense_batch,
+                    attack_batch=args.eot_attack_batch,
+                    attack_norm="l_inf" if args.lp_norm == "Linf" else "l_2")
+    return {}
+
+
+def main(argv=None) -> dict:
+    parser = build_parser()
+    parser.add_argument("--random_weights", action="store_true",
+                        help="skip checkpoint loading (smoke test)")
+    args = parser.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is "
+                           f"available (pass --device cpu to run on the CPU)")
+    config = load_config(args.config if os.path.exists(args.config)
+                         else os.path.join("configs", args.config))
+
+    log_dir = make_log_dir(args)
+    setup_run_logging(log_dir, args.verbose)
+    seed = seed_everything(args.seed)
+    print(f"log dir: {log_dir}")
+
+    from diffpure_tpu_torch.data import load_data
+    from diffpure_tpu_torch.eval import DefendedModel, robustness_eval
+    from diffpure_tpu_torch.purify import PurifyConfig
+    from diffpure_tpu_torch.utils.profiling import count_nfe
+
+    score = build_score_model(args, config, device)
+    classifier = build_classifier(args, device)
+    purify_cfg = PurifyConfig(
+        diffusion_type=args.diffusion_type, t=args.t, rand_t=args.rand_t,
+        t_delta=args.t_delta, sample_step=args.sample_step,
+        score_type=args.score_type, step_size=args.step_size,
+        sigma2=args.sigma2, lambda_ld=args.lambda_ld, eta=args.eta,
+        n_steps=args.solver_steps,
+        grad_mode="none" if args.attack_version == "bpda" else args.grad_mode)
+    defended = DefendedModel(score, classifier, purify_cfg)
+
+    x_np, y_np = load_data(args.domain, args.num_sub, args.data_seed,
+                           classifier_name=args.classifier_name,
+                           adv_batch_size=args.adv_batch_size)
+    x = torch.from_numpy(x_np).to(device)
+    y = torch.from_numpy(y_np.astype(np.int64)).to(device)
+    print(f"x: {tuple(x.shape)} [{float(x.min()):.3f}, {float(x.max()):.3f}] "
+          f"on {device}")
+
+    with count_nfe() as nfe:
+        results = robustness_eval(defended, x, y, seed, args.attack_version,
+                                  log_dir=log_dir, **_attack_kwargs(args))
+    print(nfe.report())
+    shown = {k: v for k, v in results.items() if k != "x_adv"}
+    print(f"results: {shown}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -3,8 +3,9 @@
 ``eval_autoattack`` (ref eval_sde_adv.py:96-155) first attacks the
 undefended classifier with the same suite (the paired-baseline check),
 then attacks through the purifier, saving the adversarial images of each.
-``eval_bpda``, ``eval_stadv`` and ``robustness_eval`` wait for ROADMAP
-Queue 1 item 8 and Slice 2.
+``eval_bpda`` (ref eval_sde_adv_bpda.py:121-174) does the same with
+BPDA+EOT, and ``robustness_eval`` dispatches by attack version.
+``eval_stadv`` waits for ROADMAP Slice 2 item 13.
 """
 from __future__ import annotations
 
@@ -15,8 +16,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from diffpure_tpu_torch.attacks import AutoAttack, AutoAttackConfig
-from diffpure_tpu_torch.eval.defended import DefendedModel
+from diffpure_tpu_torch.attacks import AutoAttack, AutoAttackConfig, \
+    BPDAEOTConfig, bpda_eot_attack
+from diffpure_tpu_torch.eval.defended import DefendedModel, UndefendedModel
 from diffpure_tpu_torch.utils.prng import fold_in
 
 Tensor = torch.Tensor
@@ -58,3 +60,55 @@ def eval_autoattack(defended: DefendedModel, x: Tensor, y: Tensor, seed: int,
         f"defended robust acc {results['defended_robust_acc']:.2%}")
     results["x_adv"] = x_adv
     return results
+
+
+def eval_bpda(defended: DefendedModel, x: Tensor, y: Tensor, seed: int,
+              cfg: BPDAEOTConfig, log_dir: Optional[str] = None, log=print,
+              run_baseline: bool = True) -> dict:
+    """BPDA+EOT through the purifier, after the same PGD on the undefended
+    classifier (the ResNet_Adv_Model baseline, ref :129-150); returns
+    {'classifier_init_acc', 'classifier_robust_acc', 'init_acc',
+    'robust_acc', 'class_batch', 'x_adv'}."""
+    results = {}
+
+    if run_baseline:
+        base = UndefendedModel(defended.classify)
+        t0 = time.time()
+        _, base_matrix = bpda_eot_attack(base.purify, base.classify, x, y,
+                                         fold_in(seed, 999), cfg,
+                                         log=lambda s: log(f"[clf] {s}"))
+        results["classifier_init_acc"] = float(base_matrix[0].mean())
+        results["classifier_robust_acc"] = float(base_matrix[-1].mean())
+        log(f"[clf] init acc: {results['classifier_init_acc']:.2%}, "
+            f"robust acc: {results['classifier_robust_acc']:.2%} "
+            f"({time.time() - t0:.1f}s)")
+
+    t0 = time.time()
+    x_adv, class_batch = bpda_eot_attack(defended.purify, defended.classify,
+                                         x, y, seed, cfg, log=log)
+    _save(log_dir, "x_adv_bpda.npy", x_adv)
+    results["init_acc"] = float(class_batch[0].mean())
+    results["robust_acc"] = float(class_batch[-1].mean())
+    results["class_batch"] = class_batch
+    log(f"init acc: {results['init_acc']:.2%}, "
+        f"robust acc: {results['robust_acc']:.2%} "
+        f"({time.time() - t0:.1f}s)")
+    results["x_adv"] = x_adv
+    return results
+
+
+def robustness_eval(defended: DefendedModel, x: Tensor, y: Tensor, seed: int,
+                    attack_version: str, log_dir: Optional[str] = None,
+                    log=print, **attack_kwargs) -> dict:
+    """Dispatch by attack version (ref eval_sde_adv.py:211-242 and
+    eval_sde_adv_bpda.py)."""
+    if attack_version in ("standard", "rand", "custom"):
+        aa_cfg = AutoAttackConfig(version=attack_version, **attack_kwargs)
+        return eval_autoattack(defended, x, y, seed, aa_cfg, log_dir, log)
+    if attack_version == "stadv":
+        raise NotImplementedError(
+            "attack_version='stadv' waits for ROADMAP Slice 2 item 13")
+    if attack_version == "bpda":
+        return eval_bpda(defended, x, y, seed, BPDAEOTConfig(**attack_kwargs),
+                         log_dir, log)
+    raise ValueError(f"unknown attack version {attack_version}")

@@ -7,6 +7,11 @@ carries it too).
 
 Leaves: conv kernel HWIO -> weight OIHW; Dense kernel (in, out) -> weight
 (out, in); norm ``scale`` -> ``weight``; NIN ``W``/``b`` unchanged.
+
+The score_sde checkpoint flow (JAX :28-71, :250): a CIFAR-10
+``checkpoint_8.pth`` holds the model's state dict (``module.``-prefixed
+under DataParallel) and its EMA shadow parameters; the port's NCSN++ keys
+are score_sde's, so the flow ends in a state dict, with no translation.
 """
 from __future__ import annotations
 
@@ -17,6 +22,46 @@ import numpy as np
 import torch
 
 from diffpure_tpu_torch.models.ncsnpp import get_sigmas
+
+
+def load_torch_state_dict(path: str):
+    """Unpickle a PyTorch checkpoint onto the CPU (a file of the model's
+    own publisher: unpickling runs code, as the reference's loader does)."""
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def strip_module_prefix(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Drop DataParallel 'module.' prefixes (ref utils.py:119-127)."""
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in sd.items()}
+
+
+def apply_ema(model_sd: Mapping[str, torch.Tensor], ema_state: Mapping,
+              buffer_keys: Tuple[str, ...] = ("sigmas",)) -> Dict[str, torch.Tensor]:
+    """Overwrite the parameters with the EMA shadow parameters, a flat list
+    in ``model.parameters()`` order: the state dict's order without its
+    buffers (ref score_sde/models/ema.py:18-105)."""
+    shadow = list(ema_state["shadow_params"])
+    param_keys = [k for k in model_sd
+                  if not any(k == b or k.endswith("." + b) for b in buffer_keys)]
+    if len(param_keys) != len(shadow):
+        raise ValueError(f"{len(shadow)} EMA shadow parameters for "
+                         f"{len(param_keys)} model parameters")
+    out = dict(model_sd)
+    for k, p in zip(param_keys, shadow):
+        p = torch.as_tensor(p)
+        if tuple(out[k].shape) != tuple(p.shape):
+            raise ValueError(f"EMA shadow of {k} has shape {tuple(p.shape)}, "
+                             f"the model {tuple(out[k].shape)}")
+        out[k] = p
+    return out
+
+
+def load_score_sde_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """score_sde checkpoint -> the port's NCSN++ state dict: load, strip the
+    prefix, apply the EMA (ref runners/diffpure_sde.py:160-190)."""
+    state = load_torch_state_dict(path)
+    return apply_ema(strip_module_prefix(state["model"]), state["ema"])
 
 
 def flatten_params(tree: Mapping, prefix: Tuple[str, ...] = ()

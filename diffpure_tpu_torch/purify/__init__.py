@@ -1,2 +1,3 @@
 from diffpure_tpu_torch.purify.config import PurifyConfig
-from diffpure_tpu_torch.purify.runners import SeededNoise, purify, purify_sde
+from diffpure_tpu_torch.purify.runners import SeededNoise, purify, purify_dpm, \
+    purify_sde

@@ -1,9 +1,9 @@
 """Static configuration for the purification runners.
 
-Carried over unchanged from diffpure_tpu/purify/config.py so that one config
+Carried over unchanged (diffpure_tpu/purify/config.py) so that one config
 object describes a run in either package. The port implements
-``diffusion_type='sde'`` with ``score_type='score_sde'``; the runners raise
-on the other values.
+``diffusion_type`` 'sde' and 'dpm' with ``score_type`` 'score_sde' and
+'guided_diffusion'; the runners raise on the other values.
 """
 from __future__ import annotations
 

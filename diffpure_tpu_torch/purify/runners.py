@@ -1,5 +1,6 @@
 """Reverse VP-SDE purification (port of diffpure_tpu/purify/runners.py:66-141
-and the ``purify`` dispatcher :391, ``diffusion_type='sde'``).
+and the ``purify`` dispatcher :391, ``diffusion_type='sde'``), and the
+DPM-Solver++(2M) purification (:230-271, ``diffusion_type='dpm'``).
 
 Images are NHWC in [-1, 1]. ``model_fn(x, t_labels)`` is the epsilon model:
 an ``NCSNpp`` with ``score_type='score_sde'`` (continuous labels t*999), an
@@ -7,15 +8,18 @@ an ``NCSNpp`` with ``score_type='score_sde'`` (continuous labels t*999), an
 runners.py:45-63). Randomness comes from a noise source with the JAX
 runner's stream layout: purification round ``it`` draws t* from stream
 3*it, the forward-diffusion noise from 3*it + 1 and the Brownian increment
-of step i from (3*it + 2, i) (runners.py:114-117, em.py:42). An integer
-seed gives ``SeededNoise``; tests pass an object with the same three
-methods that returns the draws JAX made.
+of step i from (3*it + 2, i) (runners.py:114-117, em.py:42); the DPM runner
+draws t* from stream 2*it and the forward noise from 2*it + 1 (runners.py:260).
+An integer seed gives ``SeededNoise`` with the runner's layout; tests pass
+an object with the same methods that returns the draws JAX made.
 
 Gradients (``cfg.grad_mode``, runners.py:121-138): ``'checkpoint'``
 backpropagates exactly through the solver, recomputing each step;
 ``'adjoint'`` uses the O(1)-memory adjoint of solvers/adjoint.py; ``'none'``
 returns a result with no gradient (JAX's ``stop_gradient``; the solver runs
-without a graph). ``'reversible'`` waits for ROADMAP Slice 2 item 11.
+without a graph). ``'reversible'`` waits for ROADMAP Slice 2 item 11. The
+DPM runner, as JAX's, knows only ``'none'`` and differentiates exactly
+(checkpointed steps) in every other mode.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from diffpure_tpu_torch.diffusion.score import get_score_fn, \
 from diffpure_tpu_torch.diffusion.sde import VPSDE, batch_mul
 from diffpure_tpu_torch.purify.config import PurifyConfig
 from diffpure_tpu_torch.solvers.adjoint import sdeint_em_adjoint
+from diffpure_tpu_torch.solvers.dpm import dpm_solver_pp_2m
 from diffpure_tpu_torch.solvers.em import brownian_increment, sdeint_em
 from diffpure_tpu_torch.utils.prng import fold_in, generator
 
@@ -38,28 +43,34 @@ ModelFn = Callable[[Tensor, Tensor], Tensor]
 
 class SeededNoise:
     """Counter-based noise from one integer seed (torch generators on the
-    data's device; not JAX's bits)."""
+    data's device; not JAX's bits). Round ``it`` draws from streams
+    ``streams * it + j``: 3 a round for the SDE runner, 2 for the DPM one."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, streams: int = 3):
         self.seed = int(seed)
+        self.streams = streams
 
     def t_offset(self, it: int, t_delta: int) -> int:
-        g = generator(self.seed, 3 * it)
+        g = generator(self.seed, self.streams * it)
         return int(torch.randint(-t_delta, t_delta, (), generator=g))
 
     def forward_eps(self, it: int, shape, like: Tensor) -> Tensor:
-        g = generator(self.seed, 3 * it + 1, device=like.device)
+        g = generator(self.seed, self.streams * it + 1, device=like.device)
         return torch.randn(shape, generator=g, device=like.device, dtype=like.dtype)
 
     def brownian(self, it: int, i: int, like: Tensor, dt: float) -> Tensor:
-        return brownian_increment(fold_in(self.seed, 3 * it + 2), i, like, dt)
+        if self.streams < 3:
+            raise ValueError("a two-stream (DPM) noise source has no Brownian stream")
+        return brownian_increment(fold_in(self.seed, self.streams * it + 2), i, like, dt)
 
 
 Noise = Union[int, SeededNoise]
 
 
-def as_noise(noise) -> SeededNoise:
-    return SeededNoise(noise) if isinstance(noise, (int, np.integer)) else noise
+def as_noise(noise, streams: int = 3) -> SeededNoise:
+    if isinstance(noise, (int, np.integer)):
+        return SeededNoise(noise, streams)
+    return noise
 
 
 def _forward_diffuse(x0: Tensor, noise, it: int, cfg: PurifyConfig,
@@ -142,8 +153,44 @@ def purify_sde(model_fn: ModelFn, x: Tensor, noise: Noise,
     return torch.cat(xs, dim=0)
 
 
+def _make_eps_fn(model_fn: ModelFn, cfg: PurifyConfig):
+    """epsilon(x, t) from the model, by ``cfg.score_type`` (runners.py:230-243):
+    guided-diffusion takes integer steps t*N (float32, truncated), score_sde
+    continuous labels t*999."""
+    if cfg.score_type == "guided_diffusion":
+        def eps_fn(x: Tensor, t: Tensor) -> Tensor:
+            out = model_fn(x, (t.float() * cfg.N).to(torch.int32))
+            return out[..., :out.shape[-1] // 2] if cfg.learn_sigma else out
+        return eps_fn
+    if cfg.score_type == "score_sde":
+        return lambda x, t: model_fn(x, t * 999)
+    raise NotImplementedError(f"unknown score_type {cfg.score_type!r}")
+
+
+def purify_dpm(model_fn: ModelFn, x: Tensor, noise: Noise,
+               cfg: PurifyConfig) -> Tensor:
+    """Forward-diffuse to t*, then DPM-Solver++(2M) down to t = 1e-5 in
+    ``cfg.solver_steps()`` score evaluations (runners.py:246)."""
+    noise = as_noise(noise, streams=2)
+    sde = VPSDE(beta_min=cfg.beta_min, beta_max=cfg.beta_max, N=cfg.N)
+    eps_fn = _make_eps_fn(model_fn, cfg)
+    xs = []
+    x0 = x
+    for it in range(cfg.sample_step):
+        t_star = _sample_t(noise, it, cfg)
+        xt = _forward_diffuse(x0, noise, it, cfg, t_star)
+        args = (eps_fn, xt, t_star / 1000.0, cfg.epsilon_dt1, cfg.solver_steps(), sde)
+        if cfg.grad_mode == "none":
+            with torch.no_grad():
+                x0 = dpm_solver_pp_2m(*args)
+        else:
+            x0 = dpm_solver_pp_2m(*args)
+        xs.append(x0)
+    return torch.cat(xs, dim=0)
+
+
 _LATER = {"ode": "Slice 2 item 11", "ldsde": "Slice 2 item 11",
-          "dpm": "Slice 1 item 9", "ddpm": "Slice 3 item 15",
+          "ddpm": "Slice 3 item 15",
           "celebahq-ddpm": "Slice 4 item 17"}
 
 
@@ -152,6 +199,8 @@ def purify(model_fn: ModelFn, x: Tensor, noise: Noise,
     """Runner dispatch (ref eval_sde_adv.py:44-55)."""
     if cfg.diffusion_type == "sde":
         return purify_sde(model_fn, x, noise, cfg)
+    if cfg.diffusion_type == "dpm":
+        return purify_dpm(model_fn, x, noise, cfg)
     if cfg.diffusion_type in _LATER:
         raise NotImplementedError(
             f"diffusion_type={cfg.diffusion_type!r} waits for ROADMAP "

@@ -21,6 +21,7 @@ from typing import Callable, Sequence
 import torch
 
 from diffpure_tpu_torch.solvers.em import em_step, em_time
+from diffpure_tpu_torch.utils.profiling import record_nfe
 
 Tensor = torch.Tensor
 
@@ -70,6 +71,9 @@ def sdeint_em_adjoint(drift: Callable[[Tensor, Tensor], Tensor],
                       params: Sequence[Tensor] = ()) -> Tensor:
     """Euler-Maruyama solve (as ``sdeint_em``) differentiable with respect
     to x0 and ``params`` (tensors the drift closes over) by the adjoint.
-    ``dw(i)`` must return the same increment every time it is called."""
+    ``dw(i)`` must return the same increment every time it is called.
+    Records ``n_steps`` evaluations as ``"sde_euler_adjoint"`` (JAX
+    adjoint.py:55); the backward's drift evaluations do not count."""
+    record_nfe("sde_euler_adjoint", n_steps)
     return _EMAdjoint.apply((drift, diffusion, t0, t1, n_steps, dw), x0,
                             *params)

@@ -22,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from diffpure_tpu_torch.utils.prng import generator
+from diffpure_tpu_torch.utils.profiling import record_nfe
 
 Tensor = torch.Tensor
 
@@ -58,12 +59,15 @@ def sdeint_em(drift: Callable[[Tensor, Tensor], Tensor],
 
     ``checkpoint``: recompute each step in the backward instead of keeping
     its activations (only when autograd records, otherwise a plain loop).
+    Records ``n_steps`` evaluations as ``"sde_euler"`` (JAX em.py:81), once
+    per call: the recomputed steps do not count again.
     """
     dt = (t1 - t0) / n_steps
 
     def step(x: Tensor, i: int) -> Tensor:
         return em_step(drift, diffusion, x, em_time(t0, dt, i), dt, dw(i))
 
+    record_nfe("sde_euler", n_steps)
     remat = checkpoint and torch.is_grad_enabled()
     x = x0
     for i in range(n_steps):

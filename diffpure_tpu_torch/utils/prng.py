@@ -8,6 +8,9 @@ the noise JAX drew instead.
 """
 from __future__ import annotations
 
+import random
+
+import numpy as np
 import torch
 
 _MASK = (1 << 64) - 1
@@ -28,3 +31,13 @@ def generator(seed: int, *path: int, device=None) -> torch.Generator:
     g = torch.Generator(device=device if device is not None else "cpu")
     g.manual_seed(seed)
     return g
+
+
+def seed_everything(seed: int) -> int:
+    """Seed Python's, numpy's and torch's global generators (data
+    subsetting, any draw outside the counter-based streams) and return the
+    run's root seed (diffpure_tpu/utils/prng.py:16 returns its root key)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return int(seed)
