@@ -94,7 +94,10 @@ Phases, each fatal on failure:
      a call (the chunked seeds); x_adv must lie in the eps-ball and in
      [0, 1], class_batch never turn from false to true, and the launch
      counters read 40 / 36 / 10 x the NFE ledger's total, the backward
-     kernels 0 (phase_bpda);
+     kernels 0; then the flip verification, with the attack reps answered
+     by a probe image the classifier puts off the labels, so that the
+     fold_in(k_step, 555) vote verifies candidates through the kernels
+     (phase_bpda);
   13. DPM-Solver++(2M): DefendedModel with purify_dpm at t*=100 in 20
      steps, bf16, batch 8, cold and warm (counters 40 / 36 / 10 x 20, the
      ledger dpm_solver_pp = 20), then t*=5 in 3 steps and its input
@@ -102,10 +105,30 @@ Phases, each fatal on failure:
      (phase_dpm);
   14. the CLI: python -m diffpure_tpu_torch.cli as a subprocess in a fresh
      directory under chip_smoke_out/ with a seeded CIFAR-10 pickle fixture,
-     on the BPDA and the rand run scripts' flags (run_scripts/torch/
-     cifar10/) with tiny budgets and random weights, fp32; each run must
-     exit 0 and print its NFE report and results line, and the BPDA run
-     save x_adv_bpda.npy (phase_cli).
+     on the BPDA, rand and rand L2 run scripts' flags (run_scripts/torch/
+     cifar10/) with tiny budgets and random weights, fp32, and on the three
+     ImageNet rand scripts' (run_scripts/torch/imagenet/) with a seeded
+     image folder and the same images in an LMDB cache; each run must
+     exit 0 and print its NFE report and results line, the BPDA run save
+     x_adv_bpda.npy, the ImageNet runs launch #6-#8 and not #9 (the
+     YAML-built ADM takes no flash) and read the same images from the
+     folder and the LMDB (phase_cli);
+  15. the input gradient of the ImageNet purification (guided purify_sde at
+     t*=2 through the full-width ADM, flash on, batch 1, a seeded
+     cotangent), fp32 and bf16, both grad modes, kernels (card) against
+     plain (CPU), the same noise; #6-#9 must launch (phase_adm_grad_parity);
+  16. the ImageNet gradient-image rate: the input gradient of the
+     cross-entropy of DefendedModel(resize_to=256) at t*=150, bf16 ADM +
+     ResNet-50, batch 2, both grad modes, cold and warm, wall time,
+     gradient-images/s and peak device memory, the launch counters exactly
+     the forward census times the mode's forward evaluations; batch 4 once
+     for its peak memory (phase_adm_grad_rate);
+  17. eval_autoattack 'rand' through the ImageNet defence at the budget
+     AA_IMAGENET; x_adv in the eps-ball and in [0, 1], #6-#9 launched
+     (phase_adm_attack);
+  18. #10's gradient: the t*=5 DDPM purification's input gradient (fp32,
+     batch 2, both modes, exact counters) and an NCSN++ 'ddpm' evaluation's
+     (bf16), kernels (card) against plain (CPU) (phase_gn_silu_grad).
 
 Needs the CUDA toolkit (nvcc) and one card; exits non-zero without them.
 Writes details (per-shape records, the compiler's report) to
@@ -119,8 +142,9 @@ family, idle share; profile_adm.json, profile_ddpm.json);
 ``--profile-cifar`` the CIFAR NCSN++'s at batch 8 and 128, with the block
 chains' steps and the host time per block call (profile_cifar.json);
 ``--profile-grad`` phase 5's gradient step (device time by kernel and by
-part, idle share, tensor-map cache misses) and one evaluation's backward
-at batch 8 and 16 by chain step (profile_grad.json).
+part, idle share, tensor-map cache misses), one evaluation's backward at
+batch 8 and 16 by chain step, and phase 16's ImageNet gradient step at
+t*=10 by part and by kernel family (profile_grad.json).
 """
 from __future__ import annotations
 
@@ -307,6 +331,36 @@ GN_L2_FRAGMENT = "_l2_kernel"
 # other places, #10 once where the plain chain rounds before the SiLU).
 DDPM_PURIFY_REL = 1e-4
 NCSN_DDPM_REL = {"float32": 2e-4, "bfloat16": 5e-2}
+# Phase 15: the ImageNet purification's input gradient, card against the
+# CPU's plain fp32 one: t* (Euler steps) and the bound, max |card - cpu|
+# <= ADM_GRAD_REL * max |cpu|. fp32: summation order through two steps of
+# the full-width ADM and its backward (phase 6's fp32 bound). bf16: a CPU
+# rehearsal of this gradient (scripts/torch_rehearse_grad_gaps.py:
+# imagenet256_config's structure at 64 and 128 channels, batch 1, t*=2,
+# both modes) put the plain bf16 gradient 5.2e-4 to 1.25e-3 of max |plain|
+# from the fp32 one, and a card run at the full width 4.4e-4, with the
+# card's bf16 gradient 3.9e-4 to 4.9e-4 from the CPU's plain bf16 one; the
+# card's bf16 rounds at other places (the halo kernel keeps the conv, bias
+# and skip in fp32, flash the logits): phase 6's 1e-2, about 8x the
+# largest rehearsed gap.
+ADM_GRAD_PARITY_T = 2
+ADM_GRAD_REL = {"float32": 5e-4, "bfloat16": 1e-2}
+# Phase 16: the ImageNet gradient-image rate at JAX's ADM_GRAD_BATCH
+# (bench.py:186, t*=150), and the run scripts' --adv_batch_size once for
+# its peak memory.
+ADM_GRAD_N = 2
+ADM_GRAD_PEAK_N = 4
+# Phase 17: eval_autoattack 'rand' through the ImageNet defence: batch, t*
+# (Euler steps), APGD iterations, EOT samples, eps (the scripts' 0.0157).
+AA_IMAGENET = dict(batch=2, t=10, n_iter=2, eot_iter=2, eps=0.0157)
+# Phase 18: the score_sde DDPM's launches per evaluation (#10, #3), which
+# phase 2d's census reads (checked there), and the bound of NCSN++ 'ddpm''s
+# bf16 input gradient, card against CPU: a CPU rehearsal (this model,
+# batch 2, three seeds) put the plain bf16 gradient 1.1e-2 to 1.2e-2 of max
+# |plain| from the fp32 one; the card's #10 rounds once where the plain chain rounds twice, as
+# phase 11's forward bound (5e-2, about 4x).
+DDPM_GRAD_CENSUS = (44, 4)
+NCSN_DDPM_GRAD_REL = 5e-2
 # phase 12: BPDA+EOT through the main path's defence
 BPDA_N = 4
 BPDA_CFG = dict(adv_steps=2, eot_attack_reps=2, eot_defense_reps=4, defense_batch=4)
@@ -323,7 +377,26 @@ CLI_RUNS = {
              "bpda", "--eot_defense_reps", "2", "--eot_attack_reps", "2", "--adv_steps", "1"],
     "rand": ["--adv_batch_size", "4", "--num_sub", "4", "--t", "2", "--attack_version",
              "rand", "--eot_iter", "1"],
+    # run_cifar_rand_L2.sh
+    "rand_L2": ["--adv_batch_size", "4", "--num_sub", "4", "--t", "2", "--attack_version",
+                "rand", "--eot_iter", "1", "--lp_norm", "L2", "--adv_eps", "0.5"],
 }
+# ... and on the three ImageNet rand scripts' flags (run_scripts/torch/
+# imagenet/), each with its classifier; the first reads the image folder,
+# the others the same images from the LMDB cache beside it
+IMAGENET_CLI_COMMON = ["--exp", "./exp_results", "--seed", "0", "--data_seed", "0", "--config",
+                       "imagenet.yml", "--domain", "imagenet", "--diffusion_type", "sde",
+                       "--score_type", "guided_diffusion", "--adv_eps", "0.0157",
+                       "--attack_version", "rand", "--random_weights", "--adv_batch_size", "2",
+                       "--num_sub", "2", "--t", "2", "--eot_iter", "1"]
+IMAGENET_CLI_RUNS = {"rn50": ("imagenet-resnet50", "folder"),
+                     "wrn50_2": ("imagenet-wideresnet-50-2", "lmdb"),
+                     "deit_s": ("imagenet-deit-s", "lmdb")}
+IMAGENET_FIXTURE = 6  # images, 3 classes
+# The CLI as ``python -m`` runs it, then the launch counters as a line
+CLI_WITH_COUNTS = ("import json, sys; from diffpure_tpu_torch import cli; "
+                   "from diffpure_tpu_torch.ops import launch_counts; cli.main(sys.argv[1:]); "
+                   "print('launches: ' + json.dumps(launch_counts()))")
 CLI_TIMEOUT_S = 400
 
 
@@ -992,46 +1065,44 @@ def build_adm(torch, dev):
 
 def adm_census(torch, adm, x):
     """(kernel wrapper, shape key) -> calls over one ADM evaluation at x's
-    batch, recorded at the four wrappers as the model calls them."""
+    batch, recorded at the four kernels' launchers as the model's autograd
+    Functions (halo_conv.gn_silu_conv_block, tiled_groupnorm.
+    group_norm_film_silu, flash_attention) call them."""
     from collections import Counter
     from diffpure_tpu_torch.ops import flash_attention as fla
     from diffpure_tpu_torch.ops import halo_conv as halo
     from diffpure_tpu_torch.ops import tiled_groupnorm as tgn
 
     seen = Counter()
+    keys = {
+        "_stats_kernel": lambda x_: ("group_stats", (x_.shape[1], x_.shape[3])),
+        "_apply_kernel": lambda x_, A, B, silu: ("gn_film_silu_apply",
+                                                 (x_.shape[1], x_.shape[3], bool(silu))),
+        "_halo_kernel": lambda x_, A, B, w, b, skip, wp, pk: ("gn_silu_conv3x3_halo", (
+            x_.shape[1], x_.shape[3], w.shape[3],
+            "none" if skip is None else ("identity" if wp is None else "proj"),
+            0 if skip is None else skip.shape[3])),
+        "_flash_kernel": lambda scale, q, k, v: ("flash_attention", tuple(q.shape))}
 
-    def key(name, a, k):
-        if name == "group_stats":
-            return a[0].shape[1], a[0].shape[3]
-        if name == "gn_film_silu_apply":
-            return a[0].shape[1], a[0].shape[3], bool(a[3] if len(a) > 3 else
-                                                      k.get("apply_silu", True))
-        if name == "gn_silu_conv3x3_halo":
-            skip, w_proj = k.get("skip"), k.get("w_proj")
-            kind = "none" if skip is None else ("identity" if w_proj is None else "proj")
-            return (a[0].shape[1], a[0].shape[3], a[3].shape[3], kind,
-                    0 if skip is None else skip.shape[3])
-        return tuple(a[0].shape)  # flash_attention: (BH, T, D)
+    def recorder(orig, key):
+        def rec(*a):
+            seen[key(*a)] += 1
+            return orig(*a)
+        return rec
 
-    def recorder(mod, name):
-        orig = getattr(mod, name)
-
-        def rec(*a, **k):
-            seen[(name, key(name, a, k))] += 1
-            return orig(*a, **k)
-        rec.launches = 0
-        return orig, rec
-
-    patched = [(m, n, *recorder(m, n)) for m, n in (
-        (tgn, "group_stats"), (tgn, "gn_film_silu_apply"),
-        (halo, "gn_silu_conv3x3_halo"), (fla, "flash_attention"))]
+    # the launchers as each module's functions look them up, and flash's
+    # Function table, which holds its launcher itself
+    patched = [(m, n, getattr(m, n)) for m, n in (
+        (tgn, "_stats_kernel"), (halo, "_stats_kernel"), (tgn, "_apply_kernel"),
+        (halo, "_halo_kernel"))] + [(fla, "_FLASH", fla._FLASH)]
     try:
-        for m, n, _, rec in patched:
-            setattr(m, n, rec)
+        for m, n, orig in patched[:-1]:
+            setattr(m, n, recorder(orig, keys[n]))
+        fla._FLASH = (recorder(fla._flash_kernel, keys["_flash_kernel"]), *fla._FLASH[1:])
         with torch.inference_mode():
             adm(x, torch.full((x.shape[0],), 149, dtype=torch.int32, device=x.device))
     finally:
-        for m, n, orig, _ in patched:
+        for m, n, orig in patched:
             setattr(m, n, orig)
     return dict(seen)
 
@@ -1290,6 +1361,27 @@ def phase_flash_widths(torch, dev):
     return records
 
 
+# Kernel families of a device profile, by kernel-name fragment; the first
+# that matches names the family.
+FAMILIES = (
+    # the whole attention block: its fp32 chain's GN pass and GEMMs too (no
+    # other kernel of these models launches them)
+    ("attention block (#3)", ("attn_", "gn_regs_kernel", "gn_apply_kernel", "igemm_f32",
+                              "splitk_epilogue")),
+    ("halo conv", "halo_"), ("group stats", "stats_kernel"),
+    ("GN apply", "apply_kernel"), ("flash attention", "flash_"),
+    ("GN+SiLU (#10)", ("gn_silu_kernel", "gnsilu_")),
+    ("convs and matmuls (cuDNN / cuBLAS)", ("conv", "gemm", "xmma", "cutlass",
+                                             "sm90", "implicit")),
+    ("elementwise", "elementwise"), ("reductions", "reduce"))
+ADM_FAMILIES = ("halo conv", "group stats", "GN apply", "flash attention")
+
+
+def family(name):
+    return next((f for f, keys in FAMILIES if any(
+        k in name for k in ((keys,) if isinstance(keys, str) else keys))), "other")
+
+
 def profile_eval(torch, model, x, t, evals=3):
     """torch.profiler over ``evals`` warm evaluations model(x, t): device
     time by kernel family, and the device's idle share of the window's
@@ -1306,17 +1398,6 @@ def profile_eval(torch, model, x, t, evals=3):
                 model(x, t)
             torch.cuda.synchronize()
             wall_ms = (time.time() - t0) * 1e3
-    families = (
-        # the whole attention block: its fp32 chain's GN pass and GEMMs too (no
-        # other kernel of these models launches them)
-        ("attention block (#3)", ("attn_", "gn_regs_kernel", "gn_apply_kernel", "igemm_f32",
-                                  "splitk_epilogue")),
-        ("halo conv", "halo_"), ("group stats", "stats_kernel"),
-        ("GN apply", "apply_kernel"), ("flash attention", "flash_"),
-        ("GN+SiLU (#10)", ("gn_silu_kernel", "gnsilu_")),
-        ("convs and matmuls (cuDNN / cuBLAS)", ("conv", "gemm", "xmma", "cutlass",
-                                                 "sm90", "implicit")),
-        ("elementwise", "elementwise"), ("reductions", "reduce"))
     by, kernels = {}, []
     for e in prof.key_averages():
         # the kernels' own events (the CPU ops that launched them carry
@@ -1325,8 +1406,7 @@ def profile_eval(torch, model, x, t, evals=3):
         if not str(e.device_type).endswith("CUDA") or dev_us <= 0:
             continue
         kernels.append((e.key, dev_us / 1e3 / evals, e.count // evals))
-        fam = next((f for f, keys in families if any(
-            k in e.key for k in ((keys,) if isinstance(keys, str) else keys))), "other")
+        fam = family(e.key)
         by[fam] = by.get(fam, 0.0) + dev_us / 1e3 / evals
     busy = sum(by.values())
     kernels.sort(key=lambda r: -r[1])
@@ -1601,7 +1681,8 @@ def profile_grad(torch, dev, smi):
             kernels.append((e.key, us / 1e3 / steps, e.count / steps))
             busy += us / 1e3
     kernels.sort(key=lambda r: -r[1])
-    attn_bwd = range_device_ms(prof, "_FusedAttnblockBackward") / steps
+    # the NCSN++'s only KernelFunction is the attention block's (#3)
+    attn_bwd = range_device_ms(prof, "KernelFunctionBackward") / steps
 
     census = shape_census(torch, score, xg[:N] * 2 - 1)
     for n in (N, GRAD_N):
@@ -1648,7 +1729,85 @@ def profile_grad(torch, dev, smi):
     for k, v in res["host_us"].items():
         log(f"  host {k:36s} {v['host_us']:8.1f} us per call (CUDA events "
             f"{v['cuda_event_ms'] * 1e3:8.1f} us)")
+    del score, clf
+    res["imagenet"] = profile_adm_grad(torch, dev, smi)
     (OUT / "profile_grad.json").write_text(json.dumps(res, indent=1))
+
+
+def imagenet_classifier(torch, dev, name="imagenet-resnet50"):
+    import numpy as np
+    from diffpure_tpu_torch.classifiers import get_classifier
+    from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
+
+    clf = get_classifier(name).eval()
+    clf.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in
+                         seeded_normal_state_dict(clf, SEED + 11).items()})
+    return clf.requires_grad_(False).to(dev)
+
+
+def profile_adm_grad(torch, dev, smi):
+    """--profile-grad's ImageNet step: phase 16's gradient (CE of
+    DefendedModel(resize_to=256), bf16 ADM + ResNet-50, batch ADM_GRAD_N,
+    'checkpoint') at GRAD_PROFILE_T steps, warm, under the profiler: per
+    step the wall and device time, the idle share, the device time by
+    kernel family and by part: the four kernels' forwards (the step and
+    its recompute), their Functions' backward (autograd of the plain
+    versions, recomputed), the classifier's forward and backward (once per
+    gradient, timed on its own), the rest (the ADM's plain ops, the
+    solver)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    adm, rn50 = build_adm(torch, dev), imagenet_classifier(torch, dev)
+    rng = np.random.default_rng(SEED + 44)
+    xg = torch.from_numpy(rng.uniform(size=(ADM_GRAD_N, 224, 224, 3)).astype(np.float32)).to(dev)
+    yg = torch.from_numpy(rng.integers(0, 1000, ADM_GRAD_N)).to(dev)
+    steps = GRAD_PROFILE_T
+    log(f"== profile: gradient of CE(DefendedModel(resize_to=256)), bf16 ADM + ResNet-50, "
+        f"batch {ADM_GRAD_N}, checkpoint, t*={steps}, on {smi}")
+    dm = defended(torch, adm, rn50, steps, "checkpoint", True)
+    input_grad(torch, dm, xg, yg, SEED + 45)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    input_grad(torch, dm, xg, yg, SEED + 45)
+    torch.cuda.synchronize()
+    res = dict(batch=ADM_GRAD_N, steps=steps,
+               wall_ms_per_step_unprofiled=(time.time() - t0) * 1e3 / steps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        input_grad(torch, dm, xg, yg, SEED + 45)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    by, kernels, busy = {}, [], 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if str(e.device_type).endswith("CUDA") and us > 0:
+            kernels.append((e.key, us / 1e3 / steps, e.count / steps))
+            by[family(e.key)] = by.get(family(e.key), 0.0) + us / 1e3 / steps
+            busy += us / 1e3
+    kernels.sort(key=lambda r: -r[1])
+    clf_ms = device_ms(torch, lambda: input_grad(torch, lambda x, noise: rn50(x), xg, yg, 0),
+                       reps=5)["total"]
+    parts = {"#6-#9 forward kernels (the step and its recompute)":
+             sum(by.get(f, 0.0) for f in ADM_FAMILIES),
+             "#6-#9 backward (autograd of the plain versions, recomputed)":
+             range_device_ms(prof, "KernelFunctionBackward") / steps,
+             "classifier forward + backward (once per gradient)": clf_ms / steps}
+    parts["rest (the ADM's plain ops, the solver's arithmetic, casts)"] = \
+        busy / steps - sum(parts.values())
+    res.update(wall_ms_per_step=wall_ms / steps, device_ms_per_step=busy / steps,
+               idle_share=max(0.0, 1.0 - busy / wall_ms), parts_ms_per_step=parts,
+               by_family_ms_per_step=by, top_kernels=kernels[:30], classifier_ms=clf_ms)
+    log(f"  wall {res['wall_ms_per_step_unprofiled']:.2f} ms per step; under the profiler: "
+        f"wall {wall_ms / steps:.2f} ms, device {busy / steps:.2f} ms per step, idle share "
+        f"{res['idle_share']:.3f}")
+    for label, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        log(f"  {label:68s} {ms:8.3f} ms per step")
+    for fam, ms in sorted(by.items(), key=lambda kv: -kv[1]):
+        log(f"  family {fam:61s} {ms:8.3f} ms per step")
+    for name, ms, calls in kernels[:15]:
+        log(f"  {ms:8.3f} ms x{calls:<6.1f} {name[:100]}")
+    return res
 
 
 def build_ddpm(torch, dev):
@@ -1982,6 +2141,44 @@ def phase_bpda(torch, score, clf, x, smi):
     counts = launch_counts()
     check("one PGD step, attack reps one a call", x_adv, class_batch, 1, nfe, counts)
     runs["chunked"] = dict(wall_s=wall, nfe=dict(nfe.counts), counts=counts)
+
+    # Flip verification (tests/test_torch_bpda.py::test_bpda_flips_are_verified's
+    # construction over the card's defence): the attack reps' purifications
+    # (calls of eot_attack_reps x n images) answer with a probe image the
+    # classifier puts in another class than some label, the defence vote's
+    # (calls of defense_batch x n) with the purified images, so flip
+    # candidates appear and the fold_in(k_step, 555) vote verifies them
+    # through the kernels.
+    probes = [torch.full_like(x[:1], v) for v in (0.0, 0.5, 1.0)] + [
+        torch.rand(x[:1].shape, generator=torch.Generator().manual_seed(SEED + 32 + i)
+                   ).to(x.device) for i in range(5)]
+    with torch.no_grad():
+        probe = next((p for p in probes if bool((clf(p).argmax(-1) != y).any())), None)
+    if probe is None:
+        raise AssertionError("no probe image is classified off the labels: the flip "
+                             "verification cannot be driven")
+    attack_call = cfg.eot_attack_reps * n
+
+    def flipping(xx, seed):
+        out = dm.purify(xx, seed)
+        return out * 0 + probe if xx.shape[0] == attack_call else out
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with count_nfe() as nfe:
+        x_adv, class_batch = bpda_eot_attack(flipping, dm.classify, x, y, SEED + 33, cfg)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    check("flip verification", x_adv, class_batch, cfg.adv_steps, nfe, counts)
+    verified = nfe.total() // EVALS - 1 - (cfg.adv_steps + 1)  # past the vote and the steps
+    log(f"  flip verification: {wall:.3f} s on {smi}; {verified} verification vote(s) of "
+        f"{cfg.eot_defense_reps} reps through the kernels")
+    if verified < 1:
+        raise AssertionError(f"flip verification: no verification vote ran ({nfe.report()})")
+    runs["flips"] = dict(wall_s=wall, nfe=dict(nfe.counts), counts=counts, verified=verified,
+                         class_batch=class_batch.astype(int).tolist())
     return runs
 
 
@@ -2052,13 +2249,52 @@ def phase_dpm(torch, dev, score, clf, x01, x2, w2, smi):
     return runs, checks
 
 
+def imagenet_fixture(rng, root):
+    """IMAGENET_FIXTURE seeded JPEGs in root/dataset/imagenet/val/<class>/, and
+    the same bytes keyed by path in a second root's
+    val_faster_imagefolder.lmdb (tests/lmdb_fixture.write_lmdb), beside the
+    same folder: (folder root, LMDB root)."""
+    import importlib.util
+    import io
+
+    from PIL import Image
+
+    spec = importlib.util.spec_from_file_location("lmdb_fixture",
+                                                  REPO / "tests" / "lmdb_fixture.py")
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+    entries = {}
+    for i in range(IMAGENET_FIXTURE):
+        cls = f"n0{i % 3:07d}"
+        h, w = (int(v) for v in rng.integers(230, 400, 2))
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype="uint8")).save(buf, "JPEG")
+        entries[f"val/{cls}/{i}.JPEG".encode("ascii")] = buf.getvalue()
+    roots = [root.parent / f"{root.name}_{kind}" for kind in ("folder", "lmdb")]
+    for r in roots:
+        for key, data in entries.items():
+            path = r / "dataset" / "imagenet" / key.decode()
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_bytes(data)
+    fixture.write_lmdb(str(roots[1] / "dataset" / "imagenet" / "val_faster_imagefolder.lmdb"),
+                       entries)
+    return roots
+
+
 def phase_cli(rng):
     """Phase 14: write a seeded cifar-10-batches-py/test_batch and the repo's
     configs/cifar10.yml into a fresh directory under chip_smoke_out/, run
     ``python -m diffpure_tpu_torch.cli`` there once per CLI_RUNS entry (the
-    script's default fp32 precision, --device cuda by default), and fail
-    unless each exits 0 and prints its NFE report and results line, and the
-    BPDA run saved x_adv_bpda.npy."""
+    script's default fp32 precision, --device cuda by default); then the
+    ImageNet rand scripts' flags (IMAGENET_CLI_RUNS) on a seeded image
+    folder and the same images in an LMDB (imagenet_fixture) with the
+    repo's configs/imagenet.yml (the YAML-built ADM, bf16 torso by its
+    use_fp16), as the CLI with the launch counters printed after it; all
+    runs at once, as processes of their own. Fails
+    unless each exits 0 and prints its NFE report and results line, the
+    BPDA run saved x_adv_bpda.npy, the ImageNet runs launched #6-#8 and
+    not #9 (YAML-built ADMs never take flash), and the folder and the LMDB
+    gave the same images."""
     import pickle
     import shutil
     import tempfile
@@ -2071,34 +2307,306 @@ def phase_cli(rng):
     with open(work / "dataset" / "cifar-10-batches-py" / "test_batch", "wb") as f:
         pickle.dump({b"data": rng.integers(0, 256, (64, 3072), dtype=np.uint8),
                      b"labels": rng.integers(0, 10, 64).tolist()}, f)
-    (work / "configs").mkdir()
-    shutil.copy(REPO / "configs" / "cifar10.yml", work / "configs" / "cifar10.yml")
+    roots = imagenet_fixture(rng, work)
+    for root in (work, *roots):
+        (root / "configs").mkdir()
+        for yml in ("cifar10.yml", "imagenet.yml"):
+            shutil.copy(REPO / "configs" / yml, root / "configs" / yml)
+    jobs = [(v, work, ["-m", "diffpure_tpu_torch.cli", *CLI_COMMON, *flags],
+             "cifar10-wideresnet-28-10") for v, flags in CLI_RUNS.items()]
+    jobs += [(v, roots[kind == "lmdb"], ["-c", CLI_WITH_COUNTS, *IMAGENET_CLI_COMMON,
+                                         "--classifier_name", clf], clf)
+             for v, (clf, kind) in IMAGENET_CLI_RUNS.items()]
+    # all runs at once (each process mostly builds its models on the host);
+    # every child is waited for or killed before the phase ends
+    t0 = time.time()
+    procs = [(version, cwd, clf, subprocess.Popen(
+        [sys.executable, *args], cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, "PYTHONPATH": str(REPO)}))
+        for version, cwd, args, clf in jobs]
+    done = []
+    try:
+        for version, cwd, clf, proc in procs:
+            out, err = proc.communicate(timeout=max(1.0, CLI_TIMEOUT_S - (time.time() - t0)))
+            done.append((version, cwd, clf, proc.returncode, out, err, time.time() - t0))
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     runs = {}
-    for version, flags in CLI_RUNS.items():
-        cmd = [sys.executable, "-m", "diffpure_tpu_torch.cli", *CLI_COMMON, *flags]
-        t0 = time.time()
-        proc = subprocess.run(cmd, cwd=work, capture_output=True, text=True,
-                              timeout=CLI_TIMEOUT_S,
-                              env={**os.environ, "PYTHONPATH": str(REPO)})
-        wall = time.time() - t0
+    for version, cwd, clf, returncode, stdout, stderr, wall in done:
+        proc = subprocess.CompletedProcess([], returncode, stdout, stderr)
         (OUT / f"cli_{version}.log").write_text(proc.stdout + "\n---- stderr\n" + proc.stderr)
         lines = proc.stdout.splitlines()
         nfe = [ln for ln in lines if ln.startswith("NFE total=")]
         results = [ln for ln in lines if ln.startswith("results: {")]
-        log_dir = work / "exp_results" / "images" / "cifar10-wideresnet-28-10" / \
-            f"sde_{version}" / "seed0" / "data0"
+        data = [ln for ln in lines if ln.startswith("x: (")]
+        counts = [json.loads(ln[len("launches: "):]) for ln in lines
+                  if ln.startswith("launches: ")]
+        attack = "sde_bpda" if version == "bpda" else "sde_rand"
+        log_dir = cwd / "exp_results" / "images" / clf / attack / "seed0" / "data0"
         saved = sorted(p.name for p in log_dir.glob("*.npy"))
         runs[version] = dict(rc=proc.returncode, wall_s=wall, nfe=nfe, results=results,
-                             saved=saved)
-        log(f"  {version}: rc {proc.returncode}, {wall:.1f} s (process start, build of the "
-            f"models, the run) on the card; {nfe[-1] if nfe else 'no NFE report'}; "
-            f"{results[-1][:160] if results else 'no results line'}; saved {saved}")
-        if proc.returncode != 0 or not nfe or not results or (
-                version == "bpda" and "x_adv_bpda.npy" not in saved):
+                             saved=saved, data=data, counts=counts[-1] if counts else None)
+        log(f"  {version}: rc {proc.returncode}, done {wall:.1f} s after the runs started "
+            f"together on the card; {nfe[-1] if nfe else 'no NFE report'}; "
+            f"{results[-1][:160] if results else 'no results line'}; saved {saved}"
+            + (f"; {data[-1]}; launches {counts[-1]}" if counts else ""))
+        bad = proc.returncode != 0 or not nfe or not results or (
+            version == "bpda" and "x_adv_bpda.npy" not in saved)
+        if version in IMAGENET_CLI_RUNS:
+            bad = bad or not counts or counts[-1]["flash_attention"] != 0 or min(
+                counts[-1][k] for k in ADM_KERNELS if k != "flash_attention") == 0
+        if bad:
             log(proc.stderr[-3000:])
             raise AssertionError(f"the CLI's {version} run failed (chip_smoke_out/"
                                  f"cli_{version}.log)")
+    folder, lmdb = ({tuple(runs[v]["data"])} for v in ("rn50", "wrn50_2"))
+    if folder != lmdb:
+        raise AssertionError(f"the image folder gave {folder}, the LMDB {lmdb}")
     return runs
+
+
+def defended(torch, score, clf, t, grad_mode, imagenet=False):
+    """DefendedModel at t*, the ImageNet form (resize_to=256, the
+    guided-diffusion purify_sde) where ``imagenet``."""
+    from diffpure_tpu_torch.eval import DefendedModel
+    from diffpure_tpu_torch.purify import PurifyConfig
+
+    kw = dict(score_type="guided_diffusion") if imagenet else {}
+    return DefendedModel(score, clf, PurifyConfig(t=t, grad_mode=grad_mode, **kw),
+                         log_every=0, resize_to=256 if imagenet else None)
+
+
+def rel_check(torch, got, want, bound):
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    ok = bool(torch.isfinite(got).all()) and tuple(got.shape) == tuple(want.shape) \
+        and err <= bound * scale
+    return dict(max_abs_err=err, rel_err=err / scale, rel_tol=bound, ok=ok)
+
+
+def phase_adm_grad_parity(torch, dev, adm, clf, rng, smi):
+    """Phase 15: the input gradient of sum(w * purified) through
+    DefendedModel(resize_to=256).purify, guided purify_sde at
+    t*=ADM_GRAD_PARITY_T, the full-width imagenet256_config ADM (flash on),
+    batch 1, a seeded cotangent w, both grad modes: the kernels (card) in
+    fp32 and bf16 against the plain fp32 path (CPU), the same noise, at
+    ADM_GRAD_REL; the card's bf16 gradient's gap to its fp32 one is
+    recorded beside it. The CPU runs fp32 only: its bf16 gradients took 250
+    of the 387 s the four took on the card machine's CPU, which has no bf16
+    matrix units (ADM_GRAD_REL's note). The card's gradients must launch
+    #6-#9."""
+    import numpy as np
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    x = torch.from_numpy(rng.uniform(size=(1, 224, 224, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((1, 256, 256, 3)).astype(np.float32))
+    got, want, launched, secs = {}, {}, {}, {}
+    for where, device, out, dtypes in (
+            ("card", dev, got, (("float32", torch.float32), ("bfloat16", torch.bfloat16))),
+            ("cpu", torch.device("cpu"), want, (("float32", torch.float32),))):
+        adm.to(device)
+        t0 = time.time()
+        for dtype_name, dtype in dtypes:
+            adm.dtype = dtype
+            for mode in GRAD_MODES:
+                reset_launch_counts()
+                out[dtype_name, mode] = purify_grad(
+                    torch, defended(torch, adm, clf, ADM_GRAD_PARITY_T, mode, True),
+                    x.to(device), w, FixedNoise(SEED + 40)).cpu()
+                if where == "card":
+                    launched[dtype_name, mode] = {k: launch_counts()[k] for k in ADM_KERNELS}
+        secs[where] = time.time() - t0
+        log(f"  {where}: {secs[where]:.1f} s for {len(out)} gradients")
+    adm.to(dev)
+    adm.dtype = torch.bfloat16
+    checks = {}
+    for dtype_name in ("float32", "bfloat16"):
+        for mode in GRAD_MODES:
+            rec = rel_check(torch, got[dtype_name, mode], want["float32", mode],
+                            ADM_GRAD_REL[dtype_name])
+            rec["launches"] = launched[dtype_name, mode]
+            if dtype_name == "bfloat16":  # the card's bf16 gradient against its fp32 one
+                ref = got["float32", mode]
+                rec["card_gap"] = float((got[dtype_name, mode] - ref).abs().max()
+                                        / ref.abs().max())
+            rec["ok"] = rec["ok"] and min(rec["launches"].values()) > 0
+            checks[f"{dtype_name}/{mode}"] = rec
+            log(f"  {dtype_name:8s} {mode:10s}: max |card - cpu fp32| {rec['max_abs_err']:.3e} "
+                f"(rel {rec['rel_err']:.2e} <= {rec['rel_tol']:.1e}) launches "
+                f"{rec['launches']} {'ok' if rec['ok'] else 'FAIL'}"
+                + (f"; card bf16 vs card fp32 {rec['card_gap']:.2e}" if "card_gap" in rec
+                   else ""))
+    bad = [k for k, v in checks.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"ImageNet gradient card against CPU: {bad} disagree")
+    return dict(checks=checks, seconds=secs)
+
+
+def phase_adm_grad_rate(torch, dev, adm, clf, adm_per_eval, rng, smi):
+    """Phase 16: the ImageNet gradient-image rate. The input gradient of the
+    cross-entropy of DefendedModel(resize_to=256) (guided purify_sde at
+    t*=150 through the bf16 ADM, ResNet-50) at batch ADM_GRAD_N, both grad
+    modes, cold and warm: wall time, gradient-images/s, peak device memory;
+    the launch counters must read the forward census (adm_per_eval) times
+    the mode's forward evaluations (GRAD_EVALS), every other kernel 0 (the
+    backward is autograd of the plain versions). Then batch
+    ADM_GRAD_PEAK_N (the run scripts' --adv_batch_size) once, in the CLI's
+    default mode, for its peak memory."""
+    import numpy as np
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    adm.dtype = torch.bfloat16
+    runs = []
+
+    def one(mode, n, run):
+        xg = torch.from_numpy(rng.uniform(size=(n, 224, 224, 3)).astype(np.float32)).to(dev)
+        yg = torch.from_numpy(rng.integers(0, 1000, n)).to(dev)
+        dm = defended(torch, adm, clf, ADM_EVALS, mode, True)
+        want = {**{k: 0 for k in launch_counts()},
+                **{k: v * ADM_EVALS * GRAD_EVALS[mode][0] for k, v in adm_per_eval.items()}}
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        t0 = time.time()
+        gx, _ = input_grad(torch, dm, xg, yg, SEED + 41)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs.append(dict(mode=mode, run=run, batch=n, wall_s=wall,
+                         grad_images_per_s=n / wall, counts=counts, peak_gib=peak,
+                         held_gib=held, grad_abs_max=float(gx.abs().max())))
+        log(f"  {mode:10s} batch {n} {run}: {wall:.3f} s, {n / wall:.4f} gradient-images/s on "
+            f"{smi}; peak device memory {peak:.2f} GiB ({held:.2f} GiB held before); "
+            f"launches {counts}")
+        if tuple(gx.shape) != (n, 224, 224, 3) or not bool(torch.isfinite(gx).all()) \
+                or not bool((gx != 0).any()):
+            raise AssertionError(f"{mode}: bad ImageNet input gradient, shape {tuple(gx.shape)}")
+        if counts != want:
+            raise AssertionError(f"{mode}: launch counts {counts} != {want}")
+
+    for mode in GRAD_MODES:
+        for run in ("cold", "warm"):
+            one(mode, ADM_GRAD_N, run)
+    one("checkpoint", ADM_GRAD_PEAK_N, "once")
+    return runs
+
+
+def phase_adm_attack(torch, dev, adm, clf, rng, smi):
+    """Phase 17: the entry point on the ImageNet defence: eval_autoattack,
+    version 'rand' (APGD-CE and APGD-DLR with EOT), then APGD-DLR alone
+    (version 'custom'), through
+    DefendedModel(resize_to=256) (guided purify_sde, bf16 ADM, ResNet-50,
+    grad_mode 'checkpoint') at the budget AA_IMAGENET. The labels are the
+    defence's own prediction under the noise of the suite's clean
+    evaluation, so APGD runs through the defence on every example. x_adv
+    must lie in the eps-ball and in [0, 1], and #6-#9 must have launched."""
+    import numpy as np
+    from diffpure_tpu_torch.attacks import AutoAttackConfig
+    from diffpure_tpu_torch.eval import eval_autoattack
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.utils.prng import fold_in
+
+    b = AA_IMAGENET
+    adm.dtype = torch.bfloat16
+    x = torch.from_numpy(rng.uniform(size=(b["batch"], 224, 224, 3)).astype(np.float32)).to(dev)
+    dm = defended(torch, adm, clf, b["t"], "checkpoint", True)
+    with torch.no_grad():
+        y = dm(x, fold_in(fold_in(SEED + 42, 1), 7)).argmax(-1)
+    runs = {}
+    # the rand suite, then APGD-DLR alone on every example (with random
+    # weights APGD-CE may flip them all, and DLR then attacks none)
+    for tag, kw in (("rand", dict(version="rand")),
+                    ("apgd-dlr", dict(version="custom", attacks_to_run=("apgd-dlr",)))):
+        cfg = AutoAttackConfig(eps=b["eps"], eot_iter=b["eot_iter"], n_iter=b["n_iter"], **kw)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = eval_autoattack(dm, x, y, SEED + 42, cfg, log=lambda s: log(f"  {s}"))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = launch_counts()
+        x_adv = res["x_adv"]
+        dist = float((x_adv - x).abs().max())
+        log(f"  {tag}: {wall:.1f} s on {smi}; robust accuracy: classifier "
+            f"{res['classifier_robust_acc']:.3f}, defended {res['defended_robust_acc']:.3f} "
+            f"(random weights: these numbers mean nothing); max |x_adv - x| {dist:.5f} <= eps "
+            f"{cfg.eps:.5f}; launches {counts}")
+        if tuple(x_adv.shape) != tuple(x.shape) or not bool(torch.isfinite(x_adv).all()) \
+                or dist > cfg.eps + 1e-6 or float(x_adv.min()) < 0 or float(x_adv.max()) > 1:
+            raise AssertionError(f"ImageNet {tag}: x_adv leaves the eps-ball or [0, 1]")
+        idle = [k for k in ADM_KERNELS if counts[k] == 0]
+        if idle:
+            raise AssertionError(f"ImageNet {tag}: kernels of the path never launched: {idle}")
+        runs[tag] = dict(seconds=wall, counts=counts, max_dist=dist,
+                         classifier_robust_acc=res["classifier_robust_acc"],
+                         defended_robust_acc=res["defended_robust_acc"])
+    return dict(budget=b, runs=runs)
+
+
+def phase_gn_silu_grad(torch, dev, ddpm, ncsn_ddpm, clf, rng, smi):
+    """Phase 18: #10's gradient, card (the kernel's forward, the plain
+    chain's autograd backward) against CPU (plain): the input gradient of
+    sum(w * purified) through the score_sde DDPM (fp32) at t*=5, batch 2,
+    both grad modes, with exact launch counters (the DDPM's census times
+    the mode's forward evaluations); and the input gradient of
+    sum(w * score) of one NCSN++ resblock_type='ddpm' evaluation in bf16."""
+    import numpy as np
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    x = torch.from_numpy(rng.uniform(size=(2, 32, 32, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32))
+    xs = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32) * 0.5)
+    ts = torch.tensor([99.9, 500.0])
+    gn_per_eval, attn_per_eval = DDPM_GRAD_CENSUS
+
+    def score_grad(device):
+        xx = xs.to(device).requires_grad_(True)
+        (g,) = torch.autograd.grad((w.to(device) * ncsn_ddpm(xx, ts.to(device)).float()).sum(),
+                                   xx)
+        return g.cpu()
+
+    got, want, counts = {}, {}, {}
+    ncsn_ddpm.dtype = torch.bfloat16
+    for where, device, out in (("card", dev, got), ("cpu", torch.device("cpu"), want)):
+        for m in (ddpm, ncsn_ddpm):
+            m.to(device)
+        for mode in GRAD_MODES:
+            dm = defended(torch, ddpm, clf, 5, mode)
+            reset_launch_counts()
+            out[mode] = purify_grad(torch, dm, x.to(device), w, FixedNoise(SEED + 43)).cpu()
+            if where == "card":
+                counts[mode] = launch_counts()
+        reset_launch_counts()
+        out["ncsnpp_ddpm_bf16"] = score_grad(device)
+        if where == "card":
+            counts["ncsnpp_ddpm_bf16"] = launch_counts()
+    for m in (ddpm, ncsn_ddpm):
+        m.to(dev)
+    checks = {}
+    for what, bound in (("checkpoint", GRAD_REL["float32"]), ("adjoint", GRAD_REL["float32"]),
+                        ("ncsnpp_ddpm_bf16", NCSN_DDPM_GRAD_REL)):
+        rec = rel_check(torch, got[what], want[what], bound)
+        c = counts[what]
+        if what in GRAD_MODES:
+            fwd = 5 * GRAD_EVALS[what][0]
+            expect = {**{k: 0 for k in c}, "group_norm_silu_fused": gn_per_eval * fwd,
+                      "fused_attnblock": attn_per_eval * fwd}
+            rec["ok"] = rec["ok"] and c == expect
+        else:
+            rec["ok"] = rec["ok"] and c["group_norm_silu_fused"] > 0
+        rec["launches"] = c
+        checks[what] = rec
+        log(f"  {what:16s}: max |card - cpu| {rec['max_abs_err']:.3e} (rel {rec['rel_err']:.2e} "
+            f"<= {bound:.1e}); #10 launches {c['group_norm_silu_fused']} "
+            f"{'ok' if rec['ok'] else 'FAIL'}")
+    bad = [k for k, v in checks.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"#10 gradient card against CPU: {bad} disagree ({checks})")
+    return checks
 
 
 def main() -> int:
@@ -2474,10 +2982,12 @@ def main() -> int:
     # The labels are the defence's own prediction under the noise the
     # defended suite's first (clean) evaluation draws, so every example
     # starts robust and APGD runs through the defence on all of them.
-    log("== phase 7: eval_autoattack, version 'rand' (eot_iter=2, n_iter=2), t*=100, "
+    log("== phase 7: eval_autoattack, version 'rand' (eot_iter=1, n_iter=2), t*=100, "
         "bf16, batch 8, grad_mode 'checkpoint'")
     dm7 = DefendedModel(score, clf, PurifyConfig(t=EVALS, grad_mode="checkpoint"), log_every=0)
-    aa_cfg = AutoAttackConfig(version="rand", eot_iter=2, n_iter=2)
+    # one EOT sample (phase 17 runs two through the ImageNet defence): the
+    # run's time limit holds the new phases
+    aa_cfg = AutoAttackConfig(version="rand", eot_iter=1, n_iter=2)
     with torch.no_grad():
         y7 = dm7(x01, fold_in(fold_in(SEED + 7, 1), 7)).argmax(-1)
     reset_launch_counts()
@@ -2507,12 +3017,7 @@ def main() -> int:
     # ---- phase 8 ------------------------------------------------------------
     log(f"== phase 8: ImageNet DefendedModel(resize_to=256), guided-diffusion t*={ADM_EVALS}, "
         f"bf16 ADM + ResNet-50, batch {ADM_N}")
-    from diffpure_tpu_torch.classifiers import get_classifier
-    from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
-    rn50 = get_classifier("imagenet-resnet50").eval()
-    rn50.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in
-                          seeded_normal_state_dict(rn50, SEED + 11).items()})
-    rn50.requires_grad_(False).to(dev)
+    rn50 = imagenet_classifier(torch, dev)
     adm.dtype = torch.bfloat16
     guided = dict(score_type="guided_diffusion", grad_mode="none")
     dm8 = DefendedModel(adm, rn50, PurifyConfig(t=ADM_EVALS, **guided), log_every=0,
@@ -2685,10 +3190,40 @@ def main() -> int:
     phase_done("13")
 
     # ---- phase 14 -----------------------------------------------------------
-    log("== phase 14: the CLI, python -m diffpure_tpu_torch.cli, on the BPDA and the rand "
-        "run scripts' flags with tiny budgets, seeded CIFAR-10 fixture, random weights")
+    log("== phase 14: the CLI, python -m diffpure_tpu_torch.cli, on the CIFAR-10 BPDA, rand "
+        "and rand L2 and the three ImageNet rand run scripts' flags with tiny budgets, seeded "
+        "fixtures (ImageNet: an image folder and an LMDB), random weights")
     cli_runs = phase_cli(rng)
     phase_done("14")
+
+    # ---- phase 15 -----------------------------------------------------------
+    log(f"== phase 15: ImageNet purification input gradient, t*={ADM_GRAD_PARITY_T}, batch 1, "
+        f"full-width ADM (flash on), fp32 + bf16, both grad modes, kernels (GPU) against "
+        f"plain (CPU)")
+    adm_grad_checks = phase_adm_grad_parity(torch, dev, adm, rn50, rng, smi)
+    phase_done("15")
+
+    # ---- phase 16 -----------------------------------------------------------
+    log(f"== phase 16: input gradient of CE(DefendedModel(resize_to=256)), t*={ADM_EVALS}, "
+        f"bf16 ADM + ResNet-50, batch {ADM_GRAD_N}, both grad modes, cold + warm; batch "
+        f"{ADM_GRAD_PEAK_N} once")
+    adm_grad_runs = phase_adm_grad_rate(torch, dev, adm, rn50, adm_per_eval, rng, smi)
+    phase_done("16")
+
+    # ---- phase 17 -----------------------------------------------------------
+    log(f"== phase 17: eval_autoattack, version 'rand', through the ImageNet defence (bf16 ADM "
+        f"+ ResNet-50, checkpoint), {AA_IMAGENET}")
+    adm_attack = phase_adm_attack(torch, dev, adm, rn50, rng, smi)
+    phase_done("17")
+
+    # ---- phase 18 -----------------------------------------------------------
+    log("== phase 18: #10's gradient: the t*=5 DDPM purification (fp32, batch 2, both modes) "
+        "and an NCSN++ 'ddpm' evaluation (bf16), kernels (GPU) against plain (CPU)")
+    if (sum(gn_census.values()), sum(attn_census.values())) != DDPM_GRAD_CENSUS:
+        raise AssertionError(f"the DDPM's census {gn_census} {attn_census} is not "
+                             f"{DDPM_GRAD_CENSUS} per evaluation")
+    gn_grad_checks = phase_gn_silu_grad(torch, dev, ddpm, ncsn_ddpm, clf, rng, smi)
+    phase_done("18")
 
     # ---- report -------------------------------------------------------------
     kernels = []
@@ -2760,7 +3295,9 @@ def main() -> int:
         adm_runs=adm_runs,
         adm_checks=adm_checks, gn_act_shapes=gn_act_records, ddpm_census=ddpm_shapes,
         ddpm_runs=ddpm_runs, ddpm_checks=ddpm_checks, bpda_runs=bpda_runs, dpm_runs=dpm_runs,
-        dpm_checks=dpm_checks, cli_runs=cli_runs, phase_s=phase_s, kernels=kernels),
+        dpm_checks=dpm_checks, cli_runs=cli_runs, adm_grad_checks=adm_grad_checks,
+        adm_grad_runs=adm_grad_runs, adm_attack=adm_attack, gn_grad_checks=gn_grad_checks,
+        phase_s=phase_s, kernels=kernels),
         indent=1))
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """flax params -> PyTorch state dict for the classifiers: the inverse of
 diffpure_tpu/classifiers/convert.py (``_classifier_leaf`` :35,
-``translate_classifier`` :54)."""
+``translate_classifier`` :54, ``translate_vit`` :103)."""
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import torch
@@ -40,3 +41,33 @@ def wideresnet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
 
 # torchvision ResNets: ``layer1_0/downsample_0`` -> ``layer1.0.downsample.0``
 torchvision_resnet_state_dict_from_flax = wideresnet_state_dict_from_flax
+
+
+def vit_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The inverse of ``translate_vit`` (diffpure_tpu/classifiers/convert.py
+    :103): ``patch_embed_proj`` -> ``patch_embed.proj``, ``blocks_3`` ->
+    ``blocks.3``, ``mlp_fc1`` -> ``mlp.fc1``; LayerNorm ``scale`` ->
+    ``weight``; ``cls_token`` and ``pos_embed`` stay top level."""
+    sd = {}
+    for path, v in flatten_params(params):
+        *mods, leaf = path
+        if not mods:
+            sd[leaf] = to_tensor(v)
+            continue
+        parts = []
+        for m in mods:
+            if m == "patch_embed_proj":
+                parts += ["patch_embed", "proj"]
+            elif re.fullmatch(r"mlp_fc\d", m):
+                parts += ["mlp", m[4:]]
+            else:
+                parts += split_module(m)
+        if leaf == "kernel":
+            name, arr = "weight", (v.transpose(3, 2, 0, 1) if v.ndim == 4
+                                   else v.transpose(1, 0))
+        elif leaf in ("scale", "bias"):
+            name, arr = ("weight" if leaf == "scale" else "bias"), v
+        else:
+            raise ValueError(f"unhandled ViT leaf {'/'.join(path)}")
+        sd[".".join(parts + [name])] = to_tensor(arr)
+    return sd

@@ -5,13 +5,16 @@ eval_sde_adv_bpda.py:177-279):
     python -m diffpure_tpu_torch.cli --config cifar10.yml --domain cifar10 ...
 
 Builds the defended model from the YAML config and the checkpoints under
-./pretrained/ (score_sde/checkpoint_8.pth, classifiers/<name>.pt), loads
-the evaluation subset from ./dataset/ and runs the requested attack
-protocol. ``--random_weights`` (or a missing checkpoint, with a warning)
-runs the pipeline on seeded random weights. The models and the data go to
-``--device`` (default ``cuda``); ``cuda`` with no card raises. The port
-runs the ``cifar10`` domain; ImageNet and CelebA-HQ wait for ROADMAP items
-16 and 17, the multi-GPU split for item 20.
+./pretrained/ (score_sde/checkpoint_8.pth, guided_diffusion/
+256x256_diffusion_uncond.pt, classifiers/<name>.pt), loads the evaluation
+subset from ./dataset/ and runs the requested attack protocol.
+``--random_weights`` (or a missing checkpoint, with a warning) runs the
+pipeline on seeded random weights: seeded normal ones for the ADM too,
+where JAX's CLI gives it zeros (diffpure_tpu/cli.py:60-66), whose score is
+identically zero, so that the kernels do real work. The models and the
+data go to ``--device`` (default ``cuda``); ``cuda`` with no card raises.
+The port runs the ``cifar10`` and ``imagenet`` domains; CelebA-HQ waits
+for ROADMAP item 17, the multi-GPU split for item 20.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from diffpure_tpu_torch.config import build_parser, load_config, make_log_dir
 from diffpure_tpu_torch.utils import seed_everything, setup_run_logging
 from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
 
-_LATER_DOMAINS = {"imagenet": "Slice 3 item 16", "celebahq": "Slice 4 item 17"}
+_LATER_DOMAINS = {"celebahq": "Slice 4 item 17"}
 
 
 def _check_domain(domain: str) -> None:
@@ -32,7 +35,7 @@ def _check_domain(domain: str) -> None:
         if name in domain:
             raise NotImplementedError(
                 f"domain {domain!r} waits for ROADMAP {item}")
-    if "cifar10" not in domain:
+    if "cifar10" not in domain and "imagenet" not in domain:
         raise NotImplementedError(f"unknown domain {domain!r}")
 
 
@@ -42,30 +45,43 @@ def _load_weights(model: torch.nn.Module, sd, device: torch.device) -> torch.nn.
 
 
 def build_score_model(args, config, device: torch.device) -> torch.nn.Module:
-    """The NCSN++ epsilon model for the cifar10 domain
-    (ref eval_sde_adv.py:40-55, runners/diffpure_sde.py:160-190). Built
-    from the YAML as the reference's create_model; the torso in bf16 under
-    ``--precision bf16``. Weights frozen: attacks differentiate the input."""
-    from diffpure_tpu_torch.models import ncsnpp_from_config
-    from diffpure_tpu_torch.models.convert import load_score_sde_checkpoint
+    """The score model of the domain (ref eval_sde_adv.py:40-55, runners/
+    diffpure_sde.py:160-190; JAX cli.py:26-70), built from the YAML as the
+    reference builds it: cifar10 the NCSN++ of ``config`` (its torso in
+    bf16 under ``--precision bf16``), imagenet the ADM of the ``model:``
+    section (``adm_from_config``; its torso in bf16 where ``use_fp16``
+    says so). Weights frozen: attacks differentiate the input."""
+    from diffpure_tpu_torch.config import namespace2dict
+    from diffpure_tpu_torch.models import adm_from_config, ncsnpp_from_config
+    from diffpure_tpu_torch.models.convert import load_guided_diffusion_checkpoint, \
+        load_score_sde_checkpoint
 
     _check_domain(args.domain)
-    dtype = torch.bfloat16 if args.precision == "bf16" else None
-    model = ncsnpp_from_config(config, dtype=dtype)
-    ckpt = "pretrained/score_sde/checkpoint_8.pth"
+    if "imagenet" in args.domain:
+        model = adm_from_config(namespace2dict(config.model))
+        ckpt = "pretrained/guided_diffusion/256x256_diffusion_uncond.pt"
+        load = lambda: load_guided_diffusion_checkpoint(ckpt, model)  # noqa: E731
+    else:
+        dtype = torch.bfloat16 if args.precision == "bf16" else None
+        model = ncsnpp_from_config(config, dtype=dtype)
+        ckpt = "pretrained/score_sde/checkpoint_8.pth"
+        load = lambda: load_score_sde_checkpoint(ckpt)  # noqa: E731
     if args.random_weights or not os.path.exists(ckpt):
         sd = seeded_normal_state_dict(model, 0)
         if not args.random_weights:
             print(f"WARNING: {ckpt} missing; using random weights")
     else:
-        sd = load_score_sde_checkpoint(ckpt)
+        sd = load()
     return _load_weights(model, sd, device)
 
 
 def build_classifier(args, device: torch.device) -> torch.nn.Module:
-    """Classifier taking [0, 1] NHWC images (ref utils.py:143-253), robustbench
-    keys from pretrained/classifiers/<name>.pt; the port's registry raises
-    for the classifiers it does not have."""
+    """Classifier taking [0, 1] NHWC images (ref utils.py:143-253), its
+    publisher's keys (robustbench, torchvision, timm) from
+    pretrained/classifiers/<name>.pt; the port's registry raises for the
+    classifiers it does not have. The seeded weights need no input size
+    (JAX initialises ImageNet models at 224 px, cli.py:111-112): DeiT-S's
+    position grid is its 224-px one either way."""
     from diffpure_tpu_torch.classifiers import get_classifier
     from diffpure_tpu_torch.models.convert import load_torch_state_dict, \
         strip_module_prefix
@@ -135,7 +151,8 @@ def main(argv=None) -> dict:
         sigma2=args.sigma2, lambda_ld=args.lambda_ld, eta=args.eta,
         n_steps=args.solver_steps,
         grad_mode="none" if args.attack_version == "bpda" else args.grad_mode)
-    defended = DefendedModel(score, classifier, purify_cfg)
+    defended = DefendedModel(score, classifier, purify_cfg,
+                             resize_to=256 if "imagenet" in args.domain else None)
 
     x_np, y_np = load_data(args.domain, args.num_sub, args.data_seed,
                            classifier_name=args.classifier_name,

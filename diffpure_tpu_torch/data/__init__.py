@@ -1,3 +1,5 @@
-from diffpure_tpu_torch.data.datasets import cifar10_subset, load_data
+from diffpure_tpu_torch.data.datasets import cifar10_subset, imagenet_lmdb_val_subset, \
+    imagenet_val_subset, imval_transform, load_data
 
-__all__ = ["cifar10_subset", "load_data"]
+__all__ = ["cifar10_subset", "imagenet_lmdb_val_subset", "imagenet_val_subset",
+           "imval_transform", "load_data"]

@@ -8,6 +8,9 @@ carries it too).
 Leaves: conv kernel HWIO -> weight OIHW; Dense kernel (in, out) -> weight
 (out, in); norm ``scale`` -> ``weight``; NIN ``W``/``b`` unchanged.
 
+The guided-diffusion checkpoint (JAX :259) is a flat state dict in the
+port's own ADM keys: ``load_guided_diffusion_checkpoint`` checks it.
+
 The score_sde checkpoint flow (JAX :28-71, :250): a CIFAR-10
 ``checkpoint_8.pth`` holds the model's state dict (``module.``-prefixed
 under DataParallel) and its EMA shadow parameters; the port's NCSN++ keys
@@ -62,6 +65,25 @@ def load_score_sde_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     prefix, apply the EMA (ref runners/diffpure_sde.py:160-190)."""
     state = load_torch_state_dict(path)
     return apply_ema(strip_module_prefix(state["model"]), state["ema"])
+
+
+def load_guided_diffusion_checkpoint(path: str, model: torch.nn.Module
+                                     ) -> Dict[str, torch.Tensor]:
+    """A guided-diffusion checkpoint (``256x256_diffusion_uncond.pt``, a
+    flat state dict) -> the port's ADM state dict (JAX :259). The port's
+    keys are guided-diffusion's, so nothing is translated; the keys and
+    shapes are checked against ``model`` before anything loads."""
+    sd = load_torch_state_dict(path)
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    got = {k: tuple(torch.as_tensor(v).shape) for k, v in sd.items()}
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    shapes = sorted(k for k in set(want) & set(got) if want[k] != got[k])
+    if missing or extra or shapes:
+        raise ValueError(
+            f"{path} does not fit the ADM: missing {missing[:5]} ({len(missing)}), "
+            f"unexpected {extra[:5]} ({len(extra)}), shapes differ at "
+            f"{[(k, got[k], want[k]) for k in shapes[:5]]} ({len(shapes)})")
+    return dict(sd)
 
 
 def flatten_params(tree: Mapping, prefix: Tuple[str, ...] = ()

@@ -1,5 +1,12 @@
-"""Model construction (port of diffpure_tpu/models/factories.py:50-98 and
-:259 ncsnpp_from_config)."""
+"""Model construction (port of diffpure_tpu/models/factories.py:21-98, the
+model half of :233-257 and :259 ncsnpp_from_config).
+
+``adm_from_config`` is the model half of JAX's
+``create_model_and_diffusion``: the ADM from the defaults merged with a
+YAML ``model:`` section. The Gaussian diffusion it also returns
+(``diffusion/discrete.py``) waits for ROADMAP item 15; JAX's CLI discards
+it (diffpure_tpu/cli.py:58), so the port's CLI needs the model only.
+"""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -43,6 +50,38 @@ def ncsnpp_from_config(config, dtype=None) -> NCSNpp:
         num_scales=g(m, "num_scales", 1000),
         dtype=dtype,
     )
+
+
+def model_and_diffusion_defaults() -> dict:
+    """ref script_util.py:51-74 (JAX :21)."""
+    return dict(
+        image_size=64, num_channels=128, num_res_blocks=2, num_heads=4,
+        num_heads_upsample=-1, num_head_channels=-1, attention_resolutions="16,8",
+        channel_mult="", dropout=0.0, class_cond=False, use_checkpoint=False,
+        use_scale_shift_norm=True, resblock_updown=False, use_fp16=False,
+        use_new_attention_order=False, learn_sigma=False, diffusion_steps=1000,
+        noise_schedule="linear", timestep_respacing="", use_kl=False,
+        predict_xstart=False, rescale_timesteps=False, rescale_learned_sigmas=False)
+
+
+def adm_from_config(config: dict) -> ADMUNet:
+    """The ADM of ``create_model_and_diffusion`` (ref script_util.py:82-136;
+    JAX :233-257): the defaults merged with ``config`` (the YAML ``model:``
+    section, ref runners/diffpure_sde.py:163-164), names it does not know
+    ignored."""
+    d = model_and_diffusion_defaults()
+    d.update({k: v for k, v in config.items() if k in d})
+    return create_model(
+        image_size=d["image_size"], num_channels=d["num_channels"],
+        num_res_blocks=d["num_res_blocks"], channel_mult=d["channel_mult"],
+        learn_sigma=d["learn_sigma"], class_cond=d["class_cond"],
+        use_checkpoint=d["use_checkpoint"],
+        attention_resolutions=d["attention_resolutions"], num_heads=d["num_heads"],
+        num_head_channels=d["num_head_channels"],
+        num_heads_upsample=d["num_heads_upsample"],
+        use_scale_shift_norm=d["use_scale_shift_norm"], dropout=d["dropout"],
+        resblock_updown=d["resblock_updown"], use_fp16=d["use_fp16"],
+        use_new_attention_order=d["use_new_attention_order"])
 
 
 def channel_mult_for_image_size(image_size: int) -> Tuple[float, ...]:

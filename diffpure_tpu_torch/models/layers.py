@@ -18,8 +18,8 @@ for, come from autograd of the plain version.
 
 The DDPM++ residual block (``ResnetBlockDDPMpp``) and the standalone
 ``UpsampleLayer`` / ``DownsampleLayer`` are plain tensor code around
-``GNSiLU``, whose CUDA kernel (``ops/groupnorm.group_norm_silu_fused``) is
-forward only. FIR resampling waits for ROADMAP Slice 1 item 5, training mode
+``GNSiLU``, whose CUDA kernel (``ops/groupnorm.group_norm_silu_fused``)
+takes its gradient from autograd of the plain chain, as JAX does. FIR resampling waits for ROADMAP Slice 1 item 5, training mode
 (dropout) for item 19.
 """
 from __future__ import annotations

@@ -168,13 +168,66 @@ def scratch(device, *nbytes: int):
 
 def refuse_card_grad(what: str, *tensors) -> None:
     """Raise where autograd would need the gradient of a forward-only kernel
-    on the card (the 256-px kernels: their backward is the next slice)."""
+    on the card: #11 (``fused_leaky_relu``), which no model calls, in JAX or
+    here (ROADMAP Queue 2)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{what}: the kernel's gradient on the card is not ported yet "
-            f"(ROADMAP, next slice: the ImageNet gradient path); run it under "
-            f"torch.no_grad() or torch.inference_mode()")
+            f"{what}: the kernel has no gradient on the card (no model calls it; "
+            f"ROADMAP Queue 2, #11); run it under torch.no_grad() or "
+            f"torch.inference_mode()")
+
+
+def check_device(what: str, t: torch.Tensor) -> None:
+    """The wrappers take CPU tensors (plain version) or CUDA ones (kernel)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {t.device}")
+
+
+def autograd_vjp(reference):
+    """The vector-Jacobian product of ``reference(cfg, *tensors)`` by
+    autograd, recomputed from the inputs: the backward of JAX's
+    ``custom_vjp`` wrappers of the 256-px kernels and of #10 (``jax.vjp`` of
+    the plain version). Returns vjp(cfg, need, tensors, grads) -> a
+    gradient for each input whose ``need`` is set, else None."""
+    def vjp(cfg, need, tensors, grads):
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(tensors, need)]
+            out = reference(cfg, *leaves)
+            outs = out if isinstance(out, tuple) else (out,)
+            wanted = [t for t, n in zip(leaves, need) if n]
+            got = iter(torch.autograd.grad(outs, wanted, grads, allow_unused=True))
+        res = []
+        for t, n in zip(leaves, need):
+            g = next(got) if n else None
+            res.append(torch.zeros_like(t) if n and g is None else g)
+        return tuple(res)
+    return vjp
+
+
+class KernelFunction(torch.autograd.Function):
+    """A kernel with the gradient of its plain version, at the granularity
+    of a JAX ``custom_vjp``: ``apply((kernel, plain, vjp), cfg, *tensors)``.
+    The forward runs ``kernel(cfg, *tensors)`` on CUDA tensors and
+    ``plain(cfg, *tensors)`` on CPU tensors (one ``Function`` either way, so
+    the CPU tests reach the backward) and saves only its inputs (None for an
+    absent one); the backward is ``vjp(cfg, need, inputs, grads)``, most
+    often ``autograd_vjp`` of the plain version. ``cfg`` holds the
+    non-tensor arguments (group count, eps, weight packs)."""
+
+    @staticmethod
+    def forward(ctx, fns, cfg, *tensors):
+        ctx.fns, ctx.cfg = fns, cfg
+        ctx.save_for_backward(*tensors)
+        kernel, plain, _ = fns
+        return (plain if tensors[0].device.type == "cpu" else kernel)(cfg, *tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        vjp = ctx.fns[2]
+        return (None, None, *vjp(ctx.cfg, ctx.needs_input_grad[2:], ctx.saved_tensors,
+                                 grads))
 
 
 _sms = {}

@@ -15,9 +15,15 @@ output back. Either way the zero channels add exactly 0 to every fp32
 score, and the scale is passed on its own, so it does not depend on the
 width. T must be a multiple of the kernel's
 query block (128 bf16, 64 fp32); D > 256 or another T raises before any
-launch. Forward only on the card: JAX's
-backward is a dense VJP of the reference (:101-142); here the wrapper
-raises if autograd would need it on a CUDA tensor (ROADMAP).
+launch.
+
+Gradients, as JAX's ``custom_vjp`` (:101-142): ``flash_attention`` is an
+autograd ``Function`` (``_cuda.KernelFunction``) that saves q, k and v and
+whose backward is the dense VJP of ``_reference_attention`` (autograd,
+recomputed), over slabs of the largest divisor of B*heads up to 32
+(``_largest_divisor_leq``, :113-139), so that the transient (slab, T, T)
+scores stay bounded. The gradients have the caller's head width D: the
+zero padding is the forward's business only.
 """
 from __future__ import annotations
 
@@ -71,14 +77,7 @@ def pad_heads(t: Tensor, width: int) -> Tensor:
     return t if D == width else torch.nn.functional.pad(t, (0, width - D))
 
 
-def flash_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
-    """softmax(q k^T scale^2) v without the T x T scores: plain on CPU, the
-    CUDA kernel on CUDA."""
-    if q.device.type == "cpu":
-        return _reference_attention(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    _cuda.refuse_card_grad("flash_attention", q, k, v)
+def _flash_kernel(scale, q, k, v):
     dev, dtype = q.device, q.dtype
     if dtype not in _cuda.DTYPE_CODE or q.ndim != 3:
         raise ValueError(f"flash_attention takes (BH, T, D) fp32 or bf16, not "
@@ -97,6 +96,41 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     _cuda.check(err, "flash_attention kernel")
     flash_attention.launches += 1
     return out if dt == D else out[..., :D].contiguous()
+
+
+def _flash_plain(scale, q, k, v):
+    return _reference_attention(q, k, v, scale)
+
+
+# JAX's slab of the backward: at most this many (batch, head) pairs a VJP
+BWD_SLAB = 32
+
+
+def largest_divisor_leq(n: int, cap: int) -> int:
+    """The largest divisor of n that is at most cap (JAX :113)."""
+    return next(c for c in range(min(n, cap), 0, -1) if n % c == 0)
+
+
+_dense_vjp = _cuda.autograd_vjp(_flash_plain)
+
+
+def _flash_vjp(scale, need, tensors, grads):
+    BH = tensors[0].shape[0]
+    slab = largest_divisor_leq(BH, BWD_SLAB)
+    parts = [_dense_vjp(scale, need, [t[i:i + slab] for t in tensors],
+                        [g[i:i + slab] for g in grads]) for i in range(0, BH, slab)]
+    return tuple(torch.cat([p[j] for p in parts]) if n else None
+                 for j, n in enumerate(need))
+
+
+_FLASH = (_flash_kernel, _flash_plain, _flash_vjp)
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+    """softmax(q k^T scale^2) v without the T x T scores: plain on CPU, the
+    CUDA kernel on CUDA; differentiable (the dense VJP, slab by slab)."""
+    _cuda.check_device("flash_attention", q)
+    return _cuda.KernelFunction.apply(_FLASH, float(scale), q, k, v)
 
 
 def qkv_flash_attention(qkv: Tensor, n_heads: int, order: str = "legacy") -> Tensor:

@@ -1,14 +1,14 @@
 """Fused NCSN++ attention block (AttnBlockpp, eval mode).
 
 Port of diffpure_tpu/ops/fused_attnblock.py: ``fused_attnblock_reference``
-(:151) in plain PyTorch, and ``fused_attnblock``, a
-``torch.autograd.Function`` whose forward is the CUDA kernel in
+(:151) in plain PyTorch, and ``fused_attnblock``, an autograd
+``Function`` whose forward is the CUDA kernel in
 ``csrc/fused_attnblock.cu`` (bf16) and ``csrc/attnblock_f32.cu`` (fp32)
 (replacing ``fused_attnblock_pallas``, :106) and
 whose backward is autograd of the plain version, as JAX's ``_fab_bwd``
-(:200-206) is: the TPU has no attention backward kernel either. On a CPU
-tensor the forward runs the plain version; on a CUDA tensor it launches the
-kernel or raises.
+(:200-206) is: the TPU has no attention backward kernel either
+(``_cuda.KernelFunction``). On a CPU tensor the forward runs the plain
+version; on a CUDA tensor it launches the kernel or raises.
 
 bf16 runs a chain on the tensor cores: the GroupNorm pass, the q | k | v
 NIN on the wgmma GEMM of ``csrc/igemm_wgmma.cuh`` (weights from
@@ -277,44 +277,30 @@ def _launch(x: Tensor, params: Tuple, num_groups: int, eps: float,
     return out
 
 
-class _FusedAttnblock(torch.autograd.Function):
-    """Saves only its inputs; the backward recomputes the plain version."""
+def _attn_kernel(cfg, x, *params):
+    num_groups, eps, rescale, packed = cfg
+    out = _launch(x, params, num_groups, eps, rescale, packed)
+    fused_attnblock.launches += 1
+    return out
 
-    @staticmethod
-    def forward(ctx, cfg, x, *params):
-        num_groups, eps, rescale, packed = cfg
-        ctx.cfg = cfg
-        ctx.save_for_backward(x, *params)
-        if x.device.type == "cpu":
-            return fused_attnblock_reference(x, params, num_groups=num_groups,
-                                             eps=eps, rescale=rescale)
-        if x.device.type != "cuda":
-            raise ValueError(f"fused_attnblock runs on cpu or cuda, not {x.device}")
-        out = _launch(x, params, num_groups, eps, rescale, packed)
-        fused_attnblock.launches += 1
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        num_groups, eps, rescale, _ = ctx.cfg
-        need = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, need)]
-            out = fused_attnblock_reference(
-                leaves[0], tuple(leaves[1:]), num_groups=num_groups, eps=eps,
-                rescale=rescale)
-            grads = iter(torch.autograd.grad(
-                out, [t for t, n in zip(leaves, need) if n], g))
-        return (None, *[next(grads) if n else None for n in need])
+def _attn_plain(cfg, x, *params):
+    num_groups, eps, rescale, _ = cfg
+    return fused_attnblock_reference(x, params, num_groups=num_groups, eps=eps,
+                                     rescale=rescale)
+
+
+_ATTN = (_attn_kernel, _attn_plain, _cuda.autograd_vjp(_attn_plain))
 
 
 def fused_attnblock(x: Tensor, params: Tuple, *, num_groups: int,
                     eps: float = 1e-6, rescale: bool = True,
                     packed: Optional[PackedAttnblock] = None) -> Tensor:
     """The block on one NHWC map, differentiable: plain on CPU, the CUDA
-    kernel on CUDA."""
-    return _FusedAttnblock.apply((num_groups, eps, rescale, packed), x, *params)
+    kernel on CUDA (``_cuda.KernelFunction``: it saves only its inputs, and
+    its backward recomputes the plain version)."""
+    _cuda.check_device("fused_attnblock", x)
+    return _cuda.KernelFunction.apply(_ATTN, (num_groups, eps, rescale, packed), x, *params)
 
 
 # Kernel launches since the last reset (plain CPU calls do not count).

@@ -8,7 +8,10 @@ Two GN+SiLU functions, as in JAX:
     same function with the affine and SiLU in fp32 and one cast at the end.
     Its CUDA kernel (``csrc/group_norm_silu.cu``) runs on CUDA tensors, its
     plain version ``group_norm_silu_fused_reference`` on CPU tensors; its
-    launch plan is ``gn_silu_plan``.
+    launch plan is ``gn_silu_plan``. It is an autograd ``Function``
+    (``_cuda.KernelFunction``) whose backward is autograd of the plain
+    chain ``group_norm_silu``: JAX's default path differentiates that
+    chain, not the kernel's one-rounding form.
 """
 from __future__ import annotations
 
@@ -18,7 +21,6 @@ import functools
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
 from diffpure_tpu_torch.ops import _cuda
 
@@ -54,8 +56,11 @@ def group_norm(x: Tensor, scale: Tensor, bias: Tensor, num_groups: int,
 
 def group_norm_silu(x: Tensor, scale: Tensor, bias: Tensor, num_groups: int,
                     eps: float = 1e-6) -> Tensor:
-    """GroupNorm followed by SiLU (the UNet res-block prologue)."""
-    return F.silu(group_norm(x, scale, bias, num_groups, eps))
+    """GroupNorm followed by SiLU (the UNet res-block prologue), written
+    h * sigmoid(h) as JAX writes it (:52), so that bf16 rounds at the same
+    places, in the forward and in autograd's backward."""
+    h = group_norm(x, scale, bias, num_groups, eps)
+    return h * torch.sigmoid(h)
 
 
 def group_norm_silu_fused_reference(x: Tensor, scale: Tensor, bias: Tensor,
@@ -138,38 +143,16 @@ def gn_silu_plan(N: int, HW: int, C: int, G: int, dtype: torch.dtype,
                       (ctypes.c_int * len(ints))(*ints))
 
 
-def group_norm_silu_fused(x: Tensor, scale: Tensor, bias: Tensor,
-                          num_groups: int, eps: float = 1e-6) -> Tensor:
-    """silu(GroupNorm(x)) with one rounding, x (N, H, W, C) fp32 or bf16,
-    scale and bias (C,): plain on CPU, the CUDA kernel on CUDA.
-
-    JAX gates its kernel on the TPU backend, ``set_fused_gn_silu`` and the
-    map fitting VMEM (layers.py:83-84). The port has no global kernel
-    switches (ROADMAP item 3) and the kernel takes every map size, so none
-    of those gates is kept. Forward only on the card: JAX differentiates
-    the plain chain; here the wrapper raises when autograd would need the
-    kernel's gradient.
-
-    On the card the kernel is bound by latency and bytes: one read and one
-    write of the map, with each (example, group) slice held in registers in
-    between (``gn_silu_plan``: a warp or less a slice at small maps, up to
-    1024 threads at large ones; above 128 KB of fp32 a slice, a route that
-    re-reads it from L2), fp32 two-pass statistics from the registers, and
-    one rounding at the store.
-    """
-    if x.device.type == "cpu":
-        return group_norm_silu_fused_reference(x, scale, bias, num_groups, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"group_norm_silu_fused runs on cpu or cuda, not {x.device}")
-    _cuda.refuse_card_grad("group_norm_silu_fused", x, scale, bias)
+def _gn_silu_kernel(cfg, x, scale, bias):
+    num_groups, eps = cfg
     if x.dtype not in _cuda.DTYPE_CODE or x.ndim != 4 or x.shape[3] % num_groups:
         raise ValueError(f"group_norm_silu_fused takes NHWC fp32 or bf16 whose channels "
                          f"split into {num_groups} groups; got {x.dtype} {tuple(x.shape)}")
     N, H, W, C = x.shape
     dev = x.device
     p_x = _cuda.check_operand(x, "x", dev, x.dtype)
-    gamma = scale.to(device=dev, dtype=torch.float32).contiguous()
-    beta = bias.to(device=dev, dtype=torch.float32).contiguous()
+    gamma = scale.detach().to(device=dev, dtype=torch.float32).contiguous()
+    beta = bias.detach().to(device=dev, dtype=torch.float32).contiguous()
     p_g = _cuda.check_operand(gamma, "scale", dev, torch.float32, (C,))
     p_b = _cuda.check_operand(beta, "bias", dev, torch.float32, (C,))
     plan = gn_silu_plan(N, H * W, C, num_groups, x.dtype, _cuda.num_sms(dev))
@@ -180,6 +163,35 @@ def group_norm_silu_fused(x: Tensor, scale: Tensor, bias: Tensor,
     _cuda.check(err, "group_norm_silu_fused kernel")
     group_norm_silu_fused.launches += 1
     return out
+
+
+_GN_SILU = (_gn_silu_kernel,
+            lambda cfg, x, scale, bias: group_norm_silu_fused_reference(x, scale, bias, *cfg),
+            _cuda.autograd_vjp(lambda cfg, x, scale, bias: group_norm_silu(x, scale, bias,
+                                                                            *cfg)))
+
+
+def group_norm_silu_fused(x: Tensor, scale: Tensor, bias: Tensor,
+                          num_groups: int, eps: float = 1e-6) -> Tensor:
+    """silu(GroupNorm(x)) with one rounding, x (N, H, W, C) fp32 or bf16,
+    scale and bias (C,): plain on CPU, the CUDA kernel on CUDA.
+    Differentiable: the gradient is autograd of the plain chain
+    ``group_norm_silu``, as JAX's default path takes it.
+
+    JAX gates its kernel on the TPU backend, ``set_fused_gn_silu`` and the
+    map fitting VMEM (layers.py:83-84). The port has no global kernel
+    switches (ROADMAP item 3) and the kernel takes every map size, so none
+    of those gates is kept.
+
+    On the card the kernel is bound by latency and bytes: one read and one
+    write of the map, with each (example, group) slice held in registers in
+    between (``gn_silu_plan``: a warp or less a slice at small maps, up to
+    1024 threads at large ones; above 128 KB of fp32 a slice, a route that
+    re-reads it from L2), fp32 two-pass statistics from the registers, and
+    one rounding at the store.
+    """
+    _cuda.check_device("group_norm_silu_fused", x)
+    return _cuda.KernelFunction.apply(_GN_SILU, (num_groups, eps), x, scale, bias)
 
 
 # Kernel launches since the last reset (plain CPU calls do not count).

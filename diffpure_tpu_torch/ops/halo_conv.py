@@ -14,8 +14,17 @@ W % 32 == 0, cin and cr % 64 == 0, cout % 128 == 0 and H even, tiled as
 ``halo_plan`` says; fp32: H % 4 == 0, W % 32 == 0, cin and cr % 32 == 0,
 cout % 64 == 0) and raises on others: the TPU wrapper's fallback to the
 XLA reference, which exists for the TPU's 16 MB of VMEM
-(``_pick_tile_halo``, :37-70, 185-192), is not ported. Forward only on the
-card, as ops/tiled_groupnorm.py.
+(``_pick_tile_halo``, :37-70, 185-192), is not ported.
+
+Gradients, as JAX's ``custom_vjp`` on ``gn_silu_conv_block`` (:297-386):
+the stage is an autograd ``Function`` (``_cuda.KernelFunction``) that
+saves its inputs and whose backward is autograd of
+``gn_conv_block_reference`` (``_gcb_bwd``, :345), recomputed from the HWIO
+weights (never from the kernel's pack), with the film, skip, w_proj and
+pre_shift inputs present or absent as the call has them.
+``gn_silu_conv3x3_halo``, which the models reach only through the stage,
+gets a ``Function`` of its own (backward: autograd of
+``gn_silu_conv3x3_reference``), so that a direct call is differentiable.
 
 Weights keep the JAX layouts at these functions: w (3, 3, cin, cout) HWIO,
 w_proj (cr, cout).
@@ -30,7 +39,8 @@ import torch
 from diffpure_tpu_torch.ops import _cuda
 from diffpure_tpu_torch.ops.conv import conv2d_nhwc
 from diffpure_tpu_torch.ops.groupnorm import group_norm
-from diffpure_tpu_torch.ops.tiled_groupnorm import group_stats_affine
+from diffpure_tpu_torch.ops.tiled_groupnorm import _affine, _stats_kernel, \
+    group_stats_affine_reference
 
 Tensor = torch.Tensor
 
@@ -243,25 +253,63 @@ def _launch(x: Tensor, A: Tensor, B: Tensor, w: Tensor, bias: Tensor,
     return out
 
 
+def _halo_kernel(x, A, B, w, bias, skip, w_proj, packed):
+    out = _launch(x, A, B, w, bias, skip, w_proj, packed)
+    gn_silu_conv3x3_halo.launches += 1
+    return out
+
+
+def _halo_plain(cfg, x, A, B, w, bias, skip, w_proj):
+    out_dtype, _ = cfg
+    return gn_silu_conv3x3_reference(x, A, B, w, bias, skip=skip, w_proj=w_proj,
+                                     out_dtype=out_dtype)
+
+
+_HALO = ((lambda cfg, *t: _halo_kernel(*t, cfg[1])), _halo_plain,
+         _cuda.autograd_vjp(_halo_plain))
+
+
 def gn_silu_conv3x3_halo(x: Tensor, A: Tensor, B: Tensor, w: Tensor,
                          bias: Tensor, *, skip: Optional[Tensor] = None,
                          w_proj: Optional[Tensor] = None,
                          out_dtype: Optional[torch.dtype] = None,
                          packed: Optional[PackedHalo] = None) -> Tensor:
     """conv3x3(silu(x A + B), w) + b [+ skip | + skip @ w_proj]: plain on
-    CPU, the CUDA kernel on CUDA. x (N, H, W, cin); A, B (N, cin) fp32;
-    skip (N, H, W, cr), an identity skip when w_proj is None (cr == cout)."""
-    if x.device.type == "cpu":
-        return gn_silu_conv3x3_reference(x, A, B, w, bias, skip=skip,
-                                         w_proj=w_proj, out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"the halo conv runs on cpu or cuda, not {x.device}")
-    _cuda.refuse_card_grad("gn_silu_conv3x3_halo", x, A, B, w, bias, skip, w_proj)
-    if (out_dtype or x.dtype) != x.dtype:
+    CPU, the CUDA kernel on CUDA; differentiable. x (N, H, W, cin); A, B
+    (N, cin) fp32; skip (N, H, W, cr), an identity skip when w_proj is None
+    (cr == cout)."""
+    _cuda.check_device("the halo conv", x)
+    if x.device.type == "cuda" and (out_dtype or x.dtype) != x.dtype:
         raise ValueError("the halo conv writes its output in x's dtype")
-    out = _launch(x, A, B, w, bias, skip, w_proj, packed)
-    gn_silu_conv3x3_halo.launches += 1
-    return out
+    return _cuda.KernelFunction.apply(_HALO, (out_dtype, packed), x, A, B, w, bias,
+                                      skip, w_proj)
+
+
+def _block_kernel(cfg, x, gn_scale, gn_bias, film_scale, film_shift, w, bias, skip,
+                  w_proj, pre_shift):
+    num_groups, eps, packed = cfg
+    sums, sqs = _stats_kernel(x)
+    A, B = _affine(sums, sqs, x.shape[1] * x.shape[2], gn_scale, gn_bias, num_groups,
+                   eps, film_scale, film_shift, pre_shift)
+    return _halo_kernel(x, A, B, w, bias, skip, w_proj, packed)
+
+
+def _block_plain(cfg, x, gn_scale, gn_bias, film_scale, film_shift, w, bias, skip,
+                 w_proj, pre_shift):
+    num_groups, eps, _ = cfg
+    A, B = group_stats_affine_reference(x, gn_scale, gn_bias, num_groups, eps,
+                                        film_scale, film_shift, pre_shift)
+    return gn_silu_conv3x3_reference(x, A, B, w, bias, skip=skip, w_proj=w_proj)
+
+
+def _block_grad(cfg, x, gn_scale, gn_bias, film_scale, film_shift, w, bias, skip,
+                w_proj, pre_shift):
+    num_groups, eps, _ = cfg
+    return gn_conv_block_reference(x, gn_scale, gn_bias, film_scale, film_shift, w, bias,
+                                   skip, w_proj, num_groups, eps, pre_shift=pre_shift)
+
+
+_BLOCK = (_block_kernel, _block_plain, _cuda.autograd_vjp(_block_grad))
 
 
 def gn_silu_conv_block(x: Tensor, gn_scale: Tensor, gn_bias: Tensor,
@@ -272,11 +320,12 @@ def gn_silu_conv_block(x: Tensor, gn_scale: Tensor, gn_bias: Tensor,
                        eps: float, packed: Optional[PackedHalo] = None
                        ) -> Tensor:
     """GN(+FiLM)+SiLU+conv3x3(+skip) as [stats pass -> halo conv]; pre_shift
-    (N, C) is added before the GN, folded into the affine."""
-    A, B = group_stats_affine(x, gn_scale, gn_bias, num_groups, eps,
-                              film_scale, film_shift, pre_shift=pre_shift)
-    return gn_silu_conv3x3_halo(x, A, B, w, bias, skip=skip, w_proj=w_proj,
-                                out_dtype=x.dtype, packed=packed)
+    (N, C) is added before the GN, folded into the affine. Differentiable:
+    the gradient is autograd of ``gn_conv_block_reference``."""
+    _cuda.check_device("the halo conv", x)
+    return _cuda.KernelFunction.apply(
+        _BLOCK, (num_groups, eps, packed), x, gn_scale, gn_bias, film_scale, film_shift,
+        w, bias, skip, w_proj, pre_shift)
 
 
 # Kernel launches since the last reset (plain CPU calls do not count).

@@ -13,10 +13,17 @@ UNets (port of diffpure_tpu/ops/tiled_groupnorm.py).
 
 Each launching wrapper runs its plain version on a CPU tensor and its
 kernel on a CUDA tensor, or raises. The variance is the one-pass
-E[x^2] - mean^2 of the JAX combine. Forward only on the card: JAX takes
-the gradient by autodiff of the reference (:193-222); here the wrappers
-raise when autograd would need it on a CUDA tensor (ROADMAP). On the CPU
-the plain pieces are ordinary differentiable tensor code.
+E[x^2] - mean^2 of the JAX combine.
+
+Gradients, as JAX's ``custom_vjp`` (:193-222): ``group_norm_film_silu``
+is an autograd ``Function`` (``_cuda.KernelFunction``) whose forward is
+the two kernels (their plain versions on the CPU) and whose backward is
+autograd of ``group_norm_film_silu_reference``, the two-pass chain, not
+of the kernels' one-pass combine. The models reach pass 1 and 2 only
+through it and through ``halo_conv.gn_silu_conv_block``. The two passes,
+public on their own (chip_smoke.py calls them so), get a ``Function``
+each, whose backward is autograd of their own plain version, so that a
+direct call on a differentiable tensor has its gradient too.
 """
 from __future__ import annotations
 
@@ -46,14 +53,7 @@ def group_sums_reference(x: Tensor) -> Tuple[Tensor, Tensor]:
     return x32.sum(dim=(1, 2))[:, None], (x32 * x32).sum(dim=(1, 2))[:, None]
 
 
-def group_stats(x: Tensor) -> Tuple[Tensor, Tensor]:
-    """Sums of x and x^2 per (example, row tile, channel), fp32 (N, tiles,
-    C): plain on CPU, the CUDA kernel on CUDA."""
-    if x.device.type == "cpu":
-        return group_sums_reference(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"group_stats runs on cpu or cuda, not {x.device}")
-    _cuda.refuse_card_grad("group_stats", x)
+def _stats_kernel(x: Tensor) -> Tuple[Tensor, Tensor]:
     if x.dtype not in _cuda.DTYPE_CODE or x.ndim != 4 or x.shape[3] % 4:
         raise ValueError(f"group_stats takes NHWC fp32 or bf16 with C % 4 == 0; "
                          f"got {x.dtype} {tuple(x.shape)}")
@@ -69,6 +69,20 @@ def group_stats(x: Tensor) -> Tuple[Tensor, Tensor]:
     _cuda.check(err, "group_stats kernel")
     group_stats.launches += 1
     return sums, sqs
+
+
+def _sums_plain(cfg, x):
+    return group_sums_reference(x)
+
+
+_STATS = ((lambda cfg, x: _stats_kernel(x)), _sums_plain, _cuda.autograd_vjp(_sums_plain))
+
+
+def group_stats(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """Sums of x and x^2 per (example, row tile, channel), fp32 (N, tiles,
+    C): plain on CPU, the CUDA kernel on CUDA; differentiable."""
+    _cuda.check_device("group_stats", x)
+    return _cuda.KernelFunction.apply(_STATS, None, x)
 
 
 def _affine(sums: Tensor, sqs: Tensor, hw: int, scale: Tensor, bias: Tensor,
@@ -141,15 +155,7 @@ def gn_film_silu_apply_reference(x: Tensor, A: Tensor, B: Tensor,
     return h.to(x.dtype)
 
 
-def gn_film_silu_apply(x: Tensor, A: Tensor, B: Tensor,
-                       apply_silu: bool = True) -> Tensor:
-    """[silu](x A + B) in x's dtype, A and B (N, C) fp32: plain on CPU, the
-    CUDA kernel on CUDA."""
-    if x.device.type == "cpu":
-        return gn_film_silu_apply_reference(x, A, B, apply_silu)
-    if x.device.type != "cuda":
-        raise ValueError(f"gn_film_silu_apply runs on cpu or cuda, not {x.device}")
-    _cuda.refuse_card_grad("gn_film_silu_apply", x, A, B)
+def _apply_kernel(x: Tensor, A: Tensor, B: Tensor, apply_silu: bool) -> Tensor:
     if x.dtype not in _cuda.DTYPE_CODE or x.ndim != 4 or x.shape[3] % 4:
         raise ValueError(f"gn_film_silu_apply takes NHWC fp32 or bf16 with "
                          f"C % 4 == 0; got {x.dtype} {tuple(x.shape)}")
@@ -167,16 +173,58 @@ def gn_film_silu_apply(x: Tensor, A: Tensor, B: Tensor,
     return out
 
 
+def _apply_plain(apply_silu, x, A, B):
+    return gn_film_silu_apply_reference(x, A, B, apply_silu)
+
+
+_APPLY = ((lambda apply_silu, x, A, B: _apply_kernel(x, A, B, apply_silu)), _apply_plain,
+          _cuda.autograd_vjp(_apply_plain))
+
+
+def gn_film_silu_apply(x: Tensor, A: Tensor, B: Tensor,
+                       apply_silu: bool = True) -> Tensor:
+    """[silu](x A + B) in x's dtype, A and B (N, C) fp32: plain on CPU, the
+    CUDA kernel on CUDA; differentiable."""
+    _cuda.check_device("gn_film_silu_apply", x)
+    return _cuda.KernelFunction.apply(_APPLY, bool(apply_silu), x, A, B)
+
+
+def _gnfs_kernel(cfg, x, scale, bias, film_scale, film_shift):
+    num_groups, eps, apply_silu = cfg
+    sums, sqs = _stats_kernel(x)
+    A, B = _affine(sums, sqs, x.shape[1] * x.shape[2], scale, bias, num_groups, eps,
+                   film_scale, film_shift, None)
+    return _apply_kernel(x, A, B, apply_silu)
+
+
+def _gnfs_plain(cfg, x, scale, bias, film_scale, film_shift):
+    num_groups, eps, apply_silu = cfg
+    A, B = group_stats_affine_reference(x, scale, bias, num_groups, eps, film_scale,
+                                        film_shift)
+    return gn_film_silu_apply_reference(x, A, B, apply_silu)
+
+
+def _gnfs_grad(cfg, x, scale, bias, film_scale, film_shift):
+    num_groups, eps, apply_silu = cfg
+    return group_norm_film_silu_reference(x, scale, bias, num_groups, eps, film_scale,
+                                          film_shift, apply_silu)
+
+
+_GNFS = (_gnfs_kernel, _gnfs_plain, _cuda.autograd_vjp(_gnfs_grad))
+
+
 def group_norm_film_silu_tiled(x: Tensor, scale: Tensor, bias: Tensor,
                                num_groups: int, eps: float = 1e-5,
                                film_scale: Optional[Tensor] = None,
                                film_shift: Optional[Tensor] = None,
                                apply_silu: bool = True) -> Tensor:
     """silu(GN(x) * (1 + film_scale) + film_shift) in 2 reads + 1 write.
-    x (N, H, W, C); scale, bias (C,); film_scale, film_shift (N, C) or None."""
-    A, B = group_stats_affine(x, scale, bias, num_groups, eps, film_scale,
-                              film_shift)
-    return gn_film_silu_apply(x, A, B, apply_silu)
+    x (N, H, W, C); scale, bias (C,); film_scale, film_shift (N, C) or None.
+    Differentiable: the gradient is autograd of
+    ``group_norm_film_silu_reference`` (JAX's ``_gnfs_bwd``, :213)."""
+    _cuda.check_device("group_norm_film_silu", x)
+    return _cuda.KernelFunction.apply(_GNFS, (num_groups, eps, bool(apply_silu)), x,
+                                      scale, bias, film_scale, film_shift)
 
 
 # The model's entry point (JAX's custom_vjp wrapper of the tiled op, :194).

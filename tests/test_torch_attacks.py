@@ -4,8 +4,9 @@
 - an APGD trajectory against JAX's ``_apgd_single_run`` on the
   deterministic MLP of tests/test_apgd_parity.py, with JAX's initial
   perturbation injected: the same step-size (halving) sequence, the same
-  flips, the losses to float tolerance; CE and DLR, Linf and L2, and EOT
-  'last' (several repetitions of a deterministic model);
+  flips, the losses to float tolerance; CE and DLR, each in Linf and L2
+  (rand's L2 suite runs both: run_cifar_rand_L2.sh), and EOT 'last'
+  (several repetitions of a deterministic model);
 - ``apgd_attack`` with restarts and the targeted variant, with a fixed
   initial point in both packages: the same flips and points;
 - ``AutoAttack`` rand's robust-flags protocol, with APGD replaced by the
@@ -67,11 +68,15 @@ def data():
     return rng.rand(6, 4, 4, 3).astype(np.float32), rng.randint(0, 5, 6)
 
 
-# JAX's own battery (tests/test_apgd_parity.py): (loss, norm, eot_iter,
-# n_classes, iterations over which the losses are compared: DLR's rational
-# form amplifies ulp differences of the two frameworks' model evaluations)
+# JAX's own battery (tests/test_apgd_parity.py), and DLR in L2: (loss, norm,
+# eot_iter, n_classes, iterations over which the losses are compared: DLR's
+# rational form amplifies ulp differences of the two frameworks' model
+# evaluations). DLR-L2 runs on the 5-class model: on the 10-class one an
+# example's label is its third-largest logit, where DLR is constant (1), so
+# its gradient is rounding noise, which the L2 step normalises to a full
+# step in each framework's own direction, and late halvings part.
 TRAJ = [("ce", "Linf", 1, 5, 100), ("dlr", "Linf", 1, 10, 1), ("ce", "L2", 1, 5, 100),
-        ("ce", "Linf", 3, 5, 100)]
+        ("ce", "Linf", 3, 5, 100), ("dlr", "L2", 1, 5, 1)]
 
 
 @pytest.mark.parametrize("loss,norm,eot_iter,n_classes,prefix", TRAJ)

@@ -1,7 +1,9 @@
 """The ImageNet-256 defence's pieces in the port against diffpure_tpu: the
 torchvision ResNets with the [0, 1] normalisation shim, their weight
 carrier, DefendedModel's 224 -> 256 resize, and the guided-diffusion
-purify_sde on a small ADM with the noise JAX draws injected."""
+purify_sde on a small ADM with the noise JAX draws injected, forward and
+its input gradient in both grad modes (through the 256-px routes' autograd
+Functions, as jax.grad goes through their custom_vjps)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +22,10 @@ from diffpure_tpu_torch.classifiers.convert import torchvision_resnet_state_dict
 from diffpure_tpu_torch.classifiers.resnet import resnet50
 from diffpure_tpu_torch.eval import DefendedModel
 from diffpure_tpu_torch.eval.defended import bilinear_resize
-from diffpure_tpu_torch.models import ADMUNet
+from diffpure_tpu_torch.models import ADMUNet, adm_unet
+from diffpure_tpu_torch.ops import _cuda
+from diffpure_tpu_torch.ops import halo_conv as halo
+from diffpure_tpu_torch.ops import tiled_groupnorm as tgn
 from diffpure_tpu_torch.purify import PurifyConfig, purify_sde
 from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
 from test_torch_adm import SMALL, _seeded
@@ -95,6 +100,47 @@ def test_guided_purify_sde_matches_jax(small_adm):
     with torch.inference_mode():
         got = purify_sde(model, torch.from_numpy(x), JaxNoise(key), PurifyConfig(t=3, **GUIDED))
     assert_close(got, want, 1e-4, "guided purify_sde")
+
+
+# fp32 input gradients after 2 steps through the small ADM, both packages
+# on the CPU: the forward agrees to ~1e-6 relative per evaluation, the
+# backward repeats that in another summation order.
+ADM_GRAD_REL = 2e-4
+
+
+@pytest.mark.parametrize("grad_mode", ["checkpoint", "adjoint"])
+def test_guided_purify_sde_input_grad_matches_jax(small_adm, grad_mode):
+    """d/dx sum(w * purify_sde(x)) with the guided score, weights frozen.
+    The port runs every ADM block on the halo or tiled route (maps of >= 64
+    KiB), so its gradient goes through those routes' autograd Functions;
+    JAX runs its plain route, the same function (its custom_vjp backwards
+    are autodiff of the same plain versions, held Function by Function in
+    test_torch_kernel_grads.py), whose interpret-mode kernels under
+    jax.grad would take a minute to compile here."""
+    model, params = small_adm
+    rng = np.random.default_rng(7)
+    x, w = normal(rng, 1, 32, 32, 3, scale=0.5), normal(rng, 1, 32, 32, 3)
+    key = jax.random.PRNGKey(13)
+    jm = jadm.ADMUNet(**SMALL)
+    cfg = dict(t=2, score_type="guided_diffusion", grad_mode=grad_mode)
+    want = jax.grad(lambda xx: jnp.sum(jnp.asarray(w) * jax_purify_sde(
+        lambda p, a, t: jm.apply(p, a, t), params, xx, key, JaxPurifyConfig(**cfg))))(
+        jnp.asarray(x))
+    model.requires_grad_(False)
+    calls = []
+    fwd = _cuda.KernelFunction.forward
+    adm_unet.set_tiled_gn_min_bytes(64 * 1024)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(_cuda.KernelFunction, "forward", staticmethod(
+                lambda ctx, fns, cfg_, *t: calls.append(fns) or fwd(ctx, fns, cfg_, *t)))
+            xt = torch.from_numpy(x).requires_grad_(True)
+            out = purify_sde(model, xt, JaxNoise(key), PurifyConfig(**cfg))
+            (got,) = torch.autograd.grad((torch.from_numpy(w) * out).sum(), xt)
+    finally:
+        adm_unet.set_tiled_gn_min_bytes(None)
+    assert {halo._BLOCK, tgn._GNFS} <= set(calls)
+    assert_close(got, want, ADM_GRAD_REL, f"guided d purify / dx, {grad_mode}")
 
 
 def test_integer_steps_truncate_t_times_n_in_float32():
