@@ -106,7 +106,8 @@ Phases, each fatal on failure:
   14. the CLI: python -m diffpure_tpu_torch.cli as a subprocess in a fresh
      directory under chip_smoke_out/ with a seeded CIFAR-10 pickle fixture,
      on the BPDA, rand and rand L2 run scripts' flags (run_scripts/torch/
-     cifar10/) with tiny budgets and random weights, fp32, and on the three
+     cifar10/) with tiny budgets (the rand runs' APGD at 2 iterations,
+     TINY_AA_CLI_CODE) and random weights, fp32, and on the three
      ImageNet rand scripts' (run_scripts/torch/imagenet/) with a seeded
      image folder and the same images in an LMDB cache; each run must
      exit 0 and print its NFE report and results line, the BPDA run save
@@ -119,16 +120,37 @@ Phases, each fatal on failure:
      plain (CPU), the same noise; #6-#9 must launch (phase_adm_grad_parity);
   16. the ImageNet gradient-image rate: the input gradient of the
      cross-entropy of DefendedModel(resize_to=256) at t*=150, bf16 ADM +
-     ResNet-50, batch 2, both grad modes, cold and warm, wall time,
-     gradient-images/s and peak device memory, the launch counters exactly
-     the forward census times the mode's forward evaluations; batch 4 once
-     for its peak memory (phase_adm_grad_rate);
+     ResNet-50, batch 2, both grad modes, once each (phase 15 warmed the
+     paths), wall time, gradient-images/s and peak device memory, the
+     launch counters exactly the forward census times the mode's forward
+     evaluations (phase_adm_grad_rate);
   17. eval_autoattack 'rand' through the ImageNet defence at the budget
      AA_IMAGENET; x_adv in the eps-ball and in [0, 1], #6-#9 launched
      (phase_adm_attack);
   18. #10's gradient: the t*=5 DDPM purification's input gradient (fp32,
      batch 2, both modes, exact counters) and an NCSN++ 'ddpm' evaluation's
      (bf16), kernels (card) against plain (CPU) (phase_gn_silu_grad).
+  19. the CIFAR classifier zoo: ResNet-50, WRN-70-16 with dropout and the
+     DeepMind WRN-70-16 at full width, fp32, card against CPU at batch 4,
+     ms per forward at batch 64; the bf16 NCSN++ + WRN-70-16-dropout
+     defence at t*=100, batch 8, counters 40 / 36 / 10 per evaluation
+     (phase_classifiers);
+  20. the other purifiers: purify_ode at t*=100 (100 Euler steps), bf16,
+     batch 8, cold and warm, beside phase 3's SDE rate; at t*=2, batch 1,
+     the purified images and their input gradient through purify_ode
+     (checkpoint, adjoint, reversible), purify_ldsde (checkpoint, adjoint)
+     and purify_sde (reversible), fp32 and bf16, kernels (card) against
+     plain (CPU), the launch counters each mode derives; whether the score
+     model gives the same bits twice; reversible Heun's gradient at batch
+     16, t*=100 (rate, peak memory, reconstruction error) beside phase 5's,
+     and its gap to the exact gradient of the same solve (autograd through
+     its steps) (phase_purifiers);
+  21. eval_autoattack 'standard' (APGD-CE, APGD-T, FAB-T, Square) through
+     the bf16 CIFAR defence at t*=5, batch 4, a tiny budget, Linf and L2:
+     each attack attacks a non-empty set, x_adv in the ball and [0, 1],
+     #1-#5 launched; then the CLI on a stand, an ODE, a WRN-70-16 and an
+     ImageNet stand script's flags with tiny budgets, at once
+     (phase_standard).
 
 Needs the CUDA toolkit (nvcc) and one card; exits non-zero without them.
 Writes details (per-shape records, the compiler's report) to
@@ -157,6 +179,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chip_smoke_out"
@@ -346,10 +369,8 @@ NCSN_DDPM_REL = {"float32": 2e-4, "bfloat16": 5e-2}
 ADM_GRAD_PARITY_T = 2
 ADM_GRAD_REL = {"float32": 5e-4, "bfloat16": 1e-2}
 # Phase 16: the ImageNet gradient-image rate at JAX's ADM_GRAD_BATCH
-# (bench.py:186, t*=150), and the run scripts' --adv_batch_size once for
-# its peak memory.
+# (bench.py:186, t*=150).
 ADM_GRAD_N = 2
-ADM_GRAD_PEAK_N = 4
 # Phase 17: eval_autoattack 'rand' through the ImageNet defence: batch, t*
 # (Euler steps), APGD iterations, EOT samples, eps (the scripts' 0.0157).
 AA_IMAGENET = dict(batch=2, t=10, n_iter=2, eot_iter=2, eps=0.0157)
@@ -381,6 +402,17 @@ CLI_RUNS = {
     "rand_L2": ["--adv_batch_size", "4", "--num_sub", "4", "--t", "2", "--attack_version",
                 "rand", "--eot_iter", "1", "--lp_norm", "L2", "--adv_eps", "0.5"],
 }
+# The CLI with AutoAttack cut to AA_STANDARD's budget (the CLI has no flag
+# for it), then the launch counters: phase 14's rand runs (at APGD's
+# default 100 iterations rand_L2 alone held phase 14 for 77 s) and phase
+# 21's runs
+TINY_AA_CLI_CODE = (
+    "import functools, json, sys; from diffpure_tpu_torch import cli; "
+    "from diffpure_tpu_torch.eval import drivers; "
+    "from diffpure_tpu_torch.ops import launch_counts; "
+    "drivers.AutoAttackConfig = functools.partial(drivers.AutoAttackConfig, n_iter=2, "
+    "apgd_t_n_target_classes=2, fab_n_target_classes=2, square_n_queries=8); "
+    "cli.main(sys.argv[1:]); print('launches: ' + json.dumps(launch_counts()))")
 # ... and on the three ImageNet rand scripts' flags (run_scripts/torch/
 # imagenet/), each with its classifier; the first reads the image folder,
 # the others the same images from the LMDB cache beside it
@@ -398,6 +430,47 @@ CLI_WITH_COUNTS = ("import json, sys; from diffpure_tpu_torch import cli; "
                    "from diffpure_tpu_torch.ops import launch_counts; cli.main(sys.argv[1:]); "
                    "print('launches: ' + json.dumps(launch_counts()))")
 CLI_TIMEOUT_S = 400
+# Phase 19: the CIFAR classifier zoo (ROADMAP item 14) at full width, fp32,
+# with the CLI's classifier seed (1), so that phase 21's CLI run of the
+# WRN-70-16 script meets the same network: parameters, card against CPU at
+# batch ZOO_N (1e-4 of max |logit|, TF32 off), and the time per forward at
+# the run scripts' --adv_batch_size (ZOO_RATE_N).
+ZOO = {"cifar10-resnet-50": 23_520_842, "cifar10-wrn-70-16-dropout": 266_796_506,
+       "cifar10-wrn-70-16-at0": 266_796_506}
+ZOO_N, ZOO_RATE_N, ZOO_REL = 4, 64, 1e-4
+# Phase 20: the ODE, LDSDE and reversible purifiers (ROADMAP item 11),
+# (diffusion_type, grad_mode) each, at t* = PURIFY_T, batch PURIFY_N: the
+# purified images and their input gradient, card against CPU at phases 4 and 6's
+# bounds (SLICE_REL, GRAD_REL): the images against the CPU's in the same
+# dtype, the gradients against the CPU's fp32, as phase 15 does (a
+# rehearsal on the card machine's CPU, at this width, put each mode's plain
+# bf16 gradient 1.4e-5 to 1.5e-3 of max |plain| from its fp32 one; the
+# CPU's bf16 gradients would cost the run about four minutes). t* = 2 (two
+# ODE / SDE steps, one LDSDE step), the depth of the CPU parity tests, and
+# batch 1: the CPU's side at t* = 5, batch 2 took two minutes of the run.
+PURIFY_MODES = (("ode", "checkpoint"), ("ode", "adjoint"), ("ode", "reversible"),
+                ("ldsde", "checkpoint"), ("ldsde", "adjoint"), ("sde", "reversible"))
+PURIFY_T, PURIFY_N = 2, 1
+# Phase 21: AutoAttack 'standard' through the bf16 CIFAR defence (WRN-28-10)
+# at the budget AA_STANDARD (t* = 5: at 10 the suites took 46 s of the
+# run), in each norm at its run scripts' eps
+AA_STANDARD = dict(batch=4, t=5, n_iter=2, apgd_t_n_target_classes=2,
+                   fab_n_target_classes=2, square_n_queries=8)
+STANDARD_EPS = {"Linf": 0.031373, "L2": 0.5}
+STANDARD_ATTACKS = ("apgd-ce", "apgd-t", "fab-t", "square")
+# ... and the CLI on the new run scripts' flags (run_scripts/torch/), the
+# flags read from each script with a tiny budget in place of its own:
+# (script under run_scripts/torch/, budget)
+STAND_CLI_RUNS = {
+    "stand_inf": ("cifar10/run_cifar_stand_inf.sh",
+                  ["--num_sub", "4", "--adv_batch_size", "4", "--t", "2"]),
+    "rand_inf_ode": ("cifar10/run_cifar_rand_inf_ode.sh",
+                     ["--num_sub", "4", "--adv_batch_size", "4", "--t", "2", "--eot_iter", "1"]),
+    "stand_L2_70-16-dp": ("cifar10/run_cifar_stand_L2_70-16-dp.sh",
+                          ["--num_sub", "4", "--adv_batch_size", "4", "--t", "2"]),
+    "in_stand_inf": ("imagenet/run_in_stand_inf.sh",
+                     ["--num_sub", "2", "--adv_batch_size", "2", "--t", "2"]),
+}
 
 
 def log(*a):
@@ -2312,30 +2385,19 @@ def phase_cli(rng):
         (root / "configs").mkdir()
         for yml in ("cifar10.yml", "imagenet.yml"):
             shutil.copy(REPO / "configs" / yml, root / "configs" / yml)
-    jobs = [(v, work, ["-m", "diffpure_tpu_torch.cli", *CLI_COMMON, *flags],
+    jobs = [(v, work, [*(["-c", TINY_AA_CLI_CODE] if v.startswith("rand") else
+                         ["-m", "diffpure_tpu_torch.cli"]), *CLI_COMMON, *flags],
              "cifar10-wideresnet-28-10") for v, flags in CLI_RUNS.items()]
     jobs += [(v, roots[kind == "lmdb"], ["-c", CLI_WITH_COUNTS, *IMAGENET_CLI_COMMON,
                                          "--classifier_name", clf], clf)
              for v, (clf, kind) in IMAGENET_CLI_RUNS.items()]
-    # all runs at once (each process mostly builds its models on the host);
-    # every child is waited for or killed before the phase ends
-    t0 = time.time()
-    procs = [(version, cwd, clf, subprocess.Popen(
-        [sys.executable, *args], cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, env={**os.environ, "PYTHONPATH": str(REPO)}))
-        for version, cwd, args, clf in jobs]
-    done = []
-    try:
-        for version, cwd, clf, proc in procs:
-            out, err = proc.communicate(timeout=max(1.0, CLI_TIMEOUT_S - (time.time() - t0)))
-            done.append((version, cwd, clf, proc.returncode, out, err, time.time() - t0))
-    finally:
-        for *_, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    # all runs at once (each process mostly builds its models on the host)
+    meta = {version: (cwd, clf) for version, cwd, _, clf in jobs}
+    done = run_children([(version, cwd, args) for version, cwd, args, _ in jobs],
+                        CLI_TIMEOUT_S)
     runs = {}
-    for version, cwd, clf, returncode, stdout, stderr, wall in done:
+    for version, (returncode, stdout, stderr, wall) in done.items():
+        cwd, clf = meta[version]
         proc = subprocess.CompletedProcess([], returncode, stdout, stderr)
         (OUT / f"cli_{version}.log").write_text(proc.stdout + "\n---- stderr\n" + proc.stderr)
         lines = proc.stdout.splitlines()
@@ -2448,12 +2510,11 @@ def phase_adm_grad_rate(torch, dev, adm, clf, adm_per_eval, rng, smi):
     """Phase 16: the ImageNet gradient-image rate. The input gradient of the
     cross-entropy of DefendedModel(resize_to=256) (guided purify_sde at
     t*=150 through the bf16 ADM, ResNet-50) at batch ADM_GRAD_N, both grad
-    modes, cold and warm: wall time, gradient-images/s, peak device memory;
-    the launch counters must read the forward census (adm_per_eval) times
-    the mode's forward evaluations (GRAD_EVALS), every other kernel 0 (the
-    backward is autograd of the plain versions). Then batch
-    ADM_GRAD_PEAK_N (the run scripts' --adv_batch_size) once, in the CLI's
-    default mode, for its peak memory."""
+    modes, once each (phase 15's gradients warmed both paths): wall time,
+    gradient-images/s, peak device memory; the launch counters must read
+    the forward census (adm_per_eval) times the mode's forward evaluations
+    (GRAD_EVALS), every other kernel 0 (the backward is autograd of the
+    plain versions)."""
     import numpy as np
     from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
 
@@ -2489,9 +2550,7 @@ def phase_adm_grad_rate(torch, dev, adm, clf, adm_per_eval, rng, smi):
             raise AssertionError(f"{mode}: launch counts {counts} != {want}")
 
     for mode in GRAD_MODES:
-        for run in ("cold", "warm"):
-            one(mode, ADM_GRAD_N, run)
-    one("checkpoint", ADM_GRAD_PEAK_N, "once")
+        one(mode, ADM_GRAD_N, "warm")
     return runs
 
 
@@ -2607,6 +2666,449 @@ def phase_gn_silu_grad(torch, dev, ddpm, ncsn_ddpm, clf, rng, smi):
     if bad:
         raise AssertionError(f"#10 gradient card against CPU: {bad} disagree ({checks})")
     return checks
+
+
+def seeded_classifier(torch, name, seed=1):
+    """A registry classifier with seeded normal weights (the CLI's classifier
+    seed by default), eval mode, frozen, on the CPU."""
+    import numpy as np
+    from diffpure_tpu_torch.classifiers import get_classifier
+    from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
+
+    m = get_classifier(name).eval()
+    m.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in
+                       seeded_normal_state_dict(m, seed).items()})
+    return m.requires_grad_(False)
+
+
+def phase_classifiers(torch, dev, score, x01, rng, smi):
+    """Phase 19: the CIFAR classifier zoo. ResNet-50, WRN-70-16 with dropout
+    and the DeepMind WRN-70-16 at full width (ZOO's parameter counts), fp32:
+    card against CPU at batch ZOO_N (ZOO_REL), CUDA-event and device
+    (profiler) ms per forward at batch ZOO_RATE_N; then the bf16 NCSN++
+    DefendedModel + WRN-70-16-dropout at t*=EVALS on ``x01`` under
+    inference_mode, whose launch counters must read 40 / 36 / 10 per
+    evaluation. Returns (records, the WRN-70-16-dropout on the card)."""
+    import numpy as np
+    from diffpure_tpu_torch.eval import DefendedModel
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.purify import PurifyConfig
+
+    x4 = torch.from_numpy(rng.uniform(size=(ZOO_N, 32, 32, 3)).astype(np.float32))
+    x64 = torch.from_numpy(rng.uniform(size=(ZOO_RATE_N, 32, 32, 3)).astype(np.float32)).to(dev)
+    records, keep = {}, None
+    for name, n_want in ZOO.items():
+        t0 = time.time()
+        m = seeded_classifier(torch, name)
+        build_s = time.time() - t0
+        n_params = sum(p.numel() for p in m.parameters())
+        with torch.inference_mode():
+            t0 = time.time()
+            want = m(x4)
+            cpu_s = time.time() - t0
+            m.to(dev)
+            got = m(x4.to(dev)).cpu()
+            ms = cuda_ms(torch, lambda: m(x64), reps=10)
+            dev_ms = device_ms(torch, lambda: m(x64), reps=5)["total"]
+        rec = dict(params=n_params, seeded_build_s=build_s, cpu_batch4_s=cpu_s,
+                   batch=ZOO_RATE_N, ms=ms, device_ms=dev_ms, **rel_check(torch, got, want, ZOO_REL))
+        rec["ok"] = rec["ok"] and n_params == n_want and tuple(got.shape) == (ZOO_N, 10)
+        records[name] = rec
+        log(f"  {name}: {n_params:,} parameters (seeded in {build_s:.1f} s); max |card - cpu| "
+            f"{rec['max_abs_err']:.3e} (rel {rec['rel_err']:.2e} <= {ZOO_REL:.0e}) "
+            f"{'ok' if rec['ok'] else 'FAIL'}; batch {ZOO_RATE_N}: {ms:.3f} ms a forward "
+            f"(events), {dev_ms:.3f} ms of device time on {smi}")
+        if not rec["ok"]:
+            raise AssertionError(f"classifier {name}: card against CPU failed ({rec})")
+        if name == "cifar10-wrn-70-16-dropout":
+            keep = m
+        else:
+            m.cpu()
+    score.dtype = torch.bfloat16
+    dm = DefendedModel(score, keep, PurifyConfig(t=EVALS, grad_mode="none"), log_every=0)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with torch.inference_mode():
+        logits = dm(x01, SEED + 31)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    n = x01.shape[0]
+    log(f"  bf16 NCSN++ + WRN-70-16-dropout, t*={EVALS}, batch {n}: {wall:.3f} s, "
+        f"{n / wall:.3f} images/s on {smi}; launches {counts}")
+    if counts != expected_counts(EVALS):
+        raise AssertionError(f"launch counts {counts} != {expected_counts(EVALS)}")
+    if tuple(logits.shape) != (n, 10) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"bad logits: shape {tuple(logits.shape)}")
+    records["defended_wrn_70_16_dropout"] = dict(wall_s=wall, images_per_s=n / wall,
+                                                 counts=counts)
+    return records, keep
+
+
+def purify_steps(kind, t):
+    """The solver steps of one purification at t* (purify/runners.py, the
+    PurifyConfig defaults): the ODE's round(t / 1000 / step_size), the
+    LDSDE's round((t1 - t0) / ldsde_dt) of at least 1, the SDE's t."""
+    if kind == "ode":
+        return max(int(round(t / 1000.0 / 1e-3)), 1)
+    if kind == "ldsde":
+        return max(int(round(((1.0 - 1e-5) - (1.0 - t / 1000.0)) / 1e-2)), 1)
+    return t
+
+
+def purify_evals(kind, mode, t):
+    """(forward, backward) score evaluations of one purification's input
+    gradient: 'checkpoint' runs each step forward twice (the recompute),
+    'adjoint' three times (the rebuild without a graph, then the VJP's),
+    reversible Heun n + 1 forward, then four a step in the backward (two
+    to rebuild, two in the local VJP) and two backward."""
+    n = purify_steps(kind, t)
+    return {"checkpoint": (2 * n, n), "adjoint": (3 * n, n),
+            "reversible": (5 * n + 1, 2 * n)}[mode]
+
+
+def grad_counts(fwd, bwd):
+    """Launch counts of ``fwd`` CIFAR NCSN++ forward and ``bwd`` backward
+    evaluations (phase 5's derivation)."""
+    return {**expected_counts(fwd),
+            **{k: KERNELS[v[2]][2] * bwd for k, v in BWD_KERNELS.items()}}
+
+
+def reversible_heun_unrolled(drift, diffusion, x0, t0, t1, n_steps, dw, params=()):
+    """sdeint_reversible_heun's solve, the drift at the same times, with
+    autograd through its steps (each checkpointed): the exact gradient of
+    the same discrete solve, which the algebraic reversal reproduces only
+    as far as its rebuilt trajectory lands on the forward's."""
+    import numpy as np
+    from torch.utils.checkpoint import checkpoint
+    from diffpure_tpu_torch.solvers.reversible import _grid, _local_step
+
+    dt, t_at = _grid(t0, t1, n_steps)
+    y = yhat = x0
+    for i in range(n_steps):
+        # the forward evaluates step i's first drift where step i - 1 ended
+        t_n = t_at(0) if i == 0 else np.float32(t_at(i - 1) + dt)
+        y, yhat = checkpoint(_local_step, drift, diffusion, y, yhat, t_n,
+                             np.float32(t_at(i) + dt), float(dt), dw(i), use_reentrant=False)
+    return y
+
+
+def purify_value_grad(torch, dm, x01, w, noise):
+    """(dm.purify(x01, noise), d/dx of sum(w * that))."""
+    x = x01.detach().clone().requires_grad_(True)
+    out = dm.purify(x, noise)
+    (gx,) = torch.autograd.grad((w.to(x.device) * out).sum(), x)
+    return out.detach(), gx
+
+
+def phase_purifiers(torch, dev, score, clf, x01, rng, smi, sde_rate=None, grad_runs=()):
+    """Phase 20: the other purifiers. (a) purify_ode at t*=EVALS (EVALS Euler
+    steps), bf16, batch 8, cold and warm, counters 40 / 36 / 10 per step,
+    beside phase 3's SDE rate (``sde_rate``); (b) each PURIFY_MODES entry at
+    t*=PURIFY_T, batch PURIFY_N: the purified images and their input gradient
+    (seeded cotangent), card against CPU with the same noise (the bounds at
+    PURIFY_MODES), fp32 and bf16, with the launch counters each mode derives
+    (purify_evals), #4 / #5 included; (c) whether the score model returns
+    the same bits twice (the reversal needs it), and reversible Heun's
+    gradient at batch GRAD_N, t*=EVALS: wall, gradient-images/s, peak
+    memory and the reconstruction error, beside phase 5's ``grad_runs``,
+    and its gap to the exact gradient of the same solve on the same inputs
+    and noise (reversible_heun_unrolled), max |rev - exact| / max |exact|."""
+    import numpy as np
+    from diffpure_tpu_torch.eval import DefendedModel, get_accuracy
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.purify import PurifyConfig, runners
+    from diffpure_tpu_torch.solvers.reversible import last_reconstruction_error
+
+    out = dict(ode_runs=[], checks={}, determinism={})
+    score.dtype = torch.bfloat16
+    n = x01.shape[0]
+    y = torch.from_numpy(rng.integers(0, 10, n)).to(dev)
+    dm = DefendedModel(score, clf, PurifyConfig(diffusion_type="ode", t=EVALS, grad_mode="none"),
+                       log_every=0)
+    for run in ("cold", "warm"):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.inference_mode():
+            get_accuracy(dm, x01, y, seed=SEED + 32, bs=n)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = launch_counts()
+        out["ode_runs"].append(dict(run=run, wall_s=wall, images_per_s=n / wall, counts=counts))
+        log(f"  ODE t*={EVALS} ({EVALS} Euler steps) {run}: {wall:.3f} s, {n / wall:.3f} "
+            f"purified images/s on {smi} (the SDE's, phase 3 warm: "
+            f"{sde_rate if sde_rate is None else f'{sde_rate:.3f}'}); launches {counts}")
+        if counts != expected_counts(EVALS):
+            raise AssertionError(f"ODE launch counts {counts} != {expected_counts(EVALS)}")
+
+    x2 = x01[:PURIFY_N]
+    w = torch.from_numpy(rng.standard_normal((PURIFY_N, 32, 32, 3)).astype(np.float32))
+    dms = {(k, m): DefendedModel(score, clf, PurifyConfig(diffusion_type=k, t=PURIFY_T,
+                                                           grad_mode=m), log_every=0)
+           for k, m in PURIFY_MODES}
+    card, counts, recon, plain = {}, {}, {}, {}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        score.dtype = dtype
+        for key, d in dms.items():
+            reset_launch_counts()
+            card[dtype_name, key] = [v.cpu() for v in purify_value_grad(
+                torch, d, x2, w, FixedNoise(SEED + 33))]
+            counts[dtype_name, key] = launch_counts()
+            if key[1] == "reversible":
+                recon[dtype_name, key] = last_reconstruction_error()
+    t0 = time.time()
+    score.cpu()
+    for key, d in dms.items():
+        score.dtype = torch.float32
+        plain["float32", key] = purify_value_grad(torch, d, x2.cpu(), w,
+                                                  FixedNoise(SEED + 33))
+        score.dtype = torch.bfloat16
+        with torch.inference_mode():
+            plain["bfloat16", key] = (d.purify(x2.cpu(), FixedNoise(SEED + 33)), None)
+    score.to(dev)
+    score.dtype = torch.bfloat16
+    log(f"  the CPU's side of (b): {time.time() - t0:.1f} s")
+    for (dtype_name, key), (got_x, got_g) in card.items():
+        fwd, bwd = purify_evals(*key, PURIFY_T)
+        want_counts = grad_counts(fwd, bwd)
+        rx = rel_check(torch, got_x, plain[dtype_name, key][0], SLICE_REL[dtype_name])
+        rg = rel_check(torch, got_g, plain["float32", key][1], GRAD_REL[dtype_name])
+        ok = rx["ok"] and rg["ok"] and counts[dtype_name, key] == want_counts
+        rec = dict(purified=rx, gradient=rg, evals=(fwd, bwd), counts=counts[dtype_name, key],
+                   ok=ok)
+        if (dtype_name, key) in recon:
+            rec["reconstruction_error"] = recon[dtype_name, key]
+        out["checks"][f"{dtype_name}/{key[0]}/{key[1]}"] = rec
+        log(f"  {dtype_name:8s} {key[0]:5s} {key[1]:10s}: purified rel {rx['rel_err']:.2e} "
+            f"(<= {rx['rel_tol']:.0e}), gradient rel {rg['rel_err']:.2e} (<= {rg['rel_tol']:.0e}"
+            f", against the CPU's fp32); {fwd} / {bwd} evaluations, launches "
+            f"{'as derived' if counts[dtype_name, key] == want_counts else counts[dtype_name, key]}"
+            + (f"; reconstruction error {recon[dtype_name, key]:.3e}"
+               if (dtype_name, key) in recon else "") + f" {'ok' if ok else 'FAIL'}")
+    bad = [k for k, v in out["checks"].items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"purifiers card against CPU: {bad} failed")
+
+    xg = torch.from_numpy(rng.uniform(size=(GRAD_N, 32, 32, 3)).astype(np.float32)).to(dev)
+    yg = torch.from_numpy(rng.integers(0, 10, GRAD_N)).to(dev)
+    ts = torch.full((GRAD_N,), 99.9, device=dev)
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        score.dtype = dtype
+        with torch.inference_mode():
+            a, b = score(xg * 2 - 1, ts), score(xg * 2 - 1, ts)
+        out["determinism"][dtype_name] = dict(same_bits=bool(torch.equal(a, b)),
+                                              max_abs_diff=float((a - b).abs().max()))
+        log(f"  the score model twice on the same input, {dtype_name}: "
+            f"{'the same bits' if torch.equal(a, b) else 'DIFFERENT bits'} (max |diff| "
+            f"{out['determinism'][dtype_name]['max_abs_diff']:.3e})")
+    score.dtype = torch.bfloat16
+    dmr = DefendedModel(score, clf, PurifyConfig(t=EVALS, grad_mode="reversible"), log_every=0)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.time()
+    gx, _ = input_grad(torch, dmr, xg, yg, SEED + 34)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = launch_counts()
+    want = grad_counts(*purify_evals("sde", "reversible", EVALS))
+    err = last_reconstruction_error()
+    with mock.patch.object(runners, "sdeint_reversible_heun", reversible_heun_unrolled):
+        gx_exact, _ = input_grad(torch, dmr, xg, yg, SEED + 34)
+    gap = float((gx - gx_exact).abs().max() / gx_exact.abs().max())
+    out["reversible"] = dict(wall_s=wall, grad_images_per_s=GRAD_N / wall, peak_gib=peak,
+                             held_gib=held, counts=counts, reconstruction_error=err,
+                             gap_to_exact=gap)
+    others = "; ".join(f"{r['mode']} {r['run']} {r['grad_images_per_s']:.3f}, peak "
+                       f"{r['peak_gib']:.2f} GiB" for r in grad_runs)
+    log(f"  reversible, t*={EVALS}, bf16, batch {GRAD_N}: {wall:.3f} s, "
+        f"{GRAD_N / wall:.3f} gradient-images/s on {smi}; peak device memory {peak:.2f} GiB "
+        f"({held:.2f} held before); reconstruction error {err:.3e}; gradient against the "
+        f"exact one of the same solve: rel {gap:.3e}; launches {counts} (phase 5: {others})")
+    if tuple(gx.shape) != tuple(xg.shape) or not bool(torch.isfinite(gx).all()) \
+            or not bool((gx != 0).any()) or not np.isfinite(gap):
+        raise AssertionError(f"reversible: bad input gradient, shape {tuple(gx.shape)}")
+    if counts != want:
+        raise AssertionError(f"reversible: launch counts {counts} != {want}")
+    return out
+
+
+def run_children(jobs, timeout_s):
+    """Start every (tag, cwd, argv) job as a ``python`` process of its own,
+    all at once; return {tag: (returncode, stdout, stderr, seconds since
+    the start)}. Every child is waited for, or killed when the time is up."""
+    t0 = time.time()
+    procs = [(tag, subprocess.Popen([sys.executable, *argv], cwd=cwd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True,
+                                    env={**os.environ, "PYTHONPATH": str(REPO)}))
+             for tag, cwd, argv in jobs]
+    done = {}
+    try:
+        for tag, proc in procs:
+            stdout, stderr = proc.communicate(timeout=max(1.0, timeout_s - (time.time() - t0)))
+            done[tag] = (proc.returncode, stdout, stderr, time.time() - t0)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return done
+
+
+def script_flags(path, budget):
+    """The ``--flag value`` pairs of a run script, ``budget``'s in place of
+    its own, and the seeds fixed at 0."""
+    import re
+
+    flags = dict(re.findall(r"^\s+(--\w+) (\S+)", path.read_text(), re.M))
+    flags.update({"--seed": "0", "--data_seed": "0", **dict(zip(budget[::2], budget[1::2]))})
+    return [t for kv in flags.items() for t in kv]
+
+
+def cifar_fixture(root, data, clf, dev):
+    """root/dataset/cifar-10-batches-py/test_batch of ``data`` (uint8, N x
+    3072), labelled by ``clf``'s own predictions, and the repo's configs."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+
+    x = torch.from_numpy(data.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1).astype(np.float32)
+                         / 255.0).to(dev)
+    with torch.inference_mode():
+        labels = clf(x).argmax(-1).cpu().tolist()
+    (root / "dataset" / "cifar-10-batches-py").mkdir(parents=True)
+    with open(root / "dataset" / "cifar-10-batches-py" / "test_batch", "wb") as f:
+        pickle.dump({b"data": data, b"labels": labels}, f)
+    (root / "configs").mkdir()
+    shutil.copy(REPO / "configs" / "cifar10.yml", root / "configs" / "cifar10.yml")
+
+
+def phase_standard(torch, dev, score, clf, wrn70, x01, rng, smi):
+    """Phase 21: eval_autoattack 'standard' (APGD-CE, APGD-T, FAB-T, Square)
+    through the bf16 CIFAR defence (WRN-28-10, grad_mode 'checkpoint') at
+    the budget AA_STANDARD, in Linf and L2 (STANDARD_EPS). The labels are
+    the defence's own prediction under the noise of the suite's clean
+    evaluation, so every example starts robust. An attack that the suite
+    left no example to (the earlier ones flipped them all) runs alone on
+    every example ('custom'), so that each of the four attacks attacks a
+    non-empty set through the defence. x_adv must lie in the ball and in
+    [0, 1], and #1-#5 must launch. Then the CLI on STAND_CLI_RUNS's scripts
+    at once (processes of their own, the suite cut to AA_STANDARD's
+    budget), on a seeded CIFAR-10 fixture labelled by each script's
+    classifier (the CLI's seeds: WRN-28-10 is ``clf``, WRN-70-16 ``wrn70``)
+    and an ImageNet image folder; each must exit 0, print its NFE report and
+    results line and launch its path's kernels."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from diffpure_tpu_torch.attacks import AutoAttackConfig
+    from diffpure_tpu_torch.eval import DefendedModel, eval_autoattack
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.purify import PurifyConfig
+    from diffpure_tpu_torch.utils.prng import fold_in
+
+    b = AA_STANDARD
+    score.dtype = torch.bfloat16
+    x = x01[:b["batch"]]
+    dm = DefendedModel(score, clf, PurifyConfig(t=b["t"], grad_mode="checkpoint"), log_every=0)
+    budget = {k: v for k, v in b.items() if k not in ("batch", "t")}
+    suites = {}
+    for norm, eps in STANDARD_EPS.items():
+        seed = SEED + 50 + len(suites)
+        with torch.no_grad():
+            y = dm(x, fold_in(fold_in(seed, 1), 7)).argmax(-1)
+        cfg = AutoAttackConfig(version="standard", norm=norm, eps=eps, **budget)
+        done = []  # the defended suite's phase_results, by its on_phase hook
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = eval_autoattack(dm, x, y, seed, cfg, log=lambda s: log(f"  {s}"),
+                              on_phase=lambda r: done.__setitem__(slice(None), r))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        phases = {name: dict(attacked=n, seconds=sec, robust_acc=acc, alone=False)
+                  for name, acc, n, sec in done}
+        x_adv = res["x_adv"]
+        for name in STANDARD_ATTACKS:
+            if name in phases:
+                continue
+            alone = AutoAttackConfig(version="custom", attacks_to_run=(name,), norm=norm,
+                                     eps=eps, **budget)
+            more = eval_autoattack(dm, x, y, seed, alone, log=lambda s: log(f"  {s}"),
+                                   on_phase=lambda r: done.__setitem__(slice(None), r))
+            for nm, acc, n, sec in done:
+                phases[nm] = dict(attacked=n, seconds=sec, robust_acc=acc, alone=True)
+            x_adv = torch.cat([x_adv, more["x_adv"]])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        d = (x_adv - x.repeat(x_adv.shape[0] // x.shape[0], 1, 1, 1)).reshape(x_adv.shape[0], -1)
+        dist = float(d.abs().max(-1).values.max() if norm == "Linf" else d.norm(dim=-1).max())
+        suites[norm] = dict(wall_s=wall, eps=eps, phases=phases, counts=counts, max_dist=dist,
+                            classifier_robust_acc=res["classifier_robust_acc"],
+                            defended_robust_acc=res["defended_robust_acc"])
+        log(f"  standard {norm}: {wall:.1f} s on {smi} (the suite, with its classifier-only "
+            f"baseline); per attack (attacked, s): "
+            + ", ".join(f"{k} ({v['attacked']}, {v['seconds']:.1f}"
+                        f"{', alone' if v['alone'] else ''})" for k, v in phases.items())
+            + f"; max |x_adv - x| {dist:.5f} <= {eps}; launches {counts}")
+        empty = [k for k in STANDARD_ATTACKS if phases.get(k, {}).get("attacked", 0) == 0]
+        if empty:
+            raise AssertionError(f"standard {norm}: {empty} attacked no example")
+        if not bool(torch.isfinite(x_adv).all()) or dist > eps + 1e-5 \
+                or float(x_adv.min()) < 0 or float(x_adv.max()) > 1:
+            raise AssertionError(f"standard {norm}: x_adv leaves the ball or [0, 1]")
+        idle = [k for k in (*KERNELS, *BWD_KERNELS) if counts[k] == 0]
+        if idle:
+            raise AssertionError(f"standard {norm}: kernels of the path never launched: {idle}")
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="stand_", dir=OUT))
+    data = rng.integers(0, 256, (64, 3072), dtype=np.uint8)
+    roots = {"cifar10-wideresnet-28-10": work / "wrn28", "cifar10-wrn-70-16-dropout": work / "wrn70"}
+    for name, m in (("cifar10-wideresnet-28-10", clf), ("cifar10-wrn-70-16-dropout", wrn70)):
+        cifar_fixture(roots[name], data, m, dev)
+    folder = imagenet_fixture(rng, work / "in")[0]
+    (folder / "configs").mkdir()
+    shutil.copy(REPO / "configs" / "imagenet.yml", folder / "configs" / "imagenet.yml")
+    jobs, where = [], {}
+    for tag, (script, budget_flags) in STAND_CLI_RUNS.items():
+        argv = script_flags(REPO / "run_scripts" / "torch" / script, budget_flags)
+        clf_name = argv[argv.index("--classifier_name") + 1]
+        cwd = folder if script.startswith("imagenet") else roots[clf_name]
+        where[tag] = (cwd, clf_name, argv)
+        jobs.append((tag, cwd, ["-c", TINY_AA_CLI_CODE, *argv, "--random_weights"]))
+    runs = {}
+    for tag, (rc, stdout, stderr, secs) in run_children(jobs, CLI_TIMEOUT_S).items():
+        (OUT / f"cli_{tag}.log").write_text(stdout + "\n---- stderr\n" + stderr)
+        lines = stdout.splitlines()
+        nfe = [ln for ln in lines if ln.startswith("NFE total=")]
+        results = [ln for ln in lines if ln.startswith("results: {")]
+        counts = [json.loads(ln[len("launches: "):]) for ln in lines if ln.startswith("launches: ")]
+        cwd, clf_name, argv = where[tag]
+        version = argv[argv.index("--attack_version") + 1]
+        kind = argv[argv.index("--diffusion_type") + 1]
+        log_dir = cwd / "exp_results" / "images" / clf_name / f"{kind}_{version}" / "seed0" / "data0"
+        saved = sorted(p.name for p in log_dir.glob("*.npy"))
+        runs[tag] = dict(rc=rc, wall_s=secs, nfe=nfe, results=results, saved=saved,
+                         counts=counts[-1] if counts else None)
+        log(f"  {tag}: rc {rc}, done {secs:.1f} s after the runs started together on the card; "
+            f"{nfe[-1] if nfe else 'no NFE report'}; {results[-1][:200] if results else 'no results'}"
+            f"; saved {saved}; launches {counts[-1] if counts else None}")
+        path = ADM_KERNELS if tag.startswith("in_") else KERNELS
+        bad = rc != 0 or not nfe or not results or not counts or \
+            f"x_adv_defended_{version}.npy" not in saved or \
+            min(counts[-1][k] for k in path if k != "flash_attention") == 0
+        if bad:
+            log(stderr[-3000:])
+            raise AssertionError(f"the CLI's {tag} run failed (chip_smoke_out/cli_{tag}.log)")
+    return dict(budget=b, suites=suites, cli_runs=runs)
 
 
 def main() -> int:
@@ -3198,15 +3700,14 @@ def main() -> int:
 
     # ---- phase 15 -----------------------------------------------------------
     log(f"== phase 15: ImageNet purification input gradient, t*={ADM_GRAD_PARITY_T}, batch 1, "
-        f"full-width ADM (flash on), fp32 + bf16, both grad modes, kernels (GPU) against "
-        f"plain (CPU)")
+        f"full-width ADM (flash on), fp32 + bf16, both grad modes, kernels "
+        f"(GPU) against plain (CPU)")
     adm_grad_checks = phase_adm_grad_parity(torch, dev, adm, rn50, rng, smi)
     phase_done("15")
 
     # ---- phase 16 -----------------------------------------------------------
     log(f"== phase 16: input gradient of CE(DefendedModel(resize_to=256)), t*={ADM_EVALS}, "
-        f"bf16 ADM + ResNet-50, batch {ADM_GRAD_N}, both grad modes, cold + warm; batch "
-        f"{ADM_GRAD_PEAK_N} once")
+        f"bf16 ADM + ResNet-50, batch {ADM_GRAD_N}, both grad modes, once each (warm)")
     adm_grad_runs = phase_adm_grad_rate(torch, dev, adm, rn50, adm_per_eval, rng, smi)
     phase_done("16")
 
@@ -3224,6 +3725,31 @@ def main() -> int:
                              f"{DDPM_GRAD_CENSUS} per evaluation")
     gn_grad_checks = phase_gn_silu_grad(torch, dev, ddpm, ncsn_ddpm, clf, rng, smi)
     phase_done("18")
+
+    # ---- phase 19 -----------------------------------------------------------
+    log(f"== phase 19: the CIFAR classifier zoo at full width (fp32, card against CPU, batch "
+        f"{ZOO_N}; ms a forward at batch {ZOO_RATE_N}) and the bf16 NCSN++ + WRN-70-16-dropout "
+        f"defence at t*={EVALS}, batch {N}")
+    for m in (ddpm, ncsn_ddpm, adm):
+        m.cpu()  # the ImageNet and DDPM phases are done: free the card's memory
+    torch.cuda.empty_cache()
+    zoo, wrn70 = phase_classifiers(torch, dev, score, x01, rng, smi)
+    phase_done("19")
+
+    # ---- phase 20 -----------------------------------------------------------
+    log(f"== phase 20: the ODE, LDSDE and reversible purifiers: ODE t*={EVALS}, bf16, batch {N}; "
+        f"t*={PURIFY_T}, batch {PURIFY_N}, {len(PURIFY_MODES)} modes, fp32 + bf16, card against "
+        f"CPU; reversible Heun's gradient at batch {GRAD_N}, t*={EVALS}")
+    warm5 = [r for r in grad_runs if r["run"] == "warm"]
+    purifiers = phase_purifiers(torch, dev, score, clf, x01, rng, smi,
+                                sde_rate=runs[1]["images_per_s"], grad_runs=warm5)
+    phase_done("20")
+
+    # ---- phase 21 -----------------------------------------------------------
+    log(f"== phase 21: eval_autoattack 'standard' through the bf16 CIFAR defence, {AA_STANDARD}, "
+        f"Linf and L2; then the CLI on {', '.join(STAND_CLI_RUNS)}'s flags with tiny budgets")
+    standard = phase_standard(torch, dev, score, clf, wrn70, x01, rng, smi)
+    phase_done("21")
 
     # ---- report -------------------------------------------------------------
     kernels = []
@@ -3297,6 +3823,7 @@ def main() -> int:
         ddpm_runs=ddpm_runs, ddpm_checks=ddpm_checks, bpda_runs=bpda_runs, dpm_runs=dpm_runs,
         dpm_checks=dpm_checks, cli_runs=cli_runs, adm_grad_checks=adm_grad_checks,
         adm_grad_runs=adm_grad_runs, adm_attack=adm_attack, gn_grad_checks=gn_grad_checks,
+        classifier_zoo=zoo, purifiers=purifiers, standard=standard,
         phase_s=phase_s, kernels=kernels),
         indent=1))
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")

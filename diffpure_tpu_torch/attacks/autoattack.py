@@ -9,8 +9,6 @@ the reference's version selection (ref eval_sde_adv.py:103-131):
   - 'custom':   a chosen subset via attacks_to_run
 Each attack runs only on the examples still classified correctly (the
 robust-flags protocol); robust accuracy is the fraction that survives all.
-FAB-T and Square wait for ROADMAP Slice 2 item 12, so a suite that names
-them is refused when it is built.
 """
 from __future__ import annotations
 
@@ -21,12 +19,14 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from diffpure_tpu_torch.attacks.apgd import APGDConfig, apgd_attack
+from diffpure_tpu_torch.attacks.fab import FABConfig, fab_attack
+from diffpure_tpu_torch.attacks.square import SquareConfig, square_attack
 from diffpure_tpu_torch.utils.prng import fold_in
 
 Tensor = torch.Tensor
 ModelFn = Callable[[Tensor, int], Tensor]  # (x01, seed) -> logits
 
-PORTED = ("apgd-ce", "apgd-dlr", "apgd-t")
+ATTACKS = ("apgd-ce", "apgd-dlr", "apgd-t", "fab-t", "square")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,12 +50,16 @@ class AutoAttackConfig:
 
 
 class AutoAttack:
-    """Suite runner. model_fn(x01, seed) -> logits."""
+    """Suite runner. model_fn(x01, seed) -> logits. ``on_phase``, if given,
+    is called with ``phase_results`` after each finished attack phase (a
+    hook to persist a long suite's progress, JAX :56)."""
 
-    def __init__(self, model_fn: ModelFn, cfg: AutoAttackConfig, log_fn=print):
+    def __init__(self, model_fn: ModelFn, cfg: AutoAttackConfig, log_fn=print,
+                 on_phase=None):
         self.model_fn = model_fn
         self.cfg = cfg
         self.log = log_fn
+        self.on_phase = on_phase
         if cfg.version == "standard":
             self.attacks = ["apgd-ce", "apgd-t", "fab-t", "square"]
         elif cfg.version == "rand":
@@ -64,16 +68,21 @@ class AutoAttack:
             self.attacks = list(cfg.attacks_to_run)
         else:
             raise ValueError(cfg.version)
-        later = [a for a in self.attacks if a in ("fab-t", "square")]
-        if later:
-            raise NotImplementedError(
-                f"{', '.join(later)} wait(s) for ROADMAP Slice 2 item 12")
-        unknown = [a for a in self.attacks if a not in PORTED]
+        unknown = [a for a in self.attacks if a not in ATTACKS]
         if unknown:
             raise ValueError(f"unknown attacks {unknown}")
 
     def _run_one(self, name: str, x: Tensor, y: Tensor, seed: int):
         cfg = self.cfg
+        if name == "fab-t":
+            return fab_attack(self.model_fn, x, y, seed, FABConfig(
+                norm=cfg.norm, eps=cfg.eps, n_iter=cfg.n_iter,
+                n_target_classes=cfg.fab_n_target_classes,
+                iters_per_dispatch=cfg.fab_iters_per_dispatch))
+        if name == "square":
+            return square_attack(self.model_fn, x, y, seed, SquareConfig(
+                norm=cfg.norm, eps=cfg.eps, n_queries=cfg.square_n_queries,
+                iters_per_dispatch=cfg.square_iters_per_dispatch))
         common = dict(norm=cfg.norm, eps=cfg.eps, n_iter=cfg.n_iter,
                       eot_iter=cfg.eot_iter,
                       iters_per_dispatch=cfg.apgd_iters_per_dispatch)
@@ -130,6 +139,8 @@ class AutoAttack:
                      f"(attacked {idx.numel()}, {time.time() - t0:.1f}s)")
             self.phase_results.append(
                 (name, acc, int(idx.numel()), round(time.time() - t0, 1)))
+            if self.on_phase is not None:
+                self.on_phase(self.phase_results)
 
         return x_adv, robust.to(x.device)
 

@@ -28,6 +28,10 @@ class BatchNormInference(nn.Module):
         return x * inv + (self.bias - self.running_mean * inv)
 
 
+# the CIFAR-10 normalisation inside the CIFAR classifiers (ref
+# classifiers/cifar10_resnet.py, robustbench dm_wide_resnet.py)
+CIFAR10_MEAN = (0.4914, 0.4822, 0.4465)
+CIFAR10_STD = (0.2471, 0.2435, 0.2616)
 # the ImageNet normalisation of the torchvision classifiers
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)

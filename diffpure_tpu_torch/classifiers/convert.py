@@ -14,15 +14,16 @@ from diffpure_tpu_torch.models.convert import flatten_params, split_module, \
 _BN_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
-def wideresnet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Keys ``block1/layer_0/bn1/scale`` -> ``block1.layer.0.bn1.weight``
-    (any classifier whose JAX translator is the generic digit merge);
-    BN ``mean``/``var`` -> ``running_mean``/``running_var`` (plus the
+def _classifier_state_dict(params: Mapping, split=split_module) -> Dict[str, torch.Tensor]:
+    """The inverse of ``translate_classifier`` (JAX convert.py:54): module
+    names through ``split`` (the digit merge undone), conv kernels HWIO ->
+    OIHW, Dense kernels transposed, norm ``scale`` -> ``weight``, BN
+    ``mean``/``var`` -> ``running_mean``/``running_var`` (plus the
     ``num_batches_tracked`` counter that PyTorch BatchNorm keys carry)."""
     sd = {}
     for path, v in flatten_params(params):
         *mods, leaf = path
-        prefix = ".".join(p for m in mods for p in split_module(m))
+        prefix = ".".join(p for m in mods for p in split(m))
         if leaf == "kernel":
             name, arr = "weight", (v.transpose(3, 2, 0, 1) if v.ndim == 4
                                    else v.transpose(1, 0))
@@ -39,8 +40,29 @@ def wideresnet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-# torchvision ResNets: ``layer1_0/downsample_0`` -> ``layer1.0.downsample.0``
+def wideresnet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """TRADES WideResNet at any depth and width (WRN-28-10, WRN-70-16 with
+    dropout): ``block1/layer_10/bn1/scale`` -> ``block1.layer.10.bn1.weight``
+    (JAX ``translate_wideresnet``)."""
+    return _classifier_state_dict(params)
+
+
+# torchvision ResNets: ``layer1_0/downsample_0`` -> ``layer1.0.downsample.0``;
+# the CIFAR ResNet-50: ``layer1_0/shortcut_0`` -> ``layer1.0.shortcut.0``
+# (JAX ``translate_torchvision_resnet``, ``translate_cifar_resnet``)
 torchvision_resnet_state_dict_from_flax = wideresnet_state_dict_from_flax
+cifar_resnet_state_dict_from_flax = wideresnet_state_dict_from_flax
+
+# robustbench DMWideResNet's own names that end in a digit
+_DM_NAMES = ("batchnorm_0", "batchnorm_1", "conv_0", "conv_1")
+
+
+def dm_wideresnet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """robustbench DMWideResNet (JAX ``translate_dm_wideresnet``):
+    ``layer_0/block_3/batchnorm_0/scale`` -> ``layer.0.block.3.batchnorm_0.weight``;
+    the block's ``batchnorm_i`` / ``conv_i`` keep their underscore."""
+    return _classifier_state_dict(
+        params, lambda m: [m] if m in _DM_NAMES else split_module(m))
 
 
 def vit_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:

@@ -6,7 +6,8 @@ eval_sde_adv_bpda.py:177-279):
 
 Builds the defended model from the YAML config and the checkpoints under
 ./pretrained/ (score_sde/checkpoint_8.pth, guided_diffusion/
-256x256_diffusion_uncond.pt, classifiers/<name>.pt), loads the evaluation
+256x256_diffusion_uncond.pt, classifiers/<name>.pt or the CIFAR paths of
+``CKPT_MAP``), loads the evaluation
 subset from ./dataset/ and runs the requested attack protocol.
 ``--random_weights`` (or a missing checkpoint, with a warning) runs the
 pipeline on seeded random weights: seeded normal ones for the ADM too,
@@ -75,9 +76,19 @@ def build_score_model(args, config, device: torch.device) -> torch.nn.Module:
     return _load_weights(model, sd, device)
 
 
+# the CIFAR classifiers that the reference keeps beside its robustbench
+# ones (JAX cli.py:97-108); the rest are pretrained/classifiers/<name>.pt
+CKPT_MAP = {
+    "cifar10-resnet-50": "pretrained/cifar10/resnet-50/weights.pt",
+    "cifar10-wrn-70-16-dropout": "pretrained/cifar10/wrn-70-16-dropout/weights.pt",
+    "cifar10-wideresnet-70-16": "pretrained/cifar10/wresnet-76-10/weights-best.pt",
+}
+
+
 def build_classifier(args, device: torch.device) -> torch.nn.Module:
     """Classifier taking [0, 1] NHWC images (ref utils.py:143-253), its
-    publisher's keys (robustbench, torchvision, timm) from
+    publisher's keys (robustbench, torchvision, timm, the reference's CIFAR
+    ResNet-50 and WRN-70-16) from ``CKPT_MAP`` or
     pretrained/classifiers/<name>.pt; the port's registry raises for the
     classifiers it does not have. The seeded weights need no input size
     (JAX initialises ImageNet models at 224 px, cli.py:111-112): DeiT-S's
@@ -88,7 +99,7 @@ def build_classifier(args, device: torch.device) -> torch.nn.Module:
 
     name = args.classifier_name
     model = get_classifier(name)
-    ckpt = f"pretrained/classifiers/{name}.pt"
+    ckpt = CKPT_MAP.get(name, f"pretrained/classifiers/{name}.pt")
     if args.random_weights or not os.path.exists(ckpt):
         sd = seeded_normal_state_dict(model, 1)
         if not args.random_weights:

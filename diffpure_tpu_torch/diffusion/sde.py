@@ -45,10 +45,16 @@ class VPSDE:
                 - 0.5 * t * self.beta_min)
 
     def marginal_prob(self, x: Tensor, t) -> Tuple[Tensor, Tensor]:
-        """Mean and std of p_t(x(t) | x(0))."""
+        """Mean and std of p_t(x(t) | x(0)).
+
+        std = sqrt(-expm1(2 lmc)), not JAX's sqrt(1 - exp(2 lmc)): near
+        t = 1e-5 (the end of every reverse solve) the difference cancels in
+        float32, so the latter is off by 0.6% there and moves with each
+        device's rounding of exp.
+        """
         lmc = torch.as_tensor(self.log_mean_coeff(t))
         mean = batch_mul(torch.exp(lmc), x)
-        std = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * lmc), min=0.0))
+        std = torch.sqrt(torch.clamp(-torch.expm1(2.0 * lmc), min=0.0))
         return mean, std
 
     def alphas_cumprod_cont(self, t):

@@ -32,11 +32,13 @@ def _save(log_dir: Optional[str], name: str, t: Tensor) -> None:
 
 def eval_autoattack(defended: DefendedModel, x: Tensor, y: Tensor, seed: int,
                     aa_cfg: AutoAttackConfig, log_dir: Optional[str] = None,
-                    log=print) -> dict:
+                    log=print, on_phase=None) -> dict:
     """Robust accuracy of the classifier alone and of the defence under the
     suite ``aa_cfg``; returns {'classifier_robust_acc',
     'defended_robust_acc', 'x_adv'} (x_adv: the defended attack's points,
-    which the JAX driver only saves)."""
+    which the JAX driver only saves). ``on_phase`` is the defended suite's
+    ``AutoAttack`` hook: its (attack, robust accuracy after it, examples
+    attacked, seconds) so far, after each phase."""
     results = {}
 
     # baseline: attack the undefended classifier (ref :114-133)
@@ -52,7 +54,8 @@ def eval_autoattack(defended: DefendedModel, x: Tensor, y: Tensor, seed: int,
 
     # attack through the purifier (ref :138-155)
     t0 = time.time()
-    aa_def = AutoAttack(defended, aa_cfg, log_fn=lambda s: log(f"[sde] {s}"))
+    aa_def = AutoAttack(defended, aa_cfg, log_fn=lambda s: log(f"[sde] {s}"),
+                        on_phase=on_phase)
     x_adv, robust = aa_def.run_standard_evaluation(x, y, fold_in(seed, 1))
     results["defended_robust_acc"] = robust.float().mean().item()
     _save(log_dir, f"x_adv_defended_{aa_cfg.version}.npy", x_adv)

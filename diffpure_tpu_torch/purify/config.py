@@ -2,8 +2,8 @@
 
 Carried over unchanged (diffpure_tpu/purify/config.py) so that one config
 object describes a run in either package. The port implements
-``diffusion_type`` 'sde' and 'dpm' with ``score_type`` 'score_sde' and
-'guided_diffusion'; the runners raise on the other values.
+``diffusion_type`` 'sde', 'ode', 'ldsde' and 'dpm' with ``score_type``
+'score_sde' and 'guided_diffusion'; the runners raise on the other values.
 """
 from __future__ import annotations
 

@@ -1,6 +1,8 @@
-"""Reverse VP-SDE purification (port of diffpure_tpu/purify/runners.py:66-141
-and the ``purify`` dispatcher :391, ``diffusion_type='sde'``), and the
-DPM-Solver++(2M) purification (:230-271, ``diffusion_type='dpm'``).
+"""Purification runners (port of diffpure_tpu/purify/runners.py): the reverse
+VP-SDE (:91, ``diffusion_type='sde'``), the probability-flow ODE (:144,
+``'ode'``), the input-anchored Langevin SDE (:188, ``'ldsde'``), the
+DPM-Solver++(2M) purification (:246, ``'dpm'``) and the ``purify``
+dispatcher (:391).
 
 Images are NHWC in [-1, 1]. ``model_fn(x, t_labels)`` is the epsilon model:
 an ``NCSNpp`` with ``score_type='score_sde'`` (continuous labels t*999), an
@@ -8,18 +10,23 @@ an ``NCSNpp`` with ``score_type='score_sde'`` (continuous labels t*999), an
 runners.py:45-63). Randomness comes from a noise source with the JAX
 runner's stream layout: purification round ``it`` draws t* from stream
 3*it, the forward-diffusion noise from 3*it + 1 and the Brownian increment
-of step i from (3*it + 2, i) (runners.py:114-117, em.py:42); the DPM runner
-draws t* from stream 2*it and the forward noise from 2*it + 1 (runners.py:260).
-An integer seed gives ``SeededNoise`` with the runner's layout; tests pass
-an object with the same methods that returns the draws JAX made.
+of step i from (3*it + 2, i) (runners.py:114-117, em.py:42); the ODE and
+DPM runners draw t* from stream 2*it and the forward noise from 2*it + 1
+(runners.py:166, :260); the LDSDE runner does not diffuse and draws step
+i's increment from (it, i) (runners.py:214). An integer seed gives
+``SeededNoise`` with the runner's layout; tests pass an object with the
+same methods that returns the draws JAX made.
 
 Gradients (``cfg.grad_mode``, runners.py:121-138): ``'checkpoint'``
 backpropagates exactly through the solver, recomputing each step;
-``'adjoint'`` uses the O(1)-memory adjoint of solvers/adjoint.py; ``'none'``
+``'adjoint'`` uses the O(1)-memory adjoint of solvers/adjoint.py (the ODE
+runner's is Euler-only); ``'reversible'`` integrates with reversible Heun
+(solvers/reversible.py; the ODE runner with zero diffusion); ``'none'``
 returns a result with no gradient (JAX's ``stop_gradient``; the solver runs
-without a graph). ``'reversible'`` waits for ROADMAP Slice 2 item 11. The
-DPM runner, as JAX's, knows only ``'none'`` and differentiates exactly
-(checkpointed steps) in every other mode.
+without a graph). The DPM runner, as JAX's, knows only ``'none'`` and
+differentiates exactly (checkpointed steps) in every other mode; the LDSDE
+runner, as JAX's, knows ``'adjoint'`` and ``'none'`` and runs the
+checkpointed path under ``'reversible'``.
 """
 from __future__ import annotations
 
@@ -32,9 +39,12 @@ from diffpure_tpu_torch.diffusion.score import get_score_fn, \
     make_guided_score_fn
 from diffpure_tpu_torch.diffusion.sde import VPSDE, batch_mul
 from diffpure_tpu_torch.purify.config import PurifyConfig
-from diffpure_tpu_torch.solvers.adjoint import sdeint_em_adjoint
+from diffpure_tpu_torch.solvers.adjoint import odeint_euler_adjoint, sdeint_em_adjoint
 from diffpure_tpu_torch.solvers.dpm import dpm_solver_pp_2m
 from diffpure_tpu_torch.solvers.em import brownian_increment, sdeint_em
+from diffpure_tpu_torch.solvers.ode import odeint_euler, odeint_heun
+from diffpure_tpu_torch.solvers.reversible import odeint_reversible_heun, \
+    sdeint_reversible_heun
 from diffpure_tpu_torch.utils.prng import fold_in, generator
 
 Tensor = torch.Tensor
@@ -44,7 +54,9 @@ ModelFn = Callable[[Tensor, Tensor], Tensor]
 class SeededNoise:
     """Counter-based noise from one integer seed (torch generators on the
     data's device; not JAX's bits). Round ``it`` draws from streams
-    ``streams * it + j``: 3 a round for the SDE runner, 2 for the DPM one."""
+    ``streams * it + j``: 3 a round for the SDE runner, 2 for the ODE and
+    DPM ones; with ``streams=1`` (the LDSDE runner) round ``it``'s Brownian
+    increments come from stream ``it``."""
 
     def __init__(self, seed: int, streams: int = 3):
         self.seed = int(seed)
@@ -59,9 +71,10 @@ class SeededNoise:
         return torch.randn(shape, generator=g, device=like.device, dtype=like.dtype)
 
     def brownian(self, it: int, i: int, like: Tensor, dt: float) -> Tensor:
-        if self.streams < 3:
-            raise ValueError("a two-stream (DPM) noise source has no Brownian stream")
-        return brownian_increment(fold_in(self.seed, self.streams * it + 2), i, like, dt)
+        if self.streams == 2:
+            raise ValueError("a two-stream (ODE, DPM) noise source has no Brownian stream")
+        stream = it if self.streams == 1 else self.streams * it + 2
+        return brownian_increment(fold_in(self.seed, stream), i, like, dt)
 
 
 Noise = Union[int, SeededNoise]
@@ -106,17 +119,24 @@ def _make_score_fn(model_fn: ModelFn, cfg: PurifyConfig, sde: VPSDE):
     raise NotImplementedError(f"unknown score_type {cfg.score_type!r}")
 
 
+def _check_grad_mode(cfg: PurifyConfig) -> None:
+    if cfg.grad_mode not in ("checkpoint", "adjoint", "reversible", "none"):
+        raise ValueError(f"unknown grad_mode {cfg.grad_mode!r}")
+
+
+def _params(model_fn) -> tuple:
+    """The model's parameters that require grad: the adjoint and reversible
+    solvers' ``params`` (frozen models give none)."""
+    return (tuple(p for p in model_fn.parameters() if p.requires_grad)
+            if isinstance(model_fn, torch.nn.Module) else ())
+
+
 def purify_sde(model_fn: ModelFn, x: Tensor, noise: Noise,
                cfg: PurifyConfig) -> Tensor:
     """Integrate the reverse VP-SDE in flipped time t' = 1 - s from
     1 - t*/1000 to 1 - 1e-5 with Euler-Maruyama:
     drift'(x, t') = -[f(x, s) - g(s)^2 score(x, s)], diffusion' = g(s)."""
-    if cfg.grad_mode == "reversible":
-        raise NotImplementedError(
-            "grad_mode='reversible' (reversible Heun) waits for ROADMAP "
-            "Slice 2 item 11")
-    if cfg.grad_mode not in ("checkpoint", "adjoint", "none"):
-        raise ValueError(f"unknown grad_mode {cfg.grad_mode!r}")
+    _check_grad_mode(cfg)
     noise = as_noise(noise)
     sde = VPSDE(beta_min=cfg.beta_min, beta_max=cfg.beta_max, N=cfg.N)
     score_fn = _make_score_fn(model_fn, cfg, sde)
@@ -141,9 +161,15 @@ def purify_sde(model_fn: ModelFn, x: Tensor, noise: Noise,
         args = (drift, diffusion, xt, t0, t1, n_steps,
                 lambda i, it=it, xt=xt: noise.brownian(it, i, xt, dt))
         if cfg.grad_mode == "adjoint":
-            params = (tuple(p for p in model_fn.parameters() if p.requires_grad)
-                      if isinstance(model_fn, torch.nn.Module) else ())
-            x0 = sdeint_em_adjoint(*args, params=params)
+            x0 = sdeint_em_adjoint(*args, params=_params(model_fn))
+        elif cfg.grad_mode == "reversible":
+            # reversible Heun on JAX's float32 grid; the increment's scale
+            # is sqrt(|dt|) of that grid's dt (JAX reversible.py:79)
+            dt32 = float(np.float32((np.float32(t1) - np.float32(t0)) / np.float32(n_steps)))
+            x0 = sdeint_reversible_heun(
+                drift, diffusion, xt, t0, t1, n_steps,
+                lambda i, it=it, xt=xt: noise.brownian(it, i, xt, dt32),
+                params=_params(model_fn))
         elif cfg.grad_mode == "none":
             with torch.no_grad():
                 x0 = sdeint_em(*args)
@@ -189,18 +215,101 @@ def purify_dpm(model_fn: ModelFn, x: Tensor, noise: Noise,
     return torch.cat(xs, dim=0)
 
 
-_LATER = {"ode": "Slice 2 item 11", "ldsde": "Slice 2 item 11",
-          "ddpm": "Slice 3 item 15",
-          "celebahq-ddpm": "Slice 4 item 17"}
+def purify_ode(model_fn: ModelFn, x: Tensor, noise: Noise,
+               cfg: PurifyConfig) -> Tensor:
+    """Probability-flow ODE purification (runners.py:144; ref
+    diffpure_ode.py): forward-diffuse to t*, then integrate
+    dx/dt = f(x, t) - 1/2 g(t)^2 score(x, t) from t*/1000 down to 1e-5 (time
+    not flipped) in round(t / 1000 / step_size) steps of ``cfg.t`` (JAX
+    counts the steps from ``cfg.t``, also under rand_t)."""
+    _check_grad_mode(cfg)
+    noise = as_noise(noise, streams=2)
+    sde = VPSDE(beta_min=cfg.beta_min, beta_max=cfg.beta_max, N=cfg.N)
+    score_fn = _make_score_fn(model_fn, cfg, sde)
+
+    def ode_fn(xx: Tensor, t: Tensor) -> Tensor:
+        f, g = sde.sde(xx, t)
+        return f - 0.5 * batch_mul(g ** 2, score_fn(xx, t))
+
+    n_steps = max(int(round(cfg.t / 1000.0 / cfg.step_size)), 1)
+    xs = []
+    x0 = x
+    for it in range(cfg.sample_step):
+        t_star = _sample_t(noise, it, cfg)
+        xt = _forward_diffuse(x0, noise, it, cfg, t_star)
+        args = (ode_fn, xt, t_star / 1000.0, cfg.epsilon_dt1, n_steps)
+        if cfg.grad_mode == "adjoint":
+            if cfg.ode_method != "euler":
+                raise ValueError("the ODE adjoint is Euler-only (ode_method='euler')")
+            x0 = odeint_euler_adjoint(*args, params=_params(model_fn))
+        elif cfg.grad_mode == "reversible":
+            # reversible Heun with zero diffusion (JAX's noise, times 0)
+            x0 = odeint_reversible_heun(*args, params=_params(model_fn))
+        else:
+            solver = odeint_heun if cfg.ode_method == "heun" else odeint_euler
+            if cfg.grad_mode == "none":
+                with torch.no_grad():
+                    x0 = solver(*args)
+            else:
+                x0 = solver(*args, checkpoint=True)
+        xs.append(x0)
+    return torch.cat(xs, dim=0)
+
+
+def purify_ldsde(model_fn: ModelFn, x: Tensor, noise: Noise,
+                 cfg: PurifyConfig) -> Tensor:
+    """Langevin-dynamics SDE purification anchored to the input
+    (runners.py:188; ref diffpure_ldsde.py:50-130): no forward diffusion;
+    drift -1/2 lambda (-score(x, t=ldsde_t) + (x - x_init) / sigma2),
+    diffusion sqrt(lambda) eta, round((t1 - t0) / ldsde_dt) Euler-Maruyama
+    steps from 1 - t*/1000 to 1 - 1e-5. Under ``'adjoint'`` the drift's
+    x_init is a constant: the gradient reaches the input through the
+    solve's start only, as the reference's sdeint_adjoint gives it (x_init
+    is no adjoint parameter there; JAX's adjoint raises on it, ROADMAP
+    Queue 3)."""
+    _check_grad_mode(cfg)
+    noise = as_noise(noise, streams=1)
+    sde = VPSDE(beta_min=cfg.beta_min, beta_max=cfg.beta_max, N=cfg.N)
+    score_fn = _make_score_fn(model_fn, cfg, sde)
+    x_init = x.detach() if cfg.grad_mode == "adjoint" else x
+
+    def drift(xx: Tensor, t_unused: Tensor) -> Tensor:
+        t = torch.full((xx.shape[0],), cfg.ldsde_t, dtype=xx.dtype, device=xx.device)
+        return -0.5 * cfg.lambda_ld * (-score_fn(xx, t) + (xx - x_init) / cfg.sigma2)
+
+    def diffusion(t: Tensor) -> Tensor:
+        return torch.full_like(t, np.sqrt(cfg.lambda_ld) * cfg.eta)
+
+    t0 = 1.0 - cfg.t / 1000.0
+    t1 = 1.0 - cfg.epsilon_dt1
+    n_steps = max(int(round((t1 - t0) / cfg.ldsde_dt)), 1)
+    dt = (t1 - t0) / n_steps
+    xs = []
+    x0 = x
+    for it in range(cfg.sample_step):
+        args = (drift, diffusion, x0, t0, t1, n_steps,
+                lambda i, it=it, x0=x0: noise.brownian(it, i, x0, dt))
+        if cfg.grad_mode == "adjoint":
+            x0 = sdeint_em_adjoint(*args, params=_params(model_fn))
+        elif cfg.grad_mode == "none":
+            with torch.no_grad():
+                x0 = sdeint_em(*args)
+        else:  # 'checkpoint', and 'reversible' as JAX runs it
+            x0 = sdeint_em(*args, checkpoint=True)
+        xs.append(x0)
+    return torch.cat(xs, dim=0)
+
+
+_LATER = {"ddpm": "Slice 3 item 15", "celebahq-ddpm": "Slice 4 item 17"}
+_RUNNERS = {"sde": purify_sde, "ode": purify_ode, "ldsde": purify_ldsde,
+            "dpm": purify_dpm}
 
 
 def purify(model_fn: ModelFn, x: Tensor, noise: Noise,
            cfg: PurifyConfig) -> Tensor:
     """Runner dispatch (ref eval_sde_adv.py:44-55)."""
-    if cfg.diffusion_type == "sde":
-        return purify_sde(model_fn, x, noise, cfg)
-    if cfg.diffusion_type == "dpm":
-        return purify_dpm(model_fn, x, noise, cfg)
+    if cfg.diffusion_type in _RUNNERS:
+        return _RUNNERS[cfg.diffusion_type](model_fn, x, noise, cfg)
     if cfg.diffusion_type in _LATER:
         raise NotImplementedError(
             f"diffusion_type={cfg.diffusion_type!r} waits for ROADMAP "

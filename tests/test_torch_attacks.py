@@ -175,13 +175,17 @@ def test_autoattack_rand_protocol_matches_jax(monkeypatch):
 
 
 def test_unported_attacks_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AutoAttack(lambda x, s: x, AutoAttackConfig(version="standard"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AutoAttack(lambda x, s: x, AutoAttackConfig(version="custom",
-                                                    attacks_to_run=("square",)))
+    """Every attack of the suites is ported (FAB-T and Square since ROADMAP
+    item 12); a name outside them raises."""
+    assert AutoAttack(lambda x, s: x, AutoAttackConfig(version="standard")).attacks == [
+        "apgd-ce", "apgd-t", "fab-t", "square"]
+    AutoAttack(lambda x, s: x, AutoAttackConfig(version="custom",
+                                                attacks_to_run=("square", "fab-t")))
     AutoAttack(lambda x, s: x, AutoAttackConfig(version="custom",
                                                 attacks_to_run=("apgd-t",)))
+    with pytest.raises(ValueError, match="unknown attacks"):
+        AutoAttack(lambda x, s: x, AutoAttackConfig(version="custom",
+                                                    attacks_to_run=("fab",)))
 
 
 def test_eval_autoattack_on_a_tiny_defence(tmp_path):

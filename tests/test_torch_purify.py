@@ -138,9 +138,16 @@ def test_seeded_noise_replays_and_get_accuracy():
 
 
 def test_unported_paths_raise():
+    """The discrete runners wait for their ROADMAP items; 'ode', 'ldsde' and
+    grad_mode 'reversible' run since item 11 (tests/test_torch_ode.py); an
+    unknown grad mode raises."""
     x = torch.zeros(1, 8, 8, 3)
-    for cfg in (PurifyConfig(diffusion_type="ode"),
-                PurifyConfig(grad_mode="reversible"),
-                PurifyConfig(diffusion_type="ddpm")):
+    for cfg in (PurifyConfig(diffusion_type="ddpm"),
+                PurifyConfig(diffusion_type="celebahq-ddpm")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             purify(lambda xx, t: xx, x, 0, cfg)
+    for cfg in (PurifyConfig(diffusion_type="ode", t=2), PurifyConfig(t=2, grad_mode="reversible"),
+                PurifyConfig(diffusion_type="ldsde", t=20)):
+        assert purify(lambda xx, t: xx, x, 0, cfg).shape == x.shape
+    with pytest.raises(ValueError, match="grad_mode"):
+        purify(lambda xx, t: xx, x, 0, PurifyConfig(grad_mode="exact"))

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -19,6 +20,17 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
 # bf16 roundings the two sides take at different places (the TPU kernel
 # keeps conv accumulators in fp32 where the references round them).
 REL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+@pytest.fixture(scope="module")
+def two_torch_threads():
+    """Two torch threads for a module's tests: the tier-1 run's xdist
+    workers share the cores, and torch's default of one thread per core in
+    every worker oversubscribes them (many small ops then crawl)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
 
 
 def normal(rng, *shape, fan_in=None, scale=1.0, shift=0.0):
