@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CIFAR-10 (NCSN++ and DDPM) and ImageNet-256
-defences once on one NVIDIA GPU.
+"""Drive the PyTorch port's CIFAR-10 (NCSN++ and DDPM), ImageNet-256 and
+CelebA-HQ defences once on one NVIDIA GPU.
 
     python3 chip_smoke.py          (from the root of the repository)
 
@@ -48,10 +48,10 @@ Phases, each fatal on failure:
      grad_mode 'checkpoint' and 'adjoint', cold and warm; the launch
      counters must read exactly what each mode derives;
   6. the input gradient of the t*=5 purification (against a seeded
-     cotangent) at batch 2, kernels (card) against plain (CPU), same noise,
-     both grad modes, bf16 and fp32;
+     cotangent) at batch 2, kernels (card) in fp32 and bf16 against the
+     plain fp32 path (CPU), same noise, both grad modes;
   7. the entry point: eval_autoattack (AutoAttack 'rand', APGD-CE and
-     APGD-DLR with EOT) through the full-width bf16 defence at t*=100,
+     APGD-DLR with EOT) through the full-width bf16 defence at t*=AA_T,
      batch 8; x_adv must lie in the eps-ball and in [0, 1], and every
      kernel of the path must have launched.
   2c. (run after phase 2b) the ImageNet-256 kernels (tiled GroupNorm stats
@@ -70,7 +70,8 @@ Phases, each fatal on failure:
      inference_mode, cold then warm; the launch counters must read 150 x the
      census for the four 256-px kernels and 0 for the CIFAR ones;
   9. one full-width ADM evaluation at batch 1, fp32 and bf16, and a t*=3
-     fp32 purification, kernels (card) against plain (CPU), same noise;
+     fp32 purification, kernels (card) against the plain fp32 path (CPU),
+     same noise;
   2d. (run after phase 2c) GroupNorm+SiLU (#10) against its plain version
      at every shape the full-width score_sde DDPM gives it at batch 8 (a
      census of its GNSiLU calls over one evaluation) and at a shape off the
@@ -115,11 +116,11 @@ Phases, each fatal on failure:
      YAML-built ADM takes no flash) and read the same images from the
      folder and the LMDB (phase_cli);
   15. the input gradient of the ImageNet purification (guided purify_sde at
-     t*=2 through the full-width ADM, flash on, batch 1, a seeded
+     t*=1 through the full-width ADM, flash on, batch 1, a seeded
      cotangent), fp32 and bf16, both grad modes, kernels (card) against
-     plain (CPU), the same noise; #6-#9 must launch (phase_adm_grad_parity);
+     the plain fp32 path (CPU), the same noise; #6-#9 must launch (phase_adm_grad_parity);
   16. the ImageNet gradient-image rate: the input gradient of the
-     cross-entropy of DefendedModel(resize_to=256) at t*=150, bf16 ADM +
+     cross-entropy of DefendedModel(resize_to=256) at t*=50, bf16 ADM +
      ResNet-50, batch 2, both grad modes, once each (phase 15 warmed the
      paths), wall time, gradient-images/s and peak device memory, the
      launch counters exactly the forward census times the mode's forward
@@ -150,7 +151,39 @@ Phases, each fatal on failure:
      each attack attacks a non-empty set, x_adv in the ball and [0, 1],
      #1-#5 launched; then the CLI on a stand, an ODE, a WRN-70-16 and an
      ImageNet stand script's flags with tiny budgets, at once
-     (phase_standard).
+     (phase_standard);
+  22. StAdv (ROADMAP item 13) through the fp32 CIFAR defence (NCSN++ +
+     ResNet-50) at t*=5, batch 4, 2 iterations of 2 EOT samples: every grid
+     within the bound of the identity and in [-1, 1], x_adv in [0, 1], the
+     counters 40 / 36 / 10 per forward and 40 / 36 per backward evaluation
+     times the NFE ledger; grid_sample card against CPU, values and both
+     gradients (phase_stadv);
+  23. the discrete guided DDPM (item 15) through the bf16 ADM with flash
+     and ResNet-50: DefendedModel with diffusion_type 'ddpm' at t=150 and
+     DDIM at t=8 on the ddim50 respacing, batch 4, cold and warm, counters
+     56 / 16 / 40 / 5 per evaluation; t=2, batch 1, ancestral and DDIM,
+     fp32 and bf16 on the card against the CPU's fp32, and the ADM's
+     output itself at the float timestep the ddim50 process gives it; one
+     input gradient (checkpoint) through the kernels (phase_guided_ddpm);
+  24. the CelebA-HQ defence (item 17): SDEdit's DDPM UNet at full width
+     (113,673,219 parameters) + the attribute net, its halo census (30
+     stages an evaluation, half with pre_shift), #6 and #8 against their
+     plain versions at each of its shapes, bf16 and fp32, batch 2;
+     purify_celebahq_ddpm at t=50, batch 2, bf16 and fp32, #6 and #8
+     exactly 30 an evaluation and every other kernel 0; one evaluation and
+     the t=2 purification, card against CPU, the attribute net
+     card against CPU (phase_celebahq); then the CLI on the StAdv and the
+     two CelebA-HQ BPDA scripts' flags, at once (phase_new_cli).
+
+The CPU's side of the card-against-CPU checks of phases 6, 9, 13, 15,
+20(b), 23 and 24 runs in a thread of its own (CpuSide), on CPU copies of
+the models, while the main thread goes on driving the card. The sides
+run beside phases 7, 11-14, 17-19 and 21-22 and beside 24's CLI runs, so
+the timed runs of phases 3-5, 8, 10, 16, 20(a, c) and 24(a) have the
+host to themselves (23(a) too, once 23's side has ended). Each check
+runs where its side is joined (phase 6's at the end of phase 7, 9's and
+13's of 14, 15's of 19, 20(b)'s of 21, 23's and 24's in their own
+phase) and fails the run there.
 
 Needs the CUDA toolkit (nvcc) and one card; exits non-zero without them.
 Writes details (per-shape records, the compiler's report) to
@@ -171,6 +204,7 @@ t*=10 by part and by kernel family (profile_grad.json).
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
 import functools
 import json
@@ -296,6 +330,9 @@ ADM_KERNELS = {
     "flash_attention": ("diffpure_tpu_torch/csrc/flash_attention.cu",
                         "diffpure_tpu/ops/flash_attention.py:145"),
 }
+# Phase 2c's kernels whose device time (profiler) is taken beside their
+# CUDA-event time: #6 and #7, whose event time is mostly the host's
+DEVICE_TIMED = ("group_stats", "gn_film_silu_apply")
 # Phase 2c's flash attention at the head widths off the census, (BH, T, D),
 # T = 1024: the ADM-256's 32^2 attention (4 images, 512 channels) in heads
 # of 32 and of 128 channels, and heads of 256, the widest the kernel takes;
@@ -356,7 +393,7 @@ DDPM_PURIFY_REL = 1e-4
 NCSN_DDPM_REL = {"float32": 2e-4, "bfloat16": 5e-2}
 # Phase 15: the ImageNet purification's input gradient, card against the
 # CPU's plain fp32 one: t* (Euler steps) and the bound, max |card - cpu|
-# <= ADM_GRAD_REL * max |cpu|. fp32: summation order through two steps of
+# <= ADM_GRAD_REL * max |cpu|. fp32: summation order through the steps of
 # the full-width ADM and its backward (phase 6's fp32 bound). bf16: a CPU
 # rehearsal of this gradient (scripts/torch_rehearse_grad_gaps.py:
 # imagenet256_config's structure at 64 and 128 channels, batch 1, t*=2,
@@ -366,14 +403,20 @@ NCSN_DDPM_REL = {"float32": 2e-4, "bfloat16": 5e-2}
 # card's bf16 rounds at other places (the halo kernel keeps the conv, bias
 # and skip in fp32, flash the logits): phase 6's 1e-2, about 8x the
 # largest rehearsed gap.
-ADM_GRAD_PARITY_T = 2
+# t* 1: the CPU's side, two full-width ADM gradients, runs beside phases
+# 17-19 and should end within them.
+ADM_GRAD_PARITY_T = 1
 ADM_GRAD_REL = {"float32": 5e-4, "bfloat16": 1e-2}
 # Phase 16: the ImageNet gradient-image rate at JAX's ADM_GRAD_BATCH
-# (bench.py:186, t*=150).
-ADM_GRAD_N = 2
+# (bench.py:186) and t* = ADM_GRAD_T: 50 since phases 22-24 came (JAX's
+# cell is t* = 150; at 150 the phase took 113.8 s of a full run).
+ADM_GRAD_N, ADM_GRAD_T = 2, 50
 # Phase 17: eval_autoattack 'rand' through the ImageNet defence: batch, t*
 # (Euler steps), APGD iterations, EOT samples, eps (the scripts' 0.0157).
-AA_IMAGENET = dict(batch=2, t=10, n_iter=2, eot_iter=2, eps=0.0157)
+# t* 5 here and phase 7's AA_T 50: depth cuts that hold the run in 1200 s
+# on the slowest card machines seen.
+AA_IMAGENET = dict(batch=2, t=5, n_iter=2, eot_iter=2, eps=0.0157)
+AA_T = 50
 # Phase 18: the score_sde DDPM's launches per evaluation (#10, #3), which
 # phase 2d's census reads (checked there), and the bound of NCSN++ 'ddpm''s
 # bf16 input gradient, card against CPU: a CPU rehearsal (this model,
@@ -471,6 +514,67 @@ STAND_CLI_RUNS = {
     "in_stand_inf": ("imagenet/run_in_stand_inf.sh",
                      ["--num_sub", "2", "--adv_batch_size", "2", "--t", "2"]),
 }
+# Phase 22: StAdv (ROADMAP item 13) through the CIFAR defence at its run
+# script's fp32 (run_cifar_stadv_rn50.sh: NCSN++, ResNet-50, bound 0.05)
+# at t* = 5, batch 4, 2 iterations of 2 EOT samples; and grid_sample, card
+# against CPU (values and both gradients; max abs error over max |CPU|:
+# summation order only, the values and the image gradient agree to the bit
+# on the card, the grid gradient (|max| of tens) to ~1e-5).
+STADV = dict(batch=4, t=5, n_iter=2, eot_iter=2, bound=0.05)
+GRID_REL = 1e-6
+# Phase 23: the discrete guided DDPM (item 15) through imagenet256_config's
+# bf16 ADM (flash on): ancestral at t = 150 on the 1000-step process
+# (JAX's imagenet256_adm_t150 cell, bench.py:122-152), DDIM at t = 8 on the
+# ddim50 respacing (imagenet256_ddim50_t8, bench.py:154-188), batch 4; card
+# against CPU at t = 2, batch 1 (fp32 and bf16, against the CPU's fp32:
+# ADM_PURIFY_REL and GUIDED_T2_BF16_REL).
+GUIDED_T, DDIM_T, DDIM_RESPACING = 150, 8, "ddim50"
+DISCRETE_PARITY_T = 2
+# At t = 2 the model's output reaches the image through coefficients of
+# about 0.01-0.015, so the purification check alone cannot fail a wrong
+# model: the ADM's output is also held itself, card against the CPU's fp32,
+# at the float timestep the ddim50 process gives respaced index
+# GUIDED_EPS_INDEX (its timestep_map: 140.0), fp32 at ADM_EVAL_REL and bf16
+# at GUIDED_EPS_BF16_REL (phase 9 reads 9.3e-3 for card bf16 against CPU
+# fp32 at t = 149 on the card: about 2x). The t = 2 bf16 purification
+# read 3.9e-4 (ancestral) and 2.2e-3 (DDIM) on the card:
+# GUIDED_T2_BF16_REL holds them at about 2x.
+GUIDED_EPS_INDEX = 7
+GUIDED_EPS_BF16_REL = 2e-2
+GUIDED_T2_BF16_REL = 5e-3
+# Phase 24: the CelebA-HQ defence (item 17): SDEdit's DDPM UNet at full
+# width (113,673,219 parameters, jax.eval_shape of JAX's DDPMUNet() at 256^2)
+# + the attribute classifier; purify_celebahq_ddpm at t = 50, batch 2, bf16
+# (JAX's celebahq_ddpm256_bf16, bench.py:289-318) and fp32; card against CPU
+# at t = 2, batch 1, and one evaluation at batch 1, fp32 and bf16 (bf16
+# against the CPU's fp32), at phase 9's bounds; the attribute net at
+# ZOO_REL. #6 and #8 launch 30 times an evaluation (15 halo blocks, two
+# stages each, the second with the timestep embedding as pre_shift, which
+# the combine of the stats kernel's sums into the affine takes, in
+# PyTorch); each of the census's shapes (the same in both dtypes) is held
+# kernel against plain on the card at REL, batch 2, bf16 and fp32.
+CELEBAHQ_PARAMS = 113_673_219
+CELEBAHQ_T, CELEBAHQ_N = 50, 2
+CELEBAHQ_STAGES = 30
+# ... and the CLI on the three run scripts this slice adds, at once, with
+# tiny budgets: StAdv cut to one iteration (the CLI's own 100 has no flag),
+# the CelebA-HQ BPDA runs at t = 2 with 2 defence and 1 attack reps, 1 step
+TINY_STADV_CLI_CODE = (
+    "import json, sys; from diffpure_tpu_torch import cli; "
+    "from diffpure_tpu_torch.ops import launch_counts; kw = cli._attack_kwargs; "
+    "cli._attack_kwargs = lambda a: {**kw(a), 'n_iter': 1}; "
+    "cli.main(sys.argv[1:]); print('launches: ' + json.dumps(launch_counts()))")
+NEW_CLI_RUNS = {
+    "stadv_rn50": ("cifar10/run_cifar_stadv_rn50.sh",
+                   ["--num_sub", "4", "--adv_batch_size", "4", "--t", "2", "--eot_iter", "1"]),
+    "celebahq_glasses": ("celebahq/run_celebahq_bpda_glasses.sh",
+                         ["--t", "2", "--eot_defense_reps", "2", "--eot_attack_reps", "1",
+                          "--adv_steps", "1"]),
+    "celebahq_smiling": ("celebahq/run_celebahq_bpda_smiling.sh",
+                         ["--t", "2", "--eot_defense_reps", "2", "--eot_attack_reps", "1",
+                          "--adv_steps", "1"]),
+}
+CELEBAHQ_FIXTURE = 12  # images; every third in the val partition
 
 
 def log(*a):
@@ -1180,27 +1284,27 @@ def adm_census(torch, adm, x):
     return dict(seen)
 
 
-def adm_cost(name, shape, esize):
-    """(FLOPs, bytes) one call of an ADM kernel must do and move at batch
-    ADM_N: each input read once, each output written once (weights in the
+def adm_cost(name, shape, esize, n=ADM_N):
+    """(FLOPs, bytes) one call of a 256-px kernel must do and move at batch
+    n: each input read once, each output written once (weights in the
     compute dtype; the affines, biases and stats partials in fp32)."""
     if name == "flash_attention":
         bh, t, d = shape
         return 4 * bh * t * t * d, 4 * bh * t * d * esize
     if name == "gn_silu_conv3x3_halo":
         H, cin, cout, kind, cr = shape
-        m = ADM_N * H * H
+        m = n * H * H
         k = 9 * cin + (cr if kind == "proj" else 0)
         nbytes = (m * (cin + cout + (cr if kind != "none" else 0)) + k * cout) * esize \
-            + (2 * ADM_N * cin + cout) * 4
+            + (2 * n * cin + cout) * 4
         return 2 * m * cout * k, nbytes
     H, C = shape[:2]
-    elems = ADM_N * H * H * C
+    elems = n * H * H * C
     if name == "group_stats":  # sum and sum of squares; (N, tiles, C) partials out
         from diffpure_tpu_torch.ops.tiled_groupnorm import _rows_per_tile
-        tiles = -(-H // _rows_per_tile(ADM_N, H, C))
-        return 3 * elems, elems * esize + 2 * ADM_N * tiles * C * 4
-    return 6 * elems, 2 * elems * esize + 2 * ADM_N * C * 4  # gn_film_silu_apply
+        tiles = -(-H // _rows_per_tile(n, H, C))
+        return 3 * elems, elems * esize + 2 * n * tiles * C * 4
+    return 6 * elems, 2 * elems * esize + 2 * n * C * 4  # gn_film_silu_apply
 
 
 def sass_counts(torch, lib_path, mnemonics=("HGMMA", "HMMA")):
@@ -1282,17 +1386,21 @@ def sdpa_yardstick(torch, q, k, v, want, rel, reps, warm):
     return dict(library_ms=agree.get(best), library_backend=best, library_backends=backends)
 
 
-def phase_adm_kernels(torch, dev, census):
+def phase_adm_kernels(torch, dev, census, n=ADM_N, device_time=True):
     """Each 256-px kernel against its plain version on the card at every
-    census shape, bf16 and fp32, seeded inputs; per-shape records with
-    kernel, plain (and for flash attention the library call's) times and
-    the bound."""
+    census shape, bf16 and fp32, seeded inputs at batch n; per-shape
+    records with kernel, plain (and for flash attention the library
+    call's) times and the bound; with ``device_time``, for #6 and #7
+    (DEVICE_TIMED) also the device time (profiler, one session), summed per
+    evaluation beside the CUDA-event time. A group_stats shape (H, C) is
+    checked with FiLM (the ADM's); (H, C, "pre_shift") with a pre_shift
+    and (H, C, "plain") with neither (the SDEdit UNet's two stages)."""
     import numpy as np
     from diffpure_tpu_torch.ops import flash_attention as fla
     from diffpure_tpu_torch.ops import halo_conv as halo
     from diffpure_tpu_torch.ops import tiled_groupnorm as tgn
 
-    records = []
+    records, device_fns = [], []
     for i, ((name, shape), calls) in enumerate(sorted(census.items(), key=str)):
         rng = np.random.default_rng(2000 + i)
 
@@ -1307,15 +1415,18 @@ def phase_adm_kernels(torch, dev, census):
             q32, k32, v32 = normal(bh, t, d), normal(bh, t, d), normal(bh, t, d)
         else:
             H, C = shape[0], shape[1]
-            x32 = normal(ADM_N, H, H, C, shift=0.2)
-            A, B = normal(ADM_N, C, scale=0.3, shift=1.0), normal(ADM_N, C, scale=0.3)
+            x32 = normal(n, H, H, C, shift=0.2)
+            A, B = normal(n, C, scale=0.3, shift=1.0), normal(n, C, scale=0.3)
         if name == "group_stats":
             gs, gb = normal(C, scale=0.1, shift=1.0), normal(C, scale=0.1)
-            fs, ft = normal(ADM_N, C, scale=0.1), normal(ADM_N, C, scale=0.1)
+            fs, ft = normal(n, C, scale=0.1), normal(n, C, scale=0.1)
+            if len(shape) > 2:
+                fs = ft = None
+            ps = normal(n, C, scale=0.5) if shape[2:] == ("pre_shift",) else None
         if name == "gn_silu_conv3x3_halo":
             _, cin, cout, kind, cr = shape
             w, b = normal(3, 3, cin, cout, fan_in=9 * cin), normal(cout, scale=0.1)
-            skip32 = None if kind == "none" else normal(ADM_N, H, H, cr)
+            skip32 = None if kind == "none" else normal(n, H, H, cr)
             wp = normal(cr, cout, fan_in=cr) if kind == "proj" else None
         for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             esize = 2 if dtype_name == "bfloat16" else 4
@@ -1330,8 +1441,9 @@ def phase_adm_kernels(torch, dev, census):
                 kern = lambda: tgn.group_stats(x)  # noqa: E731
                 plain = lambda: tgn.group_sums_reference(x)  # noqa: E731
                 # the checked function: the per-(example, channel) affine
-                check = (lambda: tgn.group_stats_affine(x, gs, gb, 32, 1e-5, fs, ft),
-                         lambda: tgn.group_stats_affine_reference(x, gs, gb, 32, 1e-5, fs, ft))
+                check = (lambda: tgn.group_stats_affine(x, gs, gb, 32, 1e-5, fs, ft, ps),
+                         lambda: tgn.group_stats_affine_reference(x, gs, gb, 32, 1e-5, fs, ft,
+                                                                  ps))
             elif name == "gn_film_silu_apply":
                 x = x32.to(dtype)
                 kern = lambda: tgn.gn_film_silu_apply(x, A, B, shape[2])  # noqa: E731
@@ -1356,7 +1468,7 @@ def phase_adm_kernels(torch, dev, census):
             err = max(float((g.float() - w_.float()).abs().max()) for g, w_ in zip(got, want))
             ok = all(bool(torch.isfinite(g.float()).all()) for g in got) \
                 and max(rels) <= REL[dtype_name]
-            flops, nbytes = adm_cost(name, shape, esize)
+            flops, nbytes = adm_cost(name, shape, esize, n)
             t_ops = flops / PEAK_FLOPS[dtype_name]
             t_bytes = nbytes / HBM_BYTES
             big = flops > 1e11
@@ -1372,6 +1484,11 @@ def phase_adm_kernels(torch, dev, census):
             if name == "flash_attention":
                 rec.update(sdpa_yardstick(torch, q, k, v, want[0], REL[dtype_name], reps, warm))
             records.append(rec)
+            if device_time and name in DEVICE_TIMED:
+                # bound now: the loop's lambdas read the loop's variables
+                device_fns.append((rec, functools.partial(tgn.group_stats, x)
+                                   if name == "group_stats" else functools.partial(
+                                       tgn.gn_film_silu_apply, x, A, B, shape[2])))
             lib = rec["library_ms"]
             log(f"  {name:20s} {str(shape):32s} x{calls:<2d} {dtype_name:8s} rel err "
                 f"{max(rels):.2e} <= {REL[dtype_name]:.0e} kernel {rec['ms']:.4f} ms "
@@ -1382,6 +1499,21 @@ def phase_adm_kernels(torch, dev, census):
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} 256-px kernel checks failed: {bad}")
+    if not device_time:
+        return records
+    # #6 and #7's device time (one profiler session), beside their CUDA-event
+    # time, per evaluation
+    for (rec, _), (ms, _) in zip(device_fns, device_ms_many(torch, [f for _, f in device_fns])):
+        rec["device_ms"] = ms
+    for name in DEVICE_TIMED:
+        for dtype_name in ("bfloat16", "float32"):
+            mine = [r for r in records if r["kernel"] == name and r["dtype"] == dtype_name]
+            per_eval = {k: sum(r[k] * r["calls_per_eval"] for r in mine)
+                        for k in ("ms", "device_ms", "bound_ms")}
+            log(f"  {name} {dtype_name} per evaluation: kernel (CUDA events) "
+                f"{per_eval['ms']:.3f} ms, device (profiler) {per_eval['device_ms']:.3f} ms, "
+                f"bound {per_eval['bound_ms']:.3f} ms ({per_eval['bound_ms'] / per_eval['device_ms']:.2f} "
+                f"of the device time)")
     return records
 
 
@@ -2064,6 +2196,138 @@ def purify_grad(torch, dm, x01, w, noise):
     return gx
 
 
+def purify_grads(torch, score, x, w, dtypes):
+    """Phase 6's gradients on the device of ``x``: purify_grad at t*=5 in
+    each of ``dtypes``, each GRAD_MODES mode, the same noise; {(dtype,
+    mode): gradient on the CPU}. Leaves ``score`` bf16."""
+    from diffpure_tpu_torch.eval import DefendedModel
+    from diffpure_tpu_torch.purify import PurifyConfig
+
+    out = {}
+    for dtype_name, dtype in dtypes:
+        score.dtype = dtype
+        for m in GRAD_MODES:
+            dm = DefendedModel(score, None, PurifyConfig(t=5, grad_mode=m), log_every=0)
+            out[dtype_name, m] = purify_grad(torch, dm, x, w, FixedNoise(SEED + 6)).cpu()
+    score.dtype = torch.bfloat16
+    return out
+
+
+def check_purify_grads(torch, got, plain):
+    """Phase 6's checks: each of the card's gradients (``got``, fp32 and
+    bf16) against the CPU's plain fp32 one (``plain``) at GRAD_REL; the
+    card's bf16 gradient's gap to its fp32 one is recorded beside it."""
+    checks = {}
+    for (dtype_name, m), g in got.items():
+        want = plain["float32", m]
+        err, scale = float((g - want).abs().max()), float(want.abs().max())
+        ok = bool(torch.isfinite(g).all()) and err <= GRAD_REL[dtype_name] * scale
+        rec = dict(max_abs_err=err, rel_err=err / scale, rel_tol=GRAD_REL[dtype_name], ok=ok)
+        if dtype_name == "bfloat16":  # the card's bf16 gradient against its fp32 one
+            ref = got["float32", m]
+            rec["card_gap"] = float((g - ref).abs().max() / ref.abs().max())
+        checks[f"{dtype_name}/{m}"] = rec
+        log(f"  {dtype_name:8s} {m:10s}: max |kernel - plain fp32| {err:.3e} (rel "
+            f"{err / scale:.2e} <= {GRAD_REL[dtype_name]:.1e}) "
+            f"{'ok' if ok else 'FAIL'}" + (f"; card bf16 vs card fp32 {rec['card_gap']:.2e}"
+                                           if "card_gap" in rec else ""))
+        if not ok:
+            raise AssertionError(f"gradient {dtype_name}/{m}: kernel and plain disagree")
+    return checks
+
+
+def adm_outputs(torch, adm, x, t, xp, cfg, dtypes):
+    """Phase 9's outputs on the device of ``x``: one evaluation of ``adm``
+    at (x, t) in each of ``dtypes``, and the fp32 purification of ``xp``
+    under ``cfg`` with FixedNoise(SEED + 13); on the CPU. Leaves ``adm``
+    bf16."""
+    from diffpure_tpu_torch.eval import DefendedModel
+
+    out = {}
+    with torch.inference_mode():
+        for dtype_name, dtype in dtypes:
+            adm.dtype = dtype
+            out[dtype_name] = adm(x, t).float().cpu()
+        adm.dtype = torch.float32
+        out["purify"] = DefendedModel(adm, None, cfg, log_every=0).purify(
+            xp, FixedNoise(SEED + 13)).cpu()
+    adm.dtype = torch.bfloat16
+    return out
+
+
+def check_adm_outputs(torch, card9, cpu9):
+    """Phase 9's checks: the card's evaluation in fp32 and bf16 against the
+    CPU's fp32 one (ADM_EVAL_REL), its purification against the CPU's
+    (ADM_PURIFY_REL)."""
+    checks = {}
+    for what, ref, bound in (("float32", "float32", ADM_EVAL_REL["float32"]),
+                             ("bfloat16", "float32", ADM_EVAL_REL["bfloat16"]),
+                             ("purify", "purify", ADM_PURIFY_REL)):
+        got, want = card9[what], cpu9[ref]
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        ok = bool(torch.isfinite(got).all()) and err <= bound * scale
+        checks[what] = dict(max_abs_err=err, rel_err=err / scale, rel_tol=bound, ok=ok)
+        log(f"  {what:8s}: max |card - cpu{' fp32' if what == 'bfloat16' else ''}| "
+            f"{err:.3e} (rel {err / scale:.2e} <= {bound:.0e}) {'ok' if ok else 'FAIL'}")
+    bad = [k for k, v in checks.items() if isinstance(v, dict) and not v["ok"]]
+    if bad:
+        raise AssertionError(f"ImageNet card against CPU: {bad} disagree")
+    return checks
+
+
+class CpuSide:
+    """The CPU's side of the card-against-CPU checks, computed in a thread
+    of its own while the main thread drives the card (PyTorch's CPU
+    operators release the GIL). A job works on CPU copies of the models
+    (``copy``) and on inputs made before it is submitted, so it shares no
+    module with the card's phases, and the NFE ledger is per thread, so
+    its purifications land in no ledger of the main thread's. Jobs run one
+    at a time, in the order submitted, on two intra-op threads fewer than
+    torch's default, which leaves the main thread a core. No job calls what
+    a phase patches (phase 20(c)'s reversible solver is patched before
+    phase 20's job is submitted; phase 22's grid_sample is in no job), and
+    none reads a counter of the main thread's. ``result`` joins a job; its
+    check then runs in the main thread."""
+
+    def __init__(self, torch):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.torch = torch
+        self.threads = max(1, torch.get_num_threads() - 2)
+        self.pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="cpu_side")
+        self.models = {}
+        self.seconds = {}
+
+    def copy(self, name, model):
+        """The CPU copy of ``model`` kept under ``name`` (made at the first
+        call, from the model as it is then)."""
+        if name not in self.models:
+            self.models[name] = copy.deepcopy(model).cpu()
+        return self.models[name]
+
+    def submit(self, name, fn):
+        def job():
+            self.torch.set_num_threads(self.threads)
+            t0 = time.time()
+            try:
+                return fn()
+            finally:
+                self.seconds[name] = time.time() - t0
+
+        return name, self.pool.submit(job)
+
+    def result(self, handle):
+        name, future = handle
+        t0 = time.time()
+        out = future.result()
+        log(f"  the CPU's side of {name}: {self.seconds[name]:.1f} s in its thread "
+            f"({self.threads} intra-op threads), {time.time() - t0:.1f} s waited for here")
+        return out
+
+    def close(self):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
 def build_models(torch, dev, dtype):
     import numpy as np
     from diffpure_tpu_torch.classifiers import get_classifier
@@ -2131,6 +2395,21 @@ class FixedNoise:
 
     def brownian(self, it, i, like, dt):
         return self.src.brownian(it, i, like.cpu(), dt).to(like.device)
+
+
+class FixedDiscreteNoise:
+    """The discrete loops' seeded draws (DiscreteNoise), made once on the CPU
+    and served on any device."""
+
+    def __init__(self, seed):
+        from diffpure_tpu_torch.purify import DiscreteNoise
+        self.src = DiscreteNoise(seed)
+
+    def forward_eps(self, it, shape, like):
+        return self.src.forward_eps(it, shape, like.cpu().float()).to(like.device, like.dtype)
+
+    def step_eps(self, it, i, like):
+        return self.src.step_eps(it, i, like.cpu().float()).to(like.device, like.dtype)
 
 
 def expected_counts(per_eval_scale):
@@ -2255,13 +2534,14 @@ def phase_bpda(torch, score, clf, x, smi):
     return runs
 
 
-def phase_dpm(torch, dev, score, clf, x01, x2, w2, smi):
+def phase_dpm(torch, dev, score, clf, x01, x2, w2, smi, cpu):
     """Phase 13: DefendedModel with DPM-Solver++(2M) purification at t*=100
     in DPM_STEPS steps, bf16, cold and warm (launch counters 40 / 36 / 10 x
     DPM_STEPS, the NFE ledger dpm_solver_pp = DPM_STEPS); then t*=5 in 3
     steps and the input gradient of sum(w2 * purified) at batch 2, kernels
-    (card) against plain (CPU) with the same noise, fp32 and bf16, at
-    phase 4's and phase 6's tolerances."""
+    (card) against plain (CPU, a job of ``cpu``) with the same noise, fp32
+    and bf16, at phase 4's and phase 6's tolerances. Returns the runs and
+    the function that joins the CPU's side and checks."""
     from diffpure_tpu_torch.eval import DefendedModel
     from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
     from diffpure_tpu_torch.purify import PurifyConfig
@@ -2292,34 +2572,52 @@ def phase_dpm(torch, dev, score, clf, x01, x2, w2, smi):
                                  f"{dict(nfe.counts)}")
     if tuple(logits.shape) != (n, 10) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"DPM: bad logits, shape {tuple(logits.shape)}")
-    checks = {}
-    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        score.dtype = dtype
-        cfg = dict(diffusion_type="dpm", t=5, n_steps=3)
-        dm_f = DefendedModel(score, clf, PurifyConfig(**cfg, grad_mode="none"), log_every=0)
-        dm_g = DefendedModel(score, clf, PurifyConfig(**cfg, grad_mode="checkpoint"),
-                             log_every=0)
-        with torch.inference_mode():
-            got_f = dm_f.purify(x2, FixedNoise(SEED + 33)).cpu()
-        got_g = purify_grad(torch, dm_g, x2, w2, FixedNoise(SEED + 34)).cpu()
-        score.cpu()
-        with torch.inference_mode():
-            want_f = dm_f.purify(x2.cpu(), FixedNoise(SEED + 33))
-        want_g = purify_grad(torch, dm_g, x2.cpu(), w2, FixedNoise(SEED + 34))
-        score.to(dev)
-        for what, got, want, bound in (("purify", got_f, want_f, SLICE_REL[dtype_name]),
-                                       ("gradient", got_g, want_g, GRAD_REL[dtype_name])):
-            err, scale = float((got - want).abs().max()), float(want.abs().max())
-            ok = bool(torch.isfinite(got).all()) and err <= bound * scale
+    got = dpm_outputs(torch, score, x2, w2)
+    score_cpu, x2_cpu = cpu.copy("score", score), x2.cpu()
+    job = cpu.submit("phase 13", lambda: dpm_outputs(torch, score_cpu, x2_cpu, w2))
+    log("  the card's side of t*=5 done; the CPU's runs beside phase 14")
+
+    def finish():
+        want = cpu.result(job)
+        checks = {}
+        for (dtype_name, what), g in got.items():
+            bound = (SLICE_REL if what == "purify" else GRAD_REL)[dtype_name]
+            w = want[dtype_name, what]
+            err, scale = float((g - w).abs().max()), float(w.abs().max())
+            ok = bool(torch.isfinite(g).all()) and err <= bound * scale
             checks[f"{dtype_name}/{what}"] = dict(max_abs_err=err, rel_err=err / scale,
                                                   rel_tol=bound, ok=ok)
             log(f"  {dtype_name:8s} {what:8s}: max |kernel - plain| {err:.3e} (rel "
                 f"{err / scale:.2e} <= {bound:.1e}) {'ok' if ok else 'FAIL'}")
+        bad = [k for k, v in checks.items() if not v["ok"]]
+        if bad:
+            raise AssertionError(f"DPM kernel against plain: {bad} disagree")
+        return checks
+
+    return runs, finish
+
+
+def dpm_outputs(torch, score, x2, w2):
+    """Phase 13's t*=5 outputs on the device of ``x2``: the purification in 3
+    DPM steps and the checkpointed input gradient of sum(w2 * purified), fp32
+    and bf16; {(dtype, "purify" or "gradient"): tensor on the CPU}. Leaves
+    ``score`` bf16."""
+    from diffpure_tpu_torch.eval import DefendedModel
+    from diffpure_tpu_torch.purify import PurifyConfig
+
+    out = {}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        score.dtype = dtype
+        cfg = dict(diffusion_type="dpm", t=5, n_steps=3)
+        dm_f = DefendedModel(score, None, PurifyConfig(**cfg, grad_mode="none"), log_every=0)
+        dm_g = DefendedModel(score, None, PurifyConfig(**cfg, grad_mode="checkpoint"),
+                             log_every=0)
+        with torch.inference_mode():
+            out[dtype_name, "purify"] = dm_f.purify(x2, FixedNoise(SEED + 33)).cpu()
+        out[dtype_name, "gradient"] = purify_grad(torch, dm_g, x2, w2,
+                                                  FixedNoise(SEED + 34)).cpu()
     score.dtype = torch.bfloat16
-    bad = [k for k, v in checks.items() if not v["ok"]]
-    if bad:
-        raise AssertionError(f"DPM kernel against plain: {bad} disagree")
-    return runs, checks
+    return out
 
 
 def imagenet_fixture(rng, root):
@@ -2448,68 +2746,85 @@ def rel_check(torch, got, want, bound):
     return dict(max_abs_err=err, rel_err=err / scale, rel_tol=bound, ok=ok)
 
 
-def phase_adm_grad_parity(torch, dev, adm, clf, rng, smi):
+def phase_adm_grad_parity(torch, dev, adm, clf, rng, smi, cpu):
     """Phase 15: the input gradient of sum(w * purified) through
     DefendedModel(resize_to=256).purify, guided purify_sde at
     t*=ADM_GRAD_PARITY_T, the full-width imagenet256_config ADM (flash on),
     batch 1, a seeded cotangent w, both grad modes: the kernels (card) in
-    fp32 and bf16 against the plain fp32 path (CPU), the same noise, at
-    ADM_GRAD_REL; the card's bf16 gradient's gap to its fp32 one is
-    recorded beside it. The CPU runs fp32 only: its bf16 gradients took 250
-    of the 387 s the four took on the card machine's CPU, which has no bf16
-    matrix units (ADM_GRAD_REL's note). The card's gradients must launch
-    #6-#9."""
+    fp32 and bf16 against the plain fp32 path (CPU, a job of ``cpu`` on its
+    copy of the ADM), the same noise, at ADM_GRAD_REL; the card's bf16
+    gradient's gap to its fp32 one is recorded beside it. The CPU runs fp32
+    only: its bf16 gradients took 250 of the 387 s the four took on the
+    card machine's CPU, which has no bf16 matrix units (ADM_GRAD_REL's
+    note). The card's gradients must launch #6-#9. Returns the function
+    that starts the CPU's side and the one that joins it and checks."""
     import numpy as np
     from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
 
     x = torch.from_numpy(rng.uniform(size=(1, 224, 224, 3)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((1, 256, 256, 3)).astype(np.float32))
-    got, want, launched, secs = {}, {}, {}, {}
-    for where, device, out, dtypes in (
-            ("card", dev, got, (("float32", torch.float32), ("bfloat16", torch.bfloat16))),
-            ("cpu", torch.device("cpu"), want, (("float32", torch.float32),))):
-        adm.to(device)
-        t0 = time.time()
+
+    def gradients(model, device, dtypes, launched=None):
+        out = {}
         for dtype_name, dtype in dtypes:
-            adm.dtype = dtype
+            model.dtype = dtype
             for mode in GRAD_MODES:
-                reset_launch_counts()
+                if launched is not None:  # the card's side (the counters are global)
+                    reset_launch_counts()
                 out[dtype_name, mode] = purify_grad(
-                    torch, defended(torch, adm, clf, ADM_GRAD_PARITY_T, mode, True),
+                    torch, defended(torch, model, None, ADM_GRAD_PARITY_T, mode, True),
                     x.to(device), w, FixedNoise(SEED + 40)).cpu()
-                if where == "card":
+                if launched is not None:
                     launched[dtype_name, mode] = {k: launch_counts()[k] for k in ADM_KERNELS}
-        secs[where] = time.time() - t0
-        log(f"  {where}: {secs[where]:.1f} s for {len(out)} gradients")
+        model.dtype = torch.bfloat16
+        return out
+
+    launched = {}
     adm.to(dev)
-    adm.dtype = torch.bfloat16
-    checks = {}
-    for dtype_name in ("float32", "bfloat16"):
-        for mode in GRAD_MODES:
-            rec = rel_check(torch, got[dtype_name, mode], want["float32", mode],
-                            ADM_GRAD_REL[dtype_name])
-            rec["launches"] = launched[dtype_name, mode]
-            if dtype_name == "bfloat16":  # the card's bf16 gradient against its fp32 one
-                ref = got["float32", mode]
-                rec["card_gap"] = float((got[dtype_name, mode] - ref).abs().max()
-                                        / ref.abs().max())
-            rec["ok"] = rec["ok"] and min(rec["launches"].values()) > 0
-            checks[f"{dtype_name}/{mode}"] = rec
-            log(f"  {dtype_name:8s} {mode:10s}: max |card - cpu fp32| {rec['max_abs_err']:.3e} "
-                f"(rel {rec['rel_err']:.2e} <= {rec['rel_tol']:.1e}) launches "
-                f"{rec['launches']} {'ok' if rec['ok'] else 'FAIL'}"
-                + (f"; card bf16 vs card fp32 {rec['card_gap']:.2e}" if "card_gap" in rec
-                   else ""))
-    bad = [k for k, v in checks.items() if not v["ok"]]
-    if bad:
-        raise AssertionError(f"ImageNet gradient card against CPU: {bad} disagree")
-    return dict(checks=checks, seconds=secs)
+    t0 = time.time()
+    got = gradients(adm, dev, (("float32", torch.float32), ("bfloat16", torch.bfloat16)),
+                    launched)
+    card_s = time.time() - t0
+    log(f"  card: {card_s:.1f} s for {len(got)} gradients; the CPU's run beside phases 17-19")
+    jobs = []
+
+    def start():
+        adm_cpu = cpu.copy("adm", adm)
+        jobs.append(cpu.submit("phase 15", lambda: gradients(adm_cpu, torch.device("cpu"),
+                                                              (("float32", torch.float32),))))
+
+    def finish():
+        want = cpu.result(jobs[0])
+        checks = {}
+        for dtype_name in ("float32", "bfloat16"):
+            for mode in GRAD_MODES:
+                rec = rel_check(torch, got[dtype_name, mode], want["float32", mode],
+                                ADM_GRAD_REL[dtype_name])
+                rec["launches"] = launched[dtype_name, mode]
+                if dtype_name == "bfloat16":  # the card's bf16 gradient against its fp32 one
+                    ref = got["float32", mode]
+                    rec["card_gap"] = float((got[dtype_name, mode] - ref).abs().max()
+                                            / ref.abs().max())
+                rec["ok"] = rec["ok"] and min(rec["launches"].values()) > 0
+                checks[f"{dtype_name}/{mode}"] = rec
+                log(f"  {dtype_name:8s} {mode:10s}: max |card - cpu fp32| "
+                    f"{rec['max_abs_err']:.3e} (rel {rec['rel_err']:.2e} <= "
+                    f"{rec['rel_tol']:.1e}) launches {rec['launches']} "
+                    f"{'ok' if rec['ok'] else 'FAIL'}"
+                    + (f"; card bf16 vs card fp32 {rec['card_gap']:.2e}" if "card_gap" in rec
+                       else ""))
+        bad = [k for k, v in checks.items() if not v["ok"]]
+        if bad:
+            raise AssertionError(f"ImageNet gradient card against CPU: {bad} disagree")
+        return dict(checks=checks, seconds=dict(card=card_s, cpu=cpu.seconds["phase 15"]))
+
+    return start, finish
 
 
 def phase_adm_grad_rate(torch, dev, adm, clf, adm_per_eval, rng, smi):
     """Phase 16: the ImageNet gradient-image rate. The input gradient of the
     cross-entropy of DefendedModel(resize_to=256) (guided purify_sde at
-    t*=150 through the bf16 ADM, ResNet-50) at batch ADM_GRAD_N, both grad
+    t*=ADM_GRAD_T through the bf16 ADM, ResNet-50) at batch ADM_GRAD_N, both grad
     modes, once each (phase 15's gradients warmed both paths): wall time,
     gradient-images/s, peak device memory; the launch counters must read
     the forward census (adm_per_eval) times the mode's forward evaluations
@@ -2524,9 +2839,9 @@ def phase_adm_grad_rate(torch, dev, adm, clf, adm_per_eval, rng, smi):
     def one(mode, n, run):
         xg = torch.from_numpy(rng.uniform(size=(n, 224, 224, 3)).astype(np.float32)).to(dev)
         yg = torch.from_numpy(rng.integers(0, 1000, n)).to(dev)
-        dm = defended(torch, adm, clf, ADM_EVALS, mode, True)
+        dm = defended(torch, adm, clf, ADM_GRAD_T, mode, True)
         want = {**{k: 0 for k in launch_counts()},
-                **{k: v * ADM_EVALS * GRAD_EVALS[mode][0] for k, v in adm_per_eval.items()}}
+                **{k: v * ADM_GRAD_T * GRAD_EVALS[mode][0] for k, v in adm_per_eval.items()}}
         reset_launch_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2802,7 +3117,8 @@ def purify_value_grad(torch, dm, x01, w, noise):
     return out.detach(), gx
 
 
-def phase_purifiers(torch, dev, score, clf, x01, rng, smi, sde_rate=None, grad_runs=()):
+def phase_purifiers(torch, dev, score, clf, x01, rng, smi, cpu, sde_rate=None,
+                    grad_runs=()):
     """Phase 20: the other purifiers. (a) purify_ode at t*=EVALS (EVALS Euler
     steps), bf16, batch 8, cold and warm, counters 40 / 36 / 10 per step,
     beside phase 3's SDE rate (``sde_rate``); (b) each PURIFY_MODES entry at
@@ -2814,7 +3130,10 @@ def phase_purifiers(torch, dev, score, clf, x01, rng, smi, sde_rate=None, grad_r
     gradient at batch GRAD_N, t*=EVALS: wall, gradient-images/s, peak
     memory and the reconstruction error, beside phase 5's ``grad_runs``,
     and its gap to the exact gradient of the same solve on the same inputs
-    and noise (reversible_heun_unrolled), max |rev - exact| / max |exact|."""
+    and noise (reversible_heun_unrolled), max |rev - exact| / max |exact|.
+    (b)'s CPU side is a job of ``cpu``, submitted after (c) (whose patch of
+    the reversible solver it must not see); returns the records and the
+    function that joins it and checks (b)."""
     import numpy as np
     from diffpure_tpu_torch.eval import DefendedModel, get_accuracy
     from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -2848,49 +3167,16 @@ def phase_purifiers(torch, dev, score, clf, x01, rng, smi, sde_rate=None, grad_r
     dms = {(k, m): DefendedModel(score, clf, PurifyConfig(diffusion_type=k, t=PURIFY_T,
                                                            grad_mode=m), log_every=0)
            for k, m in PURIFY_MODES}
-    card, counts, recon, plain = {}, {}, {}, {}
+    card, counts_b, recon = {}, {}, {}
     for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         score.dtype = dtype
         for key, d in dms.items():
             reset_launch_counts()
             card[dtype_name, key] = [v.cpu() for v in purify_value_grad(
                 torch, d, x2, w, FixedNoise(SEED + 33))]
-            counts[dtype_name, key] = launch_counts()
+            counts_b[dtype_name, key] = launch_counts()
             if key[1] == "reversible":
                 recon[dtype_name, key] = last_reconstruction_error()
-    t0 = time.time()
-    score.cpu()
-    for key, d in dms.items():
-        score.dtype = torch.float32
-        plain["float32", key] = purify_value_grad(torch, d, x2.cpu(), w,
-                                                  FixedNoise(SEED + 33))
-        score.dtype = torch.bfloat16
-        with torch.inference_mode():
-            plain["bfloat16", key] = (d.purify(x2.cpu(), FixedNoise(SEED + 33)), None)
-    score.to(dev)
-    score.dtype = torch.bfloat16
-    log(f"  the CPU's side of (b): {time.time() - t0:.1f} s")
-    for (dtype_name, key), (got_x, got_g) in card.items():
-        fwd, bwd = purify_evals(*key, PURIFY_T)
-        want_counts = grad_counts(fwd, bwd)
-        rx = rel_check(torch, got_x, plain[dtype_name, key][0], SLICE_REL[dtype_name])
-        rg = rel_check(torch, got_g, plain["float32", key][1], GRAD_REL[dtype_name])
-        ok = rx["ok"] and rg["ok"] and counts[dtype_name, key] == want_counts
-        rec = dict(purified=rx, gradient=rg, evals=(fwd, bwd), counts=counts[dtype_name, key],
-                   ok=ok)
-        if (dtype_name, key) in recon:
-            rec["reconstruction_error"] = recon[dtype_name, key]
-        out["checks"][f"{dtype_name}/{key[0]}/{key[1]}"] = rec
-        log(f"  {dtype_name:8s} {key[0]:5s} {key[1]:10s}: purified rel {rx['rel_err']:.2e} "
-            f"(<= {rx['rel_tol']:.0e}), gradient rel {rg['rel_err']:.2e} (<= {rg['rel_tol']:.0e}"
-            f", against the CPU's fp32); {fwd} / {bwd} evaluations, launches "
-            f"{'as derived' if counts[dtype_name, key] == want_counts else counts[dtype_name, key]}"
-            + (f"; reconstruction error {recon[dtype_name, key]:.3e}"
-               if (dtype_name, key) in recon else "") + f" {'ok' if ok else 'FAIL'}")
-    bad = [k for k, v in out["checks"].items() if not v["ok"]]
-    if bad:
-        raise AssertionError(f"purifiers card against CPU: {bad} failed")
-
     xg = torch.from_numpy(rng.uniform(size=(GRAD_N, 32, 32, 3)).astype(np.float32)).to(dev)
     yg = torch.from_numpy(rng.integers(0, 10, GRAD_N)).to(dev)
     ts = torch.full((GRAD_N,), 99.9, device=dev)
@@ -2934,7 +3220,58 @@ def phase_purifiers(torch, dev, score, clf, x01, rng, smi, sde_rate=None, grad_r
         raise AssertionError(f"reversible: bad input gradient, shape {tuple(gx.shape)}")
     if counts != want:
         raise AssertionError(f"reversible: launch counts {counts} != {want}")
-    return out
+
+    score_cpu, x2_cpu = cpu.copy("score", score), x2.cpu()
+    job = cpu.submit("phase 20(b)", lambda: purifier_outputs_plain(torch, score_cpu, x2_cpu, w))
+    log("  the CPU's side of (b) runs beside phase 21")
+
+    def finish():
+        plain = cpu.result(job)
+        for (dtype_name, key), (got_x, got_g) in card.items():
+            fwd, bwd = purify_evals(*key, PURIFY_T)
+            want_counts = grad_counts(fwd, bwd)
+            rx = rel_check(torch, got_x, plain[dtype_name, key][0], SLICE_REL[dtype_name])
+            rg = rel_check(torch, got_g, plain["float32", key][1], GRAD_REL[dtype_name])
+            ok = rx["ok"] and rg["ok"] and counts_b[dtype_name, key] == want_counts
+            rec = dict(purified=rx, gradient=rg, evals=(fwd, bwd),
+                       counts=counts_b[dtype_name, key], ok=ok)
+            if (dtype_name, key) in recon:
+                rec["reconstruction_error"] = recon[dtype_name, key]
+            out["checks"][f"{dtype_name}/{key[0]}/{key[1]}"] = rec
+            launched = counts_b[dtype_name, key]
+            log(f"  {dtype_name:8s} {key[0]:5s} {key[1]:10s}: purified rel {rx['rel_err']:.2e} "
+                f"(<= {rx['rel_tol']:.0e}), gradient rel {rg['rel_err']:.2e} (<= "
+                f"{rg['rel_tol']:.0e}, against the CPU's fp32); {fwd} / {bwd} evaluations, "
+                f"launches {'as derived' if launched == want_counts else launched}"
+                + (f"; reconstruction error {recon[dtype_name, key]:.3e}"
+                   if (dtype_name, key) in recon else "") + f" {'ok' if ok else 'FAIL'}")
+        bad = [k for k, v in out["checks"].items() if not v["ok"]]
+        if bad:
+            raise AssertionError(f"purifiers card against CPU: {bad} failed")
+        return out
+
+    return out, finish
+
+
+def purifier_outputs_plain(torch, score, x2, w):
+    """Phase 20(b)'s CPU side: each PURIFY_MODES entry's purified images and
+    input gradient (purify_value_grad) in fp32, and its purified images in
+    bf16, at t*=PURIFY_T with FixedNoise(SEED + 33). Leaves ``score``
+    bf16."""
+    from diffpure_tpu_torch.eval import DefendedModel
+    from diffpure_tpu_torch.purify import PurifyConfig
+
+    plain = {}
+    for kind, mode in PURIFY_MODES:
+        d = DefendedModel(score, None, PurifyConfig(diffusion_type=kind, t=PURIFY_T,
+                                                    grad_mode=mode), log_every=0)
+        score.dtype = torch.float32
+        plain["float32", (kind, mode)] = purify_value_grad(torch, d, x2, w,
+                                                           FixedNoise(SEED + 33))
+        score.dtype = torch.bfloat16
+        with torch.inference_mode():
+            plain["bfloat16", (kind, mode)] = (d.purify(x2, FixedNoise(SEED + 33)), None)
+    return plain
 
 
 def run_children(jobs, timeout_s):
@@ -3111,6 +3448,550 @@ def phase_standard(torch, dev, score, clf, wrn70, x01, rng, smi):
     return dict(budget=b, suites=suites, cli_runs=runs)
 
 
+def stadv_counts(nfe_total, grad_calls, t):
+    """Launch counts of a StAdv run through the CIFAR defence: each gradient
+    call's t steps run forward, again when their checkpoints are recomputed,
+    and backward once; the NFE ledger counts each purification once."""
+    fwd, bwd = nfe_total + grad_calls * t, grad_calls * t
+    return {**{k: v[2] * fwd for k, v in KERNELS.items()},
+            **{k: KERNELS[f][2] * bwd for k, (_, _, f) in BWD_KERNELS.items()},
+            **{k: 0 for k in (*ADM_KERNELS, *DDPM_KERNELS)}}
+
+
+def phase_stadv(torch, dev, score, rng, smi):
+    """Phase 22: StAdv (stadv_attack) through the CIFAR defence at the run
+    script's fp32 (NCSN++, ResNet-50 with the CLI's seed, grad_mode
+    'checkpoint') at STADV's budget, on 4 seeded images labelled by the
+    defence itself: every grid the attack samples with lies in [-1, 1] and
+    within ``bound`` of the identity grid, x_adv in [0, 1], the launch
+    counters exactly stadv_counts of the NFE ledger; then grid_sample on the
+    card against the CPU at seeded grids (near the identity, and past
+    [-1, 1]), values and both gradients, at GRID_REL."""
+    import numpy as np
+    from diffpure_tpu_torch.attacks import StAdvConfig, stadv
+    from diffpure_tpu_torch.eval import DefendedModel
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.ops.grid_sample import grid_sample, identity_grid
+    from diffpure_tpu_torch.purify import PurifyConfig
+    from diffpure_tpu_torch.utils.prng import fold_in
+    from diffpure_tpu_torch.utils.profiling import count_nfe
+
+    b = STADV
+    score.dtype = torch.float32
+    rn50 = seeded_classifier(torch, "cifar10-resnet-50").to(dev)
+    dm = DefendedModel(score, rn50, PurifyConfig(t=b["t"], grad_mode="checkpoint"), log_every=0)
+    x = torch.from_numpy(rng.uniform(size=(b["batch"], 32, 32, 3)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        y = dm(x, fold_in(SEED + 60, 1)).argmax(-1)
+    ident = identity_grid(*x.shape[:3], device=dev)
+    grids = []
+
+    def sample(img, grid):
+        grids.append(grid.detach())
+        return grid_sample(img, grid)
+
+    cfg = StAdvConfig(bound=b["bound"], n_iter=b["n_iter"], eot_iter=b["eot_iter"])
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with mock.patch.object(stadv, "grid_sample", sample), count_nfe() as nfe:
+        x_adv, found = stadv.stadv_attack(dm, x, y, SEED + 61, cfg)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    grad_calls = b["n_iter"] * b["eot_iter"]
+    want = stadv_counts(nfe.total(), grad_calls, b["t"])
+    g = torch.stack(grids)
+    off = float((g - ident).abs().max())
+    rec = dict(wall_s=wall, nfe=dict(nfe.counts), counts=counts, grids=len(grids),
+               max_offset=off, grid_range=[float(g.min()), float(g.max())],
+               found=found.tolist(), x_adv_range=[float(x_adv.min()), float(x_adv.max())])
+    log(f"  stadv_attack t*={b['t']}, batch {b['batch']}, {b['n_iter']} iterations x "
+        f"{b['eot_iter']} EOT: {wall:.2f} s on {smi}; {nfe.report()}; {len(grids)} grids, "
+        f"max |grid - identity| {off:.5f} <= {b['bound']}, grids in [{rec['grid_range'][0]:.4f}, "
+        f"{rec['grid_range'][1]:.4f}]; found {rec['found']}; launches {counts}")
+    if nfe.total() != (grad_calls + 1) * b["t"] or len(grids) != grad_calls + 1:
+        raise AssertionError(f"StAdv ran {nfe.total()} evaluations, {len(grids)} samplings")
+    if off > b["bound"] + 1e-6 or float(g.min()) < -1 or float(g.max()) > 1:
+        raise AssertionError("StAdv's grid leaves the bound or [-1, 1]")
+    if not bool(torch.isfinite(x_adv).all()) or rec["x_adv_range"][0] < 0 \
+            or rec["x_adv_range"][1] > 1 or tuple(x_adv.shape) != tuple(x.shape):
+        raise AssertionError("StAdv's x_adv is not a batch of images in [0, 1]")
+    if counts != want:
+        raise AssertionError(f"StAdv launch counts {counts} != {want}")
+
+    checks = {}
+    img = torch.from_numpy(rng.uniform(size=(b["batch"], 32, 32, 3)).astype(np.float32))
+    ct = torch.from_numpy(rng.standard_normal((b["batch"], 32, 32, 3)).astype(np.float32))
+    near = ident.cpu() + torch.from_numpy(
+        rng.uniform(-0.1, 0.1, ident.shape).astype(np.float32))
+    far = torch.from_numpy(rng.uniform(-1.5, 1.5, ident.shape).astype(np.float32))
+    for kind, grid in (("identity", ident.cpu().clone()), ("near", near), ("past [-1, 1]", far)):
+        outs = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            xi = img.to(device).requires_grad_(True)
+            gi = grid.to(device).requires_grad_(True)
+            v = grid_sample(xi, gi)
+            dx, dg = torch.autograd.grad(v, (xi, gi), ct.to(device))
+            outs[where] = [t.detach().cpu() for t in (v, dx, dg)]
+        recs = [rel_check(torch, a, c, GRID_REL) for a, c in zip(outs["card"], outs["cpu"])]
+        checks[kind] = dict(value=recs[0], d_image=recs[1], d_grid=recs[2],
+                            ok=all(r["ok"] for r in recs))
+        log(f"  grid_sample {kind:13s}: max |card - cpu| / max |cpu| value "
+            f"{recs[0]['rel_err']:.2e}, d/dimage {recs[1]['rel_err']:.2e}, d/dgrid "
+            f"{recs[2]['rel_err']:.2e} (<= {GRID_REL:.0e}; d/dgrid max |cpu| "
+            f"{float(outs['cpu'][2].abs().max()):.1f}) "
+            f"{'ok' if checks[kind]['ok'] else 'FAIL'}")
+    bad = [k for k, v in checks.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"grid_sample card against CPU: {bad} disagree")
+    rec["grid_sample_checks"] = checks
+    return rec
+
+
+def discrete_purify(torch, adm, x, noise, t, use_ddim, grad_mode="none"):
+    """purify_guided_ddpm at t: ancestral steps on the 1000-step process, or
+    DDIM steps on the DDIM_RESPACING respacing."""
+    from diffpure_tpu_torch.purify import PurifyConfig, make_imagenet_diffusion, \
+        purify_guided_ddpm
+
+    diffusion = make_imagenet_diffusion(DDIM_RESPACING) if use_ddim else None
+    return purify_guided_ddpm(adm, x, noise, PurifyConfig(t=t, grad_mode=grad_mode),
+                              diffusion=diffusion, use_ddim=use_ddim)
+
+
+def phase_guided_ddpm(torch, dev, adm, clf, adm_per_eval, rng, smi, cpu, plain_side):
+    """Phase 23: the discrete guided DDPM through imagenet256_config's ADM
+    (flash on) and ResNet-50. (a) DefendedModel(resize_to=256) with
+    diffusion_type 'ddpm' at t=GUIDED_T, bf16, batch ADM_N, cold and warm,
+    purified images/s, the counters the census times GUIDED_T; (b) DDIM at
+    t=DDIM_T on the DDIM_RESPACING respacing, batch ADM_N, the census times
+    DDIM_T; (c) t=DISCRETE_PARITY_T, batch 1, ancestral and DDIM, fp32 and
+    bf16 on the card against the CPU's fp32 (the same ADM moved there, the
+    same seeded draws), and the ADM's output through the DDIM_RESPACING
+    process's wrapped model at respaced index GUIDED_EPS_INDEX (a float32
+    timestep), fp32 and bf16 against the CPU's fp32; (d) the input gradient of sum(w * purified) at
+    t=DISCRETE_PARITY_T, bf16, grad_mode 'checkpoint': finite, non-zero,
+    the forward kernels launched for the loop and its recomputation. (c)'s
+    CPU side is ``plain_side``, the job start_guided_plain submitted to
+    ``cpu`` (with its inputs); it is joined after (d)."""
+    import numpy as np
+    from diffpure_tpu_torch.eval import DefendedModel
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.purify import PurifyConfig, make_imagenet_diffusion
+    from diffpure_tpu_torch.utils.profiling import count_nfe
+
+    out = dict(runs=[], checks={})
+    adm.to(dev)
+    seen_t = []
+
+    def adm_seen(x, t):
+        seen_t.append(t)
+        return adm(x, t)
+
+    eps_model = make_imagenet_diffusion(DDIM_RESPACING)._wrap_model(adm_seen)
+    x1, xe, te, job = plain_side
+    adm.dtype = torch.bfloat16
+    zero = {k: 0 for k in launch_counts()}
+
+    def census_times(n):
+        return {**zero, **{k: v * n for k, v in adm_per_eval.items()}}
+
+    dm = DefendedModel(adm, clf, PurifyConfig(diffusion_type="ddpm", t=GUIDED_T,
+                                              grad_mode="none"), log_every=0, resize_to=256)
+    x224 = torch.from_numpy(rng.uniform(size=(ADM_N, 224, 224, 3)).astype(np.float32)).to(dev)
+    x256 = torch.from_numpy(rng.uniform(-1, 1, (ADM_N, 256, 256, 3)).astype(np.float32)).to(dev)
+    for what, t, fn in (
+            ("ancestral", GUIDED_T, lambda run: dm(x224, SEED + 70 + run)),
+            ("ddim", DDIM_T, lambda run: discrete_purify(torch, adm, x256, SEED + 72 + run,
+                                                         DDIM_T, True))):
+        for run in ("cold", "warm"):
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with torch.inference_mode(), count_nfe() as nfe:
+                res = fn(run == "warm")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts = launch_counts()
+            out["runs"].append(dict(what=what, t=t, run=run, wall_s=wall,
+                                    images_per_s=ADM_N / wall, ms_per_eval=wall / t * 1e3,
+                                    counts=counts, nfe=dict(nfe.counts)))
+            log(f"  {what:9s} t={t} {run}: {wall:.3f} s, {ADM_N / wall:.4f} purified images/s "
+                f"({wall / t * 1e3:.1f} ms per evaluation) on {smi}; {nfe.report()}; "
+                f"launches {counts}")
+            if counts != census_times(t) or nfe.counts != {"guided_ddpm": t}:
+                raise AssertionError(f"{what}: launch counts {counts} != {census_times(t)} "
+                                     f"or NFE {dict(nfe.counts)}")
+            shape = (ADM_N, 1000) if what == "ancestral" else (ADM_N, 256, 256, 3)
+            if tuple(res.shape) != shape or not bool(torch.isfinite(res).all()):
+                raise AssertionError(f"{what}: bad output, shape {tuple(res.shape)}")
+
+    card = {}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        adm.dtype = dtype
+        for ddim in (False, True):
+            reset_launch_counts()
+            with torch.inference_mode():
+                card[dtype_name, ddim] = discrete_purify(
+                    torch, adm, x1.to(dev), FixedDiscreteNoise(SEED + 74), DISCRETE_PARITY_T,
+                    ddim).cpu()
+            if launch_counts() != census_times(DISCRETE_PARITY_T):
+                raise AssertionError(f"t={DISCRETE_PARITY_T} {dtype_name}: launches "
+                                     f"{launch_counts()}")
+        reset_launch_counts()
+        with torch.inference_mode():
+            card[dtype_name, "eps"] = eps_model(xe.to(dev), te.to(dev)).float().cpu()
+        if launch_counts() != census_times(1):
+            raise AssertionError(f"the ADM at a float timestep, {dtype_name}: launches "
+                                 f"{launch_counts()}")
+    adm.dtype = torch.bfloat16
+    w = torch.from_numpy(rng.standard_normal((1, 256, 256, 3)).astype(np.float32)).to(dev)
+    xg = x1.to(dev).requires_grad_(True)
+    reset_launch_counts()
+    purified = discrete_purify(torch, adm, xg, FixedDiscreteNoise(SEED + 75),
+                               DISCRETE_PARITY_T, False, grad_mode="checkpoint")
+    (gx,) = torch.autograd.grad((w * purified.float()).sum(), xg)
+    torch.cuda.synchronize()
+    grad_counts_ = launch_counts()
+    want_grad = census_times(2 * DISCRETE_PARITY_T)  # the loop, then its recomputation
+    out["gradient"] = dict(counts=grad_counts_, abs_max=float(gx.abs().max()),
+                           finite=bool(torch.isfinite(gx).all()))
+    log(f"  input gradient, t={DISCRETE_PARITY_T}, bf16, checkpoint: max |grad| "
+        f"{out['gradient']['abs_max']:.3e}; launches {grad_counts_}")
+    if not out["gradient"]["finite"] or out["gradient"]["abs_max"] == 0 \
+            or grad_counts_ != want_grad:
+        raise AssertionError(f"guided DDPM gradient: finite {out['gradient']['finite']}, "
+                             f"launches {grad_counts_} != {want_grad}")
+
+    plain, cpu_seen_t = cpu.result(job)
+    want_t = float(make_imagenet_diffusion(DDIM_RESPACING).timestep_map[GUIDED_EPS_INDEX])
+    for t in seen_t + cpu_seen_t:
+        if t.dtype != torch.float32 or t.tolist() != [want_t]:
+            raise AssertionError(f"the ddim50 process gave the ADM {t} (want [{want_t}], "
+                                 f"float32)")
+    bounds = {("float32", False): ADM_PURIFY_REL, ("float32", True): ADM_PURIFY_REL,
+              ("float32", "eps"): ADM_EVAL_REL["float32"],
+              ("bfloat16", False): GUIDED_T2_BF16_REL, ("bfloat16", True): GUIDED_T2_BF16_REL,
+              ("bfloat16", "eps"): GUIDED_EPS_BF16_REL}
+    for (dtype_name, ddim), got in card.items():
+        bound = bounds[dtype_name, ddim]
+        rec = rel_check(torch, got, plain[ddim], bound)
+        key = f"{dtype_name}/" + (f"eps at t={want_t}" if ddim == "eps"
+                                   else "ddim" if ddim else "ancestral")
+        out["checks"][key] = rec
+        log(f"  {key:24s}: max |card - cpu fp32| {rec['max_abs_err']:.3e} (rel "
+            f"{rec['rel_err']:.2e} <= {bound:.0e}) {'ok' if rec['ok'] else 'FAIL'}")
+    bad = [k for k, v in out["checks"].items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"guided DDPM card against CPU: {bad} disagree")
+    return out
+
+
+def start_guided_plain(torch, cpu, adm, rng):
+    """Draw phase 23(c)'s inputs and submit its CPU side to ``cpu`` on the
+    CPU copy of the ADM: (x1, xe, te, job)."""
+    import numpy as np
+
+    te = torch.tensor([GUIDED_EPS_INDEX], dtype=torch.int32)
+    xe = torch.from_numpy(rng.standard_normal((1, 256, 256, 3)).astype(np.float32) * 0.5)
+    x1 = torch.from_numpy(rng.uniform(-0.9, 0.9, (1, 256, 256, 3)).astype(np.float32))
+    adm_cpu = cpu.copy("adm", adm)
+    return x1, xe, te, cpu.submit("phase 23", lambda: guided_outputs_plain(
+        torch, adm_cpu, x1, xe, te))
+
+
+def guided_outputs_plain(torch, adm, x1, xe, te):
+    """Phase 23(c)'s CPU side, fp32: the t=DISCRETE_PARITY_T purifications
+    of x1, ancestral and DDIM, with FixedDiscreteNoise(SEED + 74), and the
+    ADM's output at (xe, respaced index te) through the DDIM_RESPACING
+    process's wrapped model; ({False, True, "eps"}: tensor), and the
+    timesteps the ADM saw there."""
+    from diffpure_tpu_torch.purify import make_imagenet_diffusion
+
+    seen_t = []
+
+    def adm_seen(x, t):
+        seen_t.append(t)
+        return adm(x, t)
+
+    eps_model = make_imagenet_diffusion(DDIM_RESPACING)._wrap_model(adm_seen)
+    out = {}
+    adm.dtype = torch.float32
+    with torch.inference_mode():
+        for ddim in (False, True):
+            out[ddim] = discrete_purify(torch, adm, x1, FixedDiscreteNoise(SEED + 74),
+                                        DISCRETE_PARITY_T, ddim)
+        out["eps"] = eps_model(xe, te)
+    adm.dtype = torch.bfloat16
+    return out, seen_t
+
+
+def build_celebahq(torch, dev):
+    """The full-width SDEdit DDPM UNet (fp32 parameters) and the
+    celebahq__Smiling attribute classifier, seeded normal weights (the
+    CLI's seeds), built on the meta device."""
+    from diffpure_tpu_torch.models import DDPMUNet
+    from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
+
+    with torch.device("meta"):
+        unet = DDPMUNet()
+    sd = seeded_normal_state_dict(unet, SEED)
+    unet.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, assign=True)
+    n_params = sum(p.numel() for p in unet.parameters())
+    if n_params != CELEBAHQ_PARAMS:
+        raise AssertionError(f"DDPMUNet has {n_params} params, expected {CELEBAHQ_PARAMS}")
+    clf = seeded_classifier(torch, "celebahq__Smiling")
+    return unet.eval().requires_grad_(False).to(dev), clf.to(dev)
+
+
+def celebahq_kernel_census(census):
+    """ddpm_unet.halo_census's stages as phase_adm_kernels' census: each
+    stage one group_stats call at (H, C, "pre_shift" or "plain") and one
+    halo conv at (H, cin, cout, skip kind, skip channels)."""
+    from collections import Counter
+
+    out = Counter()
+    for ((_, H, _, cin), cout, cr, proj, pre), calls in census.items():
+        out["group_stats", (H, cin, "pre_shift" if pre else "plain")] += calls
+        kind = "none" if cr == 0 else ("proj" if proj else "identity")
+        out["gn_silu_conv3x3_halo", (H, cin, cout, kind, cr)] += calls
+    return dict(out)
+
+
+def phase_celebahq(torch, dev, rng, smi, cpu):
+    """Phase 24: the CelebA-HQ defence. The UNet's halo census
+    (ddpm_unet.halo_census) at batch CELEBAHQ_N and 1 in both dtypes, every
+    stage a shape check_halo_shape takes, and #6 and #8 against their plain
+    versions at each shape of the batch-CELEBAHQ_N census (the same in both
+    dtypes), bf16 and fp32, at REL (phase_adm_kernels); (a) DefendedModel with
+    diffusion_type 'celebahq-ddpm' at t=CELEBAHQ_T, batch CELEBAHQ_N, bf16
+    then fp32, cold and warm, ms per evaluation, #6 and #8 exactly
+    CELEBAHQ_STAGES a step and every other kernel 0, and one evaluation's
+    device time by kernel family (profile_eval); (b) one evaluation at
+    batch 1 and the t=DISCRETE_PARITY_T purification, fp32 and bf16 on the
+    card against the CPU's fp32; (c) the attribute classifier, card against
+    CPU, fp32. The CPU's side of (b) and (c) is a job of ``cpu`` on copies of
+    the two models, submitted after the timed runs; returns the records and
+    the function that joins it and checks."""
+    import numpy as np
+    from diffpure_tpu_torch.eval import DefendedModel
+    from diffpure_tpu_torch.models.ddpm_unet import halo_census
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.ops.halo_conv import check_halo_shape
+    from diffpure_tpu_torch.purify import PurifyConfig
+    from diffpure_tpu_torch.utils.profiling import count_nfe
+
+    unet, clf = build_celebahq(torch, dev)
+    out = dict(runs=[], checks={}, census={})
+    for dtype_name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        for n in (CELEBAHQ_N, 1):
+            census = halo_census(n, dtype)
+            for (x_shape, cout, cr, proj, _), _ in census.items():
+                check_halo_shape(dtype or torch.float32, x_shape, (3, 3, x_shape[3], cout), cr,
+                                 proj)
+            stages, pre = sum(census.values()), sum(c for k, c in census.items() if k[4])
+            out["census"][f"{dtype_name}/{n}"] = dict(stages=stages, pre_shift=pre,
+                                                      shapes=len(census))
+            if stages != CELEBAHQ_STAGES or 2 * pre != stages:
+                raise AssertionError(f"halo census {dtype_name} batch {n}: {stages} stages, "
+                                     f"{pre} with pre_shift")
+    log(f"  halo census: {CELEBAHQ_STAGES} stages an evaluation (half with pre_shift), every "
+        f"shape one the kernels take: {out['census']}")
+    kernel_census = celebahq_kernel_census(halo_census(CELEBAHQ_N))
+    if kernel_census != celebahq_kernel_census(halo_census(CELEBAHQ_N, torch.bfloat16)):
+        raise AssertionError("the fp32 and bf16 UNets' halo stages differ")
+    log(f"  #6 and #8 against plain at the census's {len(kernel_census)} shapes, bf16 and "
+        f"fp32, batch {CELEBAHQ_N}:")
+    out["kernel_shapes"] = phase_adm_kernels(torch, dev, kernel_census, n=CELEBAHQ_N,
+                                             device_time=False)
+    want = {**{k: 0 for k in launch_counts()},
+            "group_stats": CELEBAHQ_STAGES * CELEBAHQ_T,
+            "gn_silu_conv3x3_halo": CELEBAHQ_STAGES * CELEBAHQ_T}
+    x = torch.from_numpy(rng.uniform(size=(CELEBAHQ_N, 256, 256, 3)).astype(np.float32)).to(dev)
+    dm = DefendedModel(unet, clf, PurifyConfig(diffusion_type="celebahq-ddpm", t=CELEBAHQ_T,
+                                               grad_mode="none"), log_every=0)
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        unet.dtype = dtype
+        for run in ("cold", "warm"):
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with torch.inference_mode(), count_nfe() as nfe:
+                logits = dm(x, SEED + 80)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts = launch_counts()
+            out["runs"].append(dict(dtype=dtype_name, run=run, wall_s=wall,
+                                    ms_per_eval=wall / CELEBAHQ_T * 1e3,
+                                    images_per_s=CELEBAHQ_N / wall, counts=counts))
+            log(f"  celebahq-ddpm t={CELEBAHQ_T} {dtype_name} {run}: {wall:.3f} s, "
+                f"{wall / CELEBAHQ_T * 1e3:.2f} ms per evaluation, {CELEBAHQ_N / wall:.3f} "
+                f"purified images/s on {smi}; {nfe.report()}; launches {counts}")
+            if counts != want or nfe.counts != {"celebahq_ddpm": CELEBAHQ_T}:
+                raise AssertionError(f"CelebA-HQ launch counts {counts} != {want}")
+            if tuple(logits.shape) != (CELEBAHQ_N, 2) or not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"bad attribute logits, shape {tuple(logits.shape)}")
+
+    # one evaluation's device time by kernel family and the idle share
+    # (profile_eval), at the timed runs' batch, in each dtype
+    out["profile"] = {}
+    tp = torch.full((CELEBAHQ_N,), CELEBAHQ_T - 1, dtype=torch.int32, device=dev)
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        unet.dtype = dtype
+        prof = profile_eval(torch, unet, x * 2 - 1, tp)
+        prof.pop("chain_steps", None)
+        out["profile"][dtype_name] = prof
+        log(f"  one evaluation, {dtype_name}, batch {CELEBAHQ_N}: wall "
+            f"{prof['wall_ms_per_eval']:.2f} ms, device {prof['device_ms_per_eval']:.2f} ms, "
+            f"idle share {prof['idle_share']:.3f}; by family "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(prof["by_family"].items(),
+                                                             key=lambda kv: -kv[1])))
+
+    x1 = torch.from_numpy(rng.uniform(size=(1, 256, 256, 3)).astype(np.float32))
+    xe = torch.from_numpy(rng.standard_normal((1, 256, 256, 3)).astype(np.float32) * 0.5)
+    te = torch.tensor([400], dtype=torch.int32)
+    cfg = PurifyConfig(diffusion_type="celebahq-ddpm", t=DISCRETE_PARITY_T, grad_mode="none")
+    unet_cpu, clf_cpu = cpu.copy("celebahq unet", unet), cpu.copy("attribute net", clf)
+    job = cpu.submit("phase 24", lambda: celebahq_outputs(
+        torch, unet_cpu, clf_cpu, x1, xe, te, cfg, (("float32", torch.float32),)))
+    t0 = time.time()
+    card = celebahq_outputs(torch, unet, clf, x1.to(dev), xe.to(dev), te.to(dev), cfg,
+                            (("float32", torch.float32), ("bfloat16", torch.bfloat16)))
+    log(f"  card: {time.time() - t0:.1f} s; the CPU's side runs beside the CLI runs")
+
+    def finish():
+        plain = cpu.result(job)
+        check_celebahq_outputs(torch, card, plain, out)
+        return out
+
+    return out, finish
+
+
+def celebahq_outputs(torch, unet, clf, x1, xe, te, cfg, dtypes):
+    """Phase 24(b)'s and (c)'s outputs on the device of ``x1``: the UNet's
+    evaluation at (xe, te) and the purification of x1 under ``cfg`` with
+    FixedDiscreteNoise(SEED + 81) in each of ``dtypes``, and the attribute
+    net's logits of x1 (fp32); on the CPU. Leaves ``unet`` fp32."""
+    from diffpure_tpu_torch.eval import DefendedModel
+
+    res = {}
+    with torch.inference_mode():
+        for dtype_name, dtype in dtypes:
+            unet.dtype = dtype
+            res["eval", dtype_name] = unet(xe, te).float().cpu()
+            res["purify", dtype_name] = DefendedModel(unet, clf, cfg, log_every=0).purify(
+                x1, FixedDiscreteNoise(SEED + 81)).cpu()
+        res["attribute"] = clf(x1).cpu()
+    unet.dtype = torch.float32
+    return res
+
+
+def check_celebahq_outputs(torch, card, cpu, out):
+    """Phase 24's card-against-CPU checks, into out["checks"]: the
+    evaluation and the purification in each dtype against the CPU's fp32,
+    and the attribute net at ZOO_REL."""
+    bounds = {("eval", "float32"): ADM_EVAL_REL["float32"],
+              ("eval", "bfloat16"): ADM_EVAL_REL["bfloat16"],
+              ("purify", "float32"): ADM_PURIFY_REL, ("purify", "bfloat16"): SLICE_REL["bfloat16"]}
+    for (what, dtype_name), bound in bounds.items():
+        rec = rel_check(torch, card[what, dtype_name], cpu[what, "float32"], bound)
+        out["checks"][f"{what}/{dtype_name}"] = rec
+        log(f"  {what:6s} {dtype_name:8s}: max |card - cpu fp32| {rec['max_abs_err']:.3e} (rel "
+            f"{rec['rel_err']:.2e} <= {bound:.0e}) {'ok' if rec['ok'] else 'FAIL'}")
+    rec = rel_check(torch, card["attribute"], cpu["attribute"], ZOO_REL)
+    out["checks"]["attribute"] = rec
+    log(f"  attribute net fp32: max |card - cpu| {rec['max_abs_err']:.3e} (rel "
+        f"{rec['rel_err']:.2e} <= {ZOO_REL:.0e}) {'ok' if rec['ok'] else 'FAIL'}")
+    bad = [k for k, v in out["checks"].items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"CelebA-HQ card against CPU: {bad} disagree")
+    return out
+
+
+def celebahq_fixture(rng, root):
+    """CELEBAHQ_FIXTURE seeded JPEGs in root/dataset/celebahq/images/, the
+    CelebA attribute list (Eyeglasses, Male, Smiling) and the partition list
+    beside them (every third image in the val partition), and the repo's
+    configs/celeba.yml."""
+    import shutil
+
+    from PIL import Image
+
+    d = root / "dataset" / "celebahq"
+    (d / "images").mkdir(parents=True)
+    names = [f"{i:06d}.jpg" for i in range(CELEBAHQ_FIXTURE)]
+    for name in names:
+        Image.fromarray(rng.integers(0, 256, (300, 300, 3), dtype="uint8")).save(
+            d / "images" / name)
+    attrs = rng.choice([-1, 1], size=(len(names), 3))
+    (d / "list_attr_celeba.txt").write_text(
+        f"{len(names)}\nEyeglasses Male Smiling\n"
+        + "".join(f"{n} {' '.join(str(v) for v in a)}\n" for n, a in zip(names, attrs)))
+    (d / "list_eval_partition.txt").write_text(
+        "".join(f"{n} {i % 3}\n" for i, n in enumerate(names)))
+    (root / "configs").mkdir()
+    shutil.copy(REPO / "configs" / "celeba.yml", root / "configs" / "celeba.yml")
+
+
+def phase_new_cli(torch, dev, rng, smi):
+    """Phases 22 and 24's CLI runs: ``python -m diffpure_tpu_torch.cli`` on
+    NEW_CLI_RUNS's scripts at once (processes of their own, tiny budgets,
+    random weights, each script's fp32): StAdv on a seeded CIFAR-10 fixture
+    labelled by the CLI's ResNet-50, the two CelebA-HQ BPDA scripts on a
+    seeded CelebA-HQ fixture. Each must exit 0, print its NFE report and
+    results line, save its adversarial images and launch its path's
+    kernels (StAdv #1-#5; CelebA-HQ #6 and #8, not #7, #9 or #10)."""
+    import tempfile
+
+    import numpy as np
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="new_cli_", dir=OUT))
+    rn50 = seeded_classifier(torch, "cifar10-resnet-50")
+    cifar_fixture(work / "stadv", rng.integers(0, 256, (64, 3072), dtype=np.uint8),
+                  rn50.to(dev), dev)
+    celebahq_fixture(rng, work / "celebahq")
+    jobs, where = [], {}
+    for tag, (script, budget) in NEW_CLI_RUNS.items():
+        argv = script_flags(REPO / "run_scripts" / "torch" / script, budget)
+        cwd = work / ("stadv" if tag.startswith("stadv") else "celebahq")
+        code = TINY_STADV_CLI_CODE if tag.startswith("stadv") else CLI_WITH_COUNTS
+        where[tag] = (cwd, argv)
+        jobs.append((tag, cwd, ["-c", code, *argv, "--random_weights"]))
+    runs = {}
+    for tag, (rc, stdout, stderr, secs) in run_children(jobs, CLI_TIMEOUT_S).items():
+        (OUT / f"cli_{tag}.log").write_text(stdout + "\n---- stderr\n" + stderr)
+        lines = stdout.splitlines()
+        nfe = [ln for ln in lines if ln.startswith("NFE total=")]
+        results = [ln for ln in lines if ln.startswith("results: {")]
+        counts = [json.loads(ln[len("launches: "):]) for ln in lines if ln.startswith("launches: ")]
+        cwd, argv = where[tag]
+        flag = dict(zip(argv[::2], argv[1::2]))
+        version, kind = flag["--attack_version"], flag["--diffusion_type"]
+        log_dir = cwd / "exp_results" / "images" / flag["--classifier_name"] / \
+            f"{kind}_{version}" / "seed0" / "data0"
+        saved = sorted(p.name for p in log_dir.glob("*.npy"))
+        runs[tag] = dict(rc=rc, wall_s=secs, nfe=nfe, results=results, saved=saved,
+                         counts=counts[-1] if counts else None)
+        log(f"  {tag}: rc {rc}, done {secs:.1f} s after the runs started together on the card; "
+            f"{nfe[-1] if nfe else 'no NFE report'}; {results[-1][:200] if results else 'no results'}"
+            f"; saved {saved}; launches {counts[-1] if counts else None}")
+        c = counts[-1] if counts else {}
+        if version == "stadv":
+            want_saved = "x_adv_defended_stadv.npy"
+            path_ok = bool(c) and min(c[k] for k in (*KERNELS, *BWD_KERNELS)) > 0
+        else:
+            want_saved = "x_adv_bpda.npy"
+            path_ok = bool(c) and c["group_stats"] > 0 and c["gn_silu_conv3x3_halo"] > 0 \
+                and c["gn_film_silu_apply"] == c["flash_attention"] == \
+                c["group_norm_silu_fused"] == 0
+        if rc != 0 or not nfe or not results or want_saved not in saved or not path_ok:
+            log(stderr[-3000:])
+            raise AssertionError(f"the CLI's {tag} run failed (chip_smoke_out/cli_{tag}.log)")
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-after", choices=("2b", "2c", "2d"), default=None,
@@ -3224,6 +4105,8 @@ def main() -> int:
         for name, ms, calls in prof["top_kernels"]:
             log(f"  {ms:8.3f} ms x{calls:<4d} {name[:100]}")
         return 3
+
+    cpu = CpuSide(torch)  # the CPU's side of the card-against-CPU checks, in its own thread
 
     # ---- phase 2 ------------------------------------------------------------
     log("== phase 2: kernel against plain at the main-path shapes, batch 8")
@@ -3450,43 +4333,21 @@ def main() -> int:
         "plain (CPU)")
     x6 = x01[:2]
     w6 = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32))
-    grad_checks, plain = {}, {}
-    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        score.dtype = dtype
-        dms = {m: DefendedModel(score, clf, PurifyConfig(t=5, grad_mode=m), log_every=0)
-               for m in GRAD_MODES}
-        got = {m: purify_grad(torch, dms[m], x6, w6, FixedNoise(SEED + 6)).cpu()
-               for m in GRAD_MODES}
-        score.cpu()
-        for m in GRAD_MODES:
-            plain[dtype_name, m] = purify_grad(torch, dms[m], x6.cpu(), w6,
-                                               FixedNoise(SEED + 6))
-        score.to(dev)
-        for m in GRAD_MODES:
-            want = plain[dtype_name, m]
-            err, scale = float((got[m] - want).abs().max()), float(want.abs().max())
-            ok = bool(torch.isfinite(got[m]).all()) and err <= GRAD_REL[dtype_name] * scale
-            rec = dict(max_abs_err=err, rel_err=err / scale, rel_tol=GRAD_REL[dtype_name], ok=ok)
-            if dtype_name == "bfloat16":  # the plain bf16 gradient against the plain fp32 one
-                ref = plain["float32", m]
-                rec["plain_gap"] = float((want - ref).abs().max() / ref.abs().max())
-            grad_checks[f"{dtype_name}/{m}"] = rec
-            log(f"  {dtype_name:8s} {m:10s}: max |kernel - plain| {err:.3e} (rel "
-                f"{err / scale:.2e} <= {GRAD_REL[dtype_name]:.1e}) "
-                f"{'ok' if ok else 'FAIL'}" + (f"; plain bf16 vs fp32 {rec['plain_gap']:.2e}"
-                                               if "plain_gap" in rec else ""))
-            if not ok:
-                raise AssertionError(f"gradient {dtype_name}/{m}: kernel and plain disagree")
-    score.dtype = torch.bfloat16
+    got6 = purify_grads(torch, score, x6, w6, (("float32", torch.float32),
+                                                ("bfloat16", torch.bfloat16)))
+    score_cpu, x6_cpu = cpu.copy("score", score), x6.cpu()
+    job6 = cpu.submit("phase 6", lambda: purify_grads(torch, score_cpu, x6_cpu, w6,
+                                                       (("float32", torch.float32),)))
+    log("  the card's side done; the CPU's runs beside phase 7")
     phase_done("6")
 
     # ---- phase 7 ------------------------------------------------------------
     # The labels are the defence's own prediction under the noise the
     # defended suite's first (clean) evaluation draws, so every example
     # starts robust and APGD runs through the defence on all of them.
-    log("== phase 7: eval_autoattack, version 'rand' (eot_iter=1, n_iter=2), t*=100, "
+    log(f"== phase 7: eval_autoattack, version 'rand' (eot_iter=1, n_iter=2), t*={AA_T}, "
         "bf16, batch 8, grad_mode 'checkpoint'")
-    dm7 = DefendedModel(score, clf, PurifyConfig(t=EVALS, grad_mode="checkpoint"), log_every=0)
+    dm7 = DefendedModel(score, clf, PurifyConfig(t=AA_T, grad_mode="checkpoint"), log_every=0)
     # one EOT sample (phase 17 runs two through the ImageNet defence): the
     # run's time limit holds the new phases
     aa_cfg = AutoAttackConfig(version="rand", eot_iter=1, n_iter=2)
@@ -3514,6 +4375,8 @@ def main() -> int:
             if v == 0 and k not in ADM_KERNELS and k not in DDPM_KERNELS]
     if idle:
         raise AssertionError(f"kernels of the attack path never launched: {idle}")
+    log("== phase 6's checks: purification input gradient, kernels (GPU) against plain (CPU)")
+    grad_checks = check_purify_grads(torch, got6, cpu.result(job6))
     phase_done("7")
 
     # ---- phase 8 ------------------------------------------------------------
@@ -3553,43 +4416,15 @@ def main() -> int:
 
     # ---- phase 9 ------------------------------------------------------------
     log("== phase 9: full-width ADM evaluation (batch 1) and t*=3 fp32 purification, "
-        "kernels (GPU) against plain (CPU)")
+        "kernels (GPU) against plain (CPU): the card's side")
     x9 = torch.from_numpy(rng.standard_normal((1, 256, 256, 3)).astype(np.float32) * 0.5)
     t9 = torch.tensor([149], dtype=torch.int32)
     x9p = torch.from_numpy(rng.uniform(size=(1, 256, 256, 3)).astype(np.float32))
-    cfg9 = PurifyConfig(t=3, **guided)
-    dtypes9 = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
-    card9, cpu9 = {}, {}
-    for where, out9, device in (("card", card9, dev), ("cpu", cpu9, torch.device("cpu"))):
-        if where == "cpu":
-            adm.cpu()
-        t0 = time.time()
-        with torch.inference_mode():
-            for dtype_name, dtype in dtypes9:
-                adm.dtype = dtype
-                out9[dtype_name] = adm(x9.to(device), t9.to(device)).float().cpu()
-            adm.dtype = torch.float32
-            out9["purify"] = DefendedModel(adm, rn50, cfg9, log_every=0).purify(
-                x9p.to(device), FixedNoise(SEED + 13)).cpu()
-        log(f"  {where}: {time.time() - t0:.1f} s")
-    adm_checks = {}
-    for what, bound in (("float32", ADM_EVAL_REL["float32"]),
-                        ("bfloat16", ADM_EVAL_REL["bfloat16"]), ("purify", ADM_PURIFY_REL)):
-        got, want = card9[what], cpu9[what]
-        err, scale = float((got - want).abs().max()), float(want.abs().max())
-        ok = bool(torch.isfinite(got).all()) and err <= bound * scale
-        adm_checks[what] = dict(max_abs_err=err, rel_err=err / scale, rel_tol=bound, ok=ok)
-        log(f"  {what:8s}: max |card - cpu| {err:.3e} (rel {err / scale:.2e} <= {bound:.0e}) "
-            f"{'ok' if ok else 'FAIL'}")
-    # how far each side's bf16 evaluation lies from the CPU's fp32 one
-    for where, out9 in (("card", card9), ("cpu", cpu9)):
-        gap = float((out9["bfloat16"] - cpu9["float32"]).abs().max()
-                    / cpu9["float32"].abs().max())
-        adm_checks[f"{where}_bf16_vs_cpu_fp32"] = gap
-        log(f"  {where} bf16 against CPU fp32: rel {gap:.2e}")
-    bad = [k for k, v in adm_checks.items() if isinstance(v, dict) and not v["ok"]]
-    if bad:
-        raise AssertionError(f"ImageNet card against CPU: {bad} disagree")
+    cfg9 = PurifyConfig(t=3, score_type="guided_diffusion", grad_mode="none")
+    t0 = time.time()
+    card9 = adm_outputs(torch, adm, x9.to(dev), t9.to(dev), x9p.to(dev), cfg9,
+                        (("float32", torch.float32), ("bfloat16", torch.bfloat16)))
+    log(f"  card: {time.time() - t0:.1f} s; the CPU's side runs beside phases 11-14")
     phase_done("9")
 
     # ---- phase 10 -----------------------------------------------------------
@@ -3629,6 +4464,12 @@ def main() -> int:
     ddpm_counts = ddpm_runs[0]["counts"]
     log(f"DDPM slice (warm run): {ddpm_runs[1]['images_per_s']:.3f} images/s on {smi}")
     phase_done("10")
+
+    # phase 9's CPU side, on a CPU copy of the ADM, beside phases 11-14 (after
+    # phase 10's timed runs: the host paces them)
+    adm_cpu = cpu.copy("adm", adm)
+    job9 = cpu.submit("phase 9", lambda: adm_outputs(torch, adm_cpu, x9, t9, x9p, cfg9,
+                                                      (("float32", torch.float32),)))
 
     # ---- phase 11 -----------------------------------------------------------
     log("== phase 11: DDPM purification t*=5 (fp32) and an NCSN++ 'ddpm' evaluation "
@@ -3688,7 +4529,7 @@ def main() -> int:
     log(f"== phase 13: DPM-Solver++(2M) purification, t*={EVALS}, {DPM_STEPS} steps, bf16, "
         f"batch {N}; t*=5 in 3 steps and its input gradient, kernels (GPU) against plain "
         f"(CPU)")
-    dpm_runs, dpm_checks = phase_dpm(torch, dev, score, clf, x01, x6, w6, smi)
+    dpm_runs, finish_dpm = phase_dpm(torch, dev, score, clf, x01, x6, w6, smi, cpu)
     phase_done("13")
 
     # ---- phase 14 -----------------------------------------------------------
@@ -3696,19 +4537,25 @@ def main() -> int:
         "and rand L2 and the three ImageNet rand run scripts' flags with tiny budgets, seeded "
         "fixtures (ImageNet: an image folder and an LMDB), random weights")
     cli_runs = phase_cli(rng)
+    log("== phase 9's checks: full-width ADM evaluation and purification, card against CPU")
+    adm_checks = check_adm_outputs(torch, card9, cpu.result(job9))
+    log("== phase 13's checks: DPM-Solver++(2M) t*=5, kernels (GPU) against plain (CPU)")
+    dpm_checks = finish_dpm()
     phase_done("14")
 
     # ---- phase 15 -----------------------------------------------------------
     log(f"== phase 15: ImageNet purification input gradient, t*={ADM_GRAD_PARITY_T}, batch 1, "
         f"full-width ADM (flash on), fp32 + bf16, both grad modes, kernels "
         f"(GPU) against plain (CPU)")
-    adm_grad_checks = phase_adm_grad_parity(torch, dev, adm, rn50, rng, smi)
+    start_adm_grad, finish_adm_grad = phase_adm_grad_parity(torch, dev, adm, rn50, rng, smi,
+                                                            cpu)
     phase_done("15")
 
     # ---- phase 16 -----------------------------------------------------------
-    log(f"== phase 16: input gradient of CE(DefendedModel(resize_to=256)), t*={ADM_EVALS}, "
+    log(f"== phase 16: input gradient of CE(DefendedModel(resize_to=256)), t*={ADM_GRAD_T}, "
         f"bf16 ADM + ResNet-50, batch {ADM_GRAD_N}, both grad modes, once each (warm)")
     adm_grad_runs = phase_adm_grad_rate(torch, dev, adm, rn50, adm_per_eval, rng, smi)
+    start_adm_grad()  # phase 15's CPU side, beside phases 17-19 (the host paces phase 16)
     phase_done("16")
 
     # ---- phase 17 -----------------------------------------------------------
@@ -3734,6 +4581,8 @@ def main() -> int:
         m.cpu()  # the ImageNet and DDPM phases are done: free the card's memory
     torch.cuda.empty_cache()
     zoo, wrn70 = phase_classifiers(torch, dev, score, x01, rng, smi)
+    log("== phase 15's checks: ImageNet purification input gradient, card against CPU")
+    adm_grad_checks = finish_adm_grad()
     phase_done("19")
 
     # ---- phase 20 -----------------------------------------------------------
@@ -3741,15 +4590,47 @@ def main() -> int:
         f"t*={PURIFY_T}, batch {PURIFY_N}, {len(PURIFY_MODES)} modes, fp32 + bf16, card against "
         f"CPU; reversible Heun's gradient at batch {GRAD_N}, t*={EVALS}")
     warm5 = [r for r in grad_runs if r["run"] == "warm"]
-    purifiers = phase_purifiers(torch, dev, score, clf, x01, rng, smi,
-                                sde_rate=runs[1]["images_per_s"], grad_runs=warm5)
+    purifiers, finish_purifiers = phase_purifiers(torch, dev, score, clf, x01, rng, smi, cpu,
+                                                  sde_rate=runs[1]["images_per_s"],
+                                                  grad_runs=warm5)
+    # phase 23's CPU side, queued behind 20(b)'s: both run beside phases 21-22
+    guided_plain = start_guided_plain(torch, cpu, adm, rng)
     phase_done("20")
 
     # ---- phase 21 -----------------------------------------------------------
     log(f"== phase 21: eval_autoattack 'standard' through the bf16 CIFAR defence, {AA_STANDARD}, "
         f"Linf and L2; then the CLI on {', '.join(STAND_CLI_RUNS)}'s flags with tiny budgets")
     standard = phase_standard(torch, dev, score, clf, wrn70, x01, rng, smi)
+    log("== phase 20(b)'s checks: the purifiers at t*=2, card against CPU")
+    purifiers = finish_purifiers()
     phase_done("21")
+
+    # ---- phase 22 -----------------------------------------------------------
+    log(f"== phase 22: StAdv through the fp32 CIFAR defence (NCSN++ + ResNet-50), {STADV}; "
+        f"grid_sample card against CPU")
+    stadv_run = phase_stadv(torch, dev, score, rng, smi)
+    score.dtype = torch.bfloat16
+    phase_done("22")
+
+    # ---- phase 23 -----------------------------------------------------------
+    log(f"== phase 23: the discrete guided DDPM through the bf16 ADM (flash) + ResNet-50, "
+        f"t={GUIDED_T} ancestral and t={DDIM_T} DDIM ({DDIM_RESPACING}), batch {ADM_N}; "
+        f"t={DISCRETE_PARITY_T}, batch 1, card against CPU and an input gradient")
+    guided = phase_guided_ddpm(torch, dev, adm, rn50, adm_per_eval, rng, smi, cpu, guided_plain)
+    torch.cuda.empty_cache()
+    phase_done("23")
+
+    # ---- phase 24 -----------------------------------------------------------
+    log(f"== phase 24: the CelebA-HQ defence, full-width DDPM UNet + attribute net, "
+        f"t={CELEBAHQ_T}, batch {CELEBAHQ_N}, bf16 and fp32; t={DISCRETE_PARITY_T}, batch 1, "
+        f"card against CPU; then the CLI on {', '.join(NEW_CLI_RUNS)}'s flags, at once")
+    celebahq, finish_celebahq = phase_celebahq(torch, dev, rng, smi, cpu)
+    torch.cuda.empty_cache()
+    new_cli = phase_new_cli(torch, dev, rng, smi)
+    log("== phase 24's checks: the CelebA-HQ UNet and attribute net, card against CPU")
+    celebahq = finish_celebahq()
+    cpu.close()
+    phase_done("24")
 
     # ---- report -------------------------------------------------------------
     kernels = []
@@ -3823,8 +4704,9 @@ def main() -> int:
         ddpm_runs=ddpm_runs, ddpm_checks=ddpm_checks, bpda_runs=bpda_runs, dpm_runs=dpm_runs,
         dpm_checks=dpm_checks, cli_runs=cli_runs, adm_grad_checks=adm_grad_checks,
         adm_grad_runs=adm_grad_runs, adm_attack=adm_attack, gn_grad_checks=gn_grad_checks,
-        classifier_zoo=zoo, purifiers=purifiers, standard=standard,
-        phase_s=phase_s, kernels=kernels),
+        classifier_zoo=zoo, purifiers=purifiers, standard=standard, stadv=stadv_run,
+        guided_ddpm=guided, celebahq=celebahq, new_cli_runs=new_cli,
+        phase_s=phase_s, cpu_side_s=cpu.seconds, kernels=kernels),
         indent=1))
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(json.dumps({"kernels": kernels}))

@@ -1,6 +1,8 @@
 """flax params -> PyTorch state dict for the classifiers: the inverse of
 diffpure_tpu/classifiers/convert.py (``_classifier_leaf`` :35,
-``translate_classifier`` :54, ``translate_vit`` :103)."""
+``translate_classifier`` :54, ``translate_attribute_d`` :92,
+``translate_vit`` :103); and ``attribute_state_dict``, the CelebA-HQ
+attribute net's ``net_best.pth`` keys as the port's model takes them."""
 from __future__ import annotations
 
 import re
@@ -9,7 +11,7 @@ from typing import Dict, Mapping
 import torch
 
 from diffpure_tpu_torch.models.convert import flatten_params, split_module, \
-    to_tensor
+    strip_module_prefix, to_tensor
 
 _BN_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
@@ -91,5 +93,36 @@ def vit_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             name, arr = ("weight" if leaf == "scale" else "bias"), v
         else:
             raise ValueError(f"unhandled ViT leaf {'/'.join(path)}")
+        sd[".".join(parts + [name])] = to_tensor(arr)
+    return sd
+
+
+# the attribute net's constant buffers, which its checkpoint may hold and the
+# model does not (JAX convert.py:19 ``SKIP_KEYS``)
+ATTRIBUTE_BUFFERS = ("mean", "std", "mu", "sigma", "lod_in")
+
+
+def attribute_state_dict(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """A reference attribute-net state dict (``net_best.pth``) -> the port's
+    ``AttributeD`` keys, which are the reference's: ``module.`` stripped,
+    its top-level constant buffers and ``num_batches_tracked`` dropped."""
+    return {k: torch.as_tensor(v) for k, v in strip_module_prefix(sd).items()
+            if k not in ATTRIBUTE_BUFFERS and not k.endswith("num_batches_tracked")}
+
+
+def attribute_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The inverse of ``translate_attribute_d``: ``block_256x256`` ->
+    ``256x256``, a WScale layer's ``b`` -> ``wscale.b``, conv kernels HWIO
+    -> OIHW, Dense kernels transposed."""
+    sd = {}
+    for path, v in flatten_params(params):
+        *mods, leaf = path
+        parts = [m[len("block_"):] if re.fullmatch(r"block_\d+x\d+", m) else m for m in mods]
+        if leaf == "b":
+            name, arr = "wscale.b", v
+        elif leaf == "kernel":
+            name, arr = "weight", (v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.transpose(1, 0))
+        else:
+            raise ValueError(f"unhandled attribute-net leaf {'/'.join(path)}")
         sd[".".join(parts + [name])] = to_tensor(arr)
     return sd

@@ -1,10 +1,11 @@
-"""Classifier factory (port of the CIFAR-10 and ImageNet entries of
-diffpure_tpu/classifiers/registry.py:32-54)."""
+"""Classifier factory (port of diffpure_tpu/classifiers/registry.py:32-54,
+and its ``celebahq__<attribute>`` names, :41-43)."""
 from __future__ import annotations
 
 import torch.nn as nn
 
 from diffpure_tpu_torch.classifiers import resnet
+from diffpure_tpu_torch.classifiers.attribute import AttributeClassifier
 from diffpure_tpu_torch.classifiers.common import IMAGENET_MEAN, IMAGENET_STD
 from diffpure_tpu_torch.classifiers.vit import ViT, deit_small_config
 from diffpure_tpu_torch.classifiers.wideresnet import DMWideResNet, WideResNet, \
@@ -35,10 +36,16 @@ _REGISTRY = {
 }
 
 
+CLASSIFIER_NAMES = tuple(_REGISTRY)
+
+
 def get_classifier(name: str) -> nn.Module:
-    """A classifier taking [0, 1] NHWC images to logits."""
+    """A classifier taking [0, 1] NHWC images to logits; ``celebahq__<attr>``
+    is the attribute net with its [logit, -logit] wrapper (ref
+    attribute_classifier.py:58-65)."""
+    if name.startswith("celebahq__"):
+        return AttributeClassifier()
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"classifier {name!r} is not ported yet (ROADMAP Slice 4 item 17 for "
-            f"celebahq__<attribute>); have {tuple(_REGISTRY)}")
+        raise KeyError(f"unknown classifier {name!r}; have {CLASSIFIER_NAMES} plus "
+                       f"celebahq__<attribute>")
     return _REGISTRY[name]()

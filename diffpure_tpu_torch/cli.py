@@ -6,16 +6,17 @@ eval_sde_adv_bpda.py:177-279):
 
 Builds the defended model from the YAML config and the checkpoints under
 ./pretrained/ (score_sde/checkpoint_8.pth, guided_diffusion/
-256x256_diffusion_uncond.pt, classifiers/<name>.pt or the CIFAR paths of
-``CKPT_MAP``), loads the evaluation
-subset from ./dataset/ and runs the requested attack protocol.
+256x256_diffusion_uncond.pt, celebahq/celeba_hq.ckpt, classifiers/<name>.pt,
+the CIFAR paths of ``CKPT_MAP`` or celebahq/<attribute>/net_best.pth),
+loads the evaluation subset from ./dataset/ and runs the requested attack
+protocol.
 ``--random_weights`` (or a missing checkpoint, with a warning) runs the
 pipeline on seeded random weights: seeded normal ones for the ADM too,
 where JAX's CLI gives it zeros (diffpure_tpu/cli.py:60-66), whose score is
 identically zero, so that the kernels do real work. The models and the
 data go to ``--device`` (default ``cuda``); ``cuda`` with no card raises.
-The port runs the ``cifar10`` and ``imagenet`` domains; CelebA-HQ waits
-for ROADMAP item 17, the multi-GPU split for item 20.
+The port runs the ``cifar10``, ``imagenet`` and ``celebahq`` domains; the
+multi-GPU split waits for ROADMAP item 20.
 """
 from __future__ import annotations
 
@@ -28,15 +29,11 @@ from diffpure_tpu_torch.config import build_parser, load_config, make_log_dir
 from diffpure_tpu_torch.utils import seed_everything, setup_run_logging
 from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
 
-_LATER_DOMAINS = {"celebahq": "Slice 4 item 17"}
+DOMAINS = ("cifar10", "imagenet", "celebahq")
 
 
 def _check_domain(domain: str) -> None:
-    for name, item in _LATER_DOMAINS.items():
-        if name in domain:
-            raise NotImplementedError(
-                f"domain {domain!r} waits for ROADMAP {item}")
-    if "cifar10" not in domain and "imagenet" not in domain:
+    if not any(d in domain for d in DOMAINS):
         raise NotImplementedError(f"unknown domain {domain!r}")
 
 
@@ -47,23 +44,29 @@ def _load_weights(model: torch.nn.Module, sd, device: torch.device) -> torch.nn.
 
 def build_score_model(args, config, device: torch.device) -> torch.nn.Module:
     """The score model of the domain (ref eval_sde_adv.py:40-55, runners/
-    diffpure_sde.py:160-190; JAX cli.py:26-70), built from the YAML as the
-    reference builds it: cifar10 the NCSN++ of ``config`` (its torso in
-    bf16 under ``--precision bf16``), imagenet the ADM of the ``model:``
-    section (``adm_from_config``; its torso in bf16 where ``use_fp16``
-    says so). Weights frozen: attacks differentiate the input."""
+    diffpure_sde.py:160-190; JAX cli.py:26-84), built as the reference
+    builds it: cifar10 the NCSN++ of ``config`` (its torso in bf16 under
+    ``--precision bf16``), imagenet the ADM of the ``model:`` section
+    (``adm_from_config``; its torso in bf16 where ``use_fp16`` says so),
+    celebahq SDEdit's DDPM UNet at the widths of configs/celeba.yml (its
+    torso in bf16 under ``--precision bf16``). Weights frozen: attacks
+    differentiate the input."""
     from diffpure_tpu_torch.config import namespace2dict
-    from diffpure_tpu_torch.models import adm_from_config, ncsnpp_from_config
+    from diffpure_tpu_torch.models import DDPMUNet, adm_from_config, ncsnpp_from_config
     from diffpure_tpu_torch.models.convert import load_guided_diffusion_checkpoint, \
-        load_score_sde_checkpoint
+        load_score_sde_checkpoint, load_sdedit_checkpoint
 
     _check_domain(args.domain)
+    dtype = torch.bfloat16 if args.precision == "bf16" else None
     if "imagenet" in args.domain:
         model = adm_from_config(namespace2dict(config.model))
         ckpt = "pretrained/guided_diffusion/256x256_diffusion_uncond.pt"
         load = lambda: load_guided_diffusion_checkpoint(ckpt, model)  # noqa: E731
+    elif "celebahq" in args.domain:
+        model = DDPMUNet(dtype=dtype)
+        ckpt = "pretrained/celebahq/celeba_hq.ckpt"
+        load = lambda: load_sdedit_checkpoint(ckpt, model)  # noqa: E731
     else:
-        dtype = torch.bfloat16 if args.precision == "bf16" else None
         model = ncsnpp_from_config(config, dtype=dtype)
         ckpt = "pretrained/score_sde/checkpoint_8.pth"
         load = lambda: load_score_sde_checkpoint(ckpt)  # noqa: E731
@@ -88,18 +91,22 @@ CKPT_MAP = {
 def build_classifier(args, device: torch.device) -> torch.nn.Module:
     """Classifier taking [0, 1] NHWC images (ref utils.py:143-253), its
     publisher's keys (robustbench, torchvision, timm, the reference's CIFAR
-    ResNet-50 and WRN-70-16) from ``CKPT_MAP`` or
-    pretrained/classifiers/<name>.pt; the port's registry raises for the
-    classifiers it does not have. The seeded weights need no input size
+    ResNet-50 and WRN-70-16, its CelebA-HQ attribute nets) from
+    ``CKPT_MAP``, pretrained/celebahq/<attribute>/net_best.pth or
+    pretrained/classifiers/<name>.pt. The seeded weights need no input size
     (JAX initialises ImageNet models at 224 px, cli.py:111-112): DeiT-S's
     position grid is its 224-px one either way."""
     from diffpure_tpu_torch.classifiers import get_classifier
+    from diffpure_tpu_torch.classifiers.convert import attribute_state_dict
     from diffpure_tpu_torch.models.convert import load_torch_state_dict, \
         strip_module_prefix
 
     name = args.classifier_name
     model = get_classifier(name)
-    ckpt = CKPT_MAP.get(name, f"pretrained/classifiers/{name}.pt")
+    if name.startswith("celebahq__"):
+        ckpt = f"pretrained/celebahq/{name.split('__')[-1]}/net_best.pth"
+    else:
+        ckpt = CKPT_MAP.get(name, f"pretrained/classifiers/{name}.pt")
     if args.random_weights or not os.path.exists(ckpt):
         sd = seeded_normal_state_dict(model, 1)
         if not args.random_weights:
@@ -110,16 +117,20 @@ def build_classifier(args, device: torch.device) -> torch.nn.Module:
             if isinstance(sd, dict) and key in sd:
                 sd = sd[key]
                 break
-        sd = strip_module_prefix(sd)
+        sd = attribute_state_dict(sd) if name.startswith("celebahq__") \
+            else strip_module_prefix(sd)
     return _load_weights(model, sd, device)
 
 
 def _attack_kwargs(args) -> dict:
-    """The attack's config fields by version (JAX cli.py:163-183)."""
+    """The attack's config fields by version (JAX cli.py:187-207)."""
     if args.attack_version in ("standard", "rand", "custom"):
         return dict(norm=args.lp_norm, eps=args.adv_eps,
                     eot_iter=args.eot_iter if args.attack_version == "rand" else 1,
                     apgd_iters_per_dispatch=args.attack_dispatch_iters)
+    if args.attack_version == "stadv":
+        return dict(bound=args.adv_eps, n_iter=100, eot_iter=args.eot_iter,
+                    iters_per_dispatch=args.attack_dispatch_iters)
     if args.attack_version == "bpda":
         return dict(adv_eps=args.adv_eps, adv_eta=args.adv_eta,
                     adv_steps=args.adv_steps,

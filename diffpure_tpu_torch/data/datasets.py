@@ -1,5 +1,5 @@
-"""Evaluation subsets, CIFAR-10 and ImageNet (port of
-diffpure_tpu/data/datasets.py:29-135, :201-224).
+"""Evaluation subsets, CIFAR-10, ImageNet and CelebA-HQ (port of
+diffpure_tpu/data/datasets.py:29-233).
 
 Fixed ``num_sub`` subsets drawn with
 ``np.random.RandomState(data_seed).choice(N, num_sub, replace=False)``, the
@@ -7,14 +7,15 @@ reference's indices (ref datasets.py:319,333), from the filesystem:
 CIFAR-10's python pickle batches; ImageNet's class-per-directory val
 folder or the reference's LMDB cache beside it (read by the pure-Python
 ``data/lmdb_reader.py``), decoded by Pillow (imported when an image is
-read, as in JAX). Outputs are NHWC float32 in [0, 1] numpy arrays; the
-caller moves them to its device. CelebA-HQ waits for ROADMAP item 17.
+read, as in JAX); CelebA-HQ's images folder with the CelebA attribute and
+partition lists beside it. Outputs are NHWC float32 in [0, 1] numpy
+arrays; the caller moves them to its device.
 """
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -115,6 +116,55 @@ def imagenet_lmdb_val_subset(lmdb_path: str, num_sub: int = -1,
     return np.stack(xs), np.asarray(ys, dtype=np.int32)
 
 
+def _celebahq_table(root: str):
+    """The image files, attribute names, 0/1 attributes and partitions
+    (ref datasets.py:110-129 make_table, without pandas; JAX :141)."""
+    filenames = sorted(os.listdir(os.path.join(root, "images")))
+    celebahq = [f.replace("png", "jpg") if f.endswith("png") else f for f in filenames]
+    with open(os.path.join(root, "list_attr_celeba.txt")) as f:
+        lines = f.read().splitlines()
+    attr_names = lines[1].split()
+    attr_rows = {}
+    for line in lines[2:]:
+        parts = line.split()
+        attr_rows[parts[0]] = np.array([int(v) for v in parts[1:]])
+    partitions = {}
+    with open(os.path.join(root, "list_eval_partition.txt")) as f:
+        for line in f:
+            fname, part = line.strip().split(" ")
+            partitions[fname] = int(part)
+    attrs = np.stack([np.maximum(attr_rows[f], 0) for f in celebahq])
+    parts = np.array([partitions[f] for f in celebahq])
+    return filenames, attr_names, attrs, parts
+
+
+def celebahq_subset(root: str, attribute: str, partition: str = "val",
+                    fraction: Optional[float] = 2.0, data_seed: int = 1,
+                    base_size: int = 256, min_count: int = 1
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """A ``fraction`` percent subset of a partition with its 0/1 labels for
+    ``attribute`` (ref datasets.py:133-186; JAX :169). ``min_count`` floors
+    the subset, as JAX does: on the real 30k-image CelebA-HQ the 2% slice
+    is about 600 images and the floor never binds, on a fixture int(2% of
+    8) is 0; the size is clamped to [min_count, len(partition)]."""
+    from PIL import Image
+    filenames, attr_names, attrs, parts = _celebahq_table(root)
+    partition_idx = np.where(parts == dict(train=0, val=1, test=2)[partition])[0]
+    if fraction is not None:
+        new_length = int(fraction / 100 * len(partition_idx))
+        new_length = min(len(partition_idx), max(min_count, new_length))
+        rng = np.random.RandomState(data_seed)
+        partition_idx = rng.choice(partition_idx, new_length, replace=False)
+    ai = attr_names.index(attribute)
+    xs, ys = [], []
+    for i in partition_idx:
+        with Image.open(os.path.join(root, "images", filenames[i])) as img:
+            img = img.convert("RGB").resize((base_size, base_size), Image.BILINEAR)
+            xs.append(_to_float01(np.asarray(img)))
+        ys.append(int(attrs[i, ai]))
+    return np.stack(xs), np.asarray(ys, dtype=np.int32)
+
+
 def load_data(domain: str, num_sub: int, data_seed: int,
               root: str = "./dataset", classifier_name: str = "",
               adv_batch_size: int = 64, shard: int = 0, num_shards: int = 1
@@ -137,6 +187,10 @@ def load_data(domain: str, num_sub: int, data_seed: int,
         x, y = cifar10_subset(root, num_sub=num_sub, data_seed=data_seed)
         return x[shard::num_shards], y[shard::num_shards]
     if "celebahq" in domain:
-        raise NotImplementedError(
-            "the CelebA-HQ data reader waits for ROADMAP Slice 4 item 17")
+        # the val partition's 2% subset, floored at one batch (JAX :225-230)
+        attribute = classifier_name.split("__")[-1]
+        x, y = celebahq_subset(os.path.join(root, "celebahq"), attribute, partition="val",
+                               fraction=2.0, data_seed=data_seed, min_count=adv_batch_size)
+        x, y = x[:adv_batch_size], y[:adv_batch_size]
+        return x[shard::num_shards], y[shard::num_shards]
     raise NotImplementedError(f"unknown domain {domain}")

@@ -3,9 +3,9 @@
 ``eval_autoattack`` (ref eval_sde_adv.py:96-155) first attacks the
 undefended classifier with the same suite (the paired-baseline check),
 then attacks through the purifier, saving the adversarial images of each.
-``eval_bpda`` (ref eval_sde_adv_bpda.py:121-174) does the same with
-BPDA+EOT, and ``robustness_eval`` dispatches by attack version.
-``eval_stadv`` waits for ROADMAP Slice 2 item 13.
+``eval_stadv`` (ref :158-208) and ``eval_bpda`` (ref
+eval_sde_adv_bpda.py:121-174) do the same with StAdv and BPDA+EOT, and
+``robustness_eval`` dispatches by attack version.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from diffpure_tpu_torch.attacks import AutoAttack, AutoAttackConfig, \
-    BPDAEOTConfig, bpda_eot_attack
+    BPDAEOTConfig, StAdvConfig, bpda_eot_attack, stadv_attack
+from diffpure_tpu_torch.eval.accuracy import get_accuracy
 from diffpure_tpu_torch.eval.defended import DefendedModel, UndefendedModel
 from diffpure_tpu_torch.utils.prng import fold_in
 
@@ -61,6 +62,41 @@ def eval_autoattack(defended: DefendedModel, x: Tensor, y: Tensor, seed: int,
     _save(log_dir, f"x_adv_defended_{aa_cfg.version}.npy", x_adv)
     log(f"x_adv_sde produced in {time.time() - t0:.1f}s; "
         f"defended robust acc {results['defended_robust_acc']:.2%}")
+    results["x_adv"] = x_adv
+    return results
+
+
+def eval_stadv(defended: DefendedModel, x: Tensor, y: Tensor, seed: int,
+               cfg: StAdvConfig, log_dir: Optional[str] = None, log=print) -> dict:
+    """StAdv against the classifier alone, then through the purifier (JAX
+    :65-91); returns {'classifier_robust_acc', 'defended_clean_acc',
+    'defended_robust_acc', 'x_adv'} (x_adv: the defended attack's points,
+    which the JAX driver only saves). The classifier's clean accuracy is
+    logged, as in JAX."""
+    results = {}
+    clf_fn = lambda x01, s: defended.classify(x01)  # noqa: E731
+
+    with torch.no_grad():
+        acc_clean = get_accuracy(clf_fn, x, y, fold_in(seed, 10))
+    log(f"clean accuracy of classifier: {acc_clean:.2%}")
+
+    x_adv_base, _ = stadv_attack(clf_fn, x, y, fold_in(seed, 0), cfg)
+    with torch.no_grad():
+        results["classifier_robust_acc"] = get_accuracy(clf_fn, x_adv_base, y,
+                                                        fold_in(seed, 11))
+    _save(log_dir, "x_adv_classifier_stadv.npy", x_adv_base)
+    log(f"robust accuracy of classifier: {results['classifier_robust_acc']:.2%}")
+
+    with torch.no_grad():
+        results["defended_clean_acc"] = get_accuracy(defended, x, y, fold_in(seed, 12))
+    log(f"clean accuracy of defended model: {results['defended_clean_acc']:.2%}")
+
+    x_adv, _ = stadv_attack(defended, x, y, fold_in(seed, 1), cfg)
+    with torch.no_grad():
+        results["defended_robust_acc"] = get_accuracy(defended, x_adv, y,
+                                                      fold_in(seed, 13))
+    _save(log_dir, "x_adv_defended_stadv.npy", x_adv)
+    log(f"robust accuracy of defended model: {results['defended_robust_acc']:.2%}")
     results["x_adv"] = x_adv
     return results
 
@@ -109,8 +145,7 @@ def robustness_eval(defended: DefendedModel, x: Tensor, y: Tensor, seed: int,
         aa_cfg = AutoAttackConfig(version=attack_version, **attack_kwargs)
         return eval_autoattack(defended, x, y, seed, aa_cfg, log_dir, log)
     if attack_version == "stadv":
-        raise NotImplementedError(
-            "attack_version='stadv' waits for ROADMAP Slice 2 item 13")
+        return eval_stadv(defended, x, y, seed, StAdvConfig(**attack_kwargs), log_dir, log)
     if attack_version == "bpda":
         return eval_bpda(defended, x, y, seed, BPDAEOTConfig(**attack_kwargs),
                          log_dir, log)

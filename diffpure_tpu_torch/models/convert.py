@@ -8,8 +8,11 @@ carries it too).
 Leaves: conv kernel HWIO -> weight OIHW; Dense kernel (in, out) -> weight
 (out, in); norm ``scale`` -> ``weight``; NIN ``W``/``b`` unchanged.
 
-The guided-diffusion checkpoint (JAX :259) is a flat state dict in the
-port's own ADM keys: ``load_guided_diffusion_checkpoint`` checks it.
+The guided-diffusion checkpoint (JAX :259) and the SDEdit CelebA-HQ one
+(JAX :263) are flat state dicts in the port's own ADM and DDPM-UNet keys:
+``load_guided_diffusion_checkpoint`` and ``load_sdedit_checkpoint`` check
+them. ``ddpm_unet_state_dict_from_flax`` is the inverse of ``translate_ddpm``
+(JAX :208).
 
 The score_sde checkpoint flow (JAX :28-71, :250): a CIFAR-10
 ``checkpoint_8.pth`` holds the model's state dict (``module.``-prefixed
@@ -67,6 +70,19 @@ def load_score_sde_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return apply_ema(strip_module_prefix(state["model"]), state["ema"])
 
 
+def _check_fits(sd: Mapping, model: torch.nn.Module, path: str, what: str) -> None:
+    """Raise unless ``sd`` has exactly ``model``'s keys and shapes."""
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    got = {k: tuple(torch.as_tensor(v).shape) for k, v in sd.items()}
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    shapes = sorted(k for k in set(want) & set(got) if want[k] != got[k])
+    if missing or extra or shapes:
+        raise ValueError(
+            f"{path} does not fit the {what}: missing {missing[:5]} ({len(missing)}), "
+            f"unexpected {extra[:5]} ({len(extra)}), shapes differ at "
+            f"{[(k, got[k], want[k]) for k in shapes[:5]]} ({len(shapes)})")
+
+
 def load_guided_diffusion_checkpoint(path: str, model: torch.nn.Module
                                      ) -> Dict[str, torch.Tensor]:
     """A guided-diffusion checkpoint (``256x256_diffusion_uncond.pt``, a
@@ -74,16 +90,18 @@ def load_guided_diffusion_checkpoint(path: str, model: torch.nn.Module
     keys are guided-diffusion's, so nothing is translated; the keys and
     shapes are checked against ``model`` before anything loads."""
     sd = load_torch_state_dict(path)
-    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    got = {k: tuple(torch.as_tensor(v).shape) for k, v in sd.items()}
-    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
-    shapes = sorted(k for k in set(want) & set(got) if want[k] != got[k])
-    if missing or extra or shapes:
-        raise ValueError(
-            f"{path} does not fit the ADM: missing {missing[:5]} ({len(missing)}), "
-            f"unexpected {extra[:5]} ({len(extra)}), shapes differ at "
-            f"{[(k, got[k], want[k]) for k in shapes[:5]]} ({len(shapes)})")
+    _check_fits(sd, model, path, "ADM")
     return dict(sd)
+
+
+def load_sdedit_checkpoint(path: str, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The SDEdit CelebA-HQ checkpoint (``celeba_hq.ckpt``, a flat state
+    dict, ``module.``-prefixed under DataParallel) -> the port's
+    ``DDPMUNet`` state dict (JAX :263); the keys are SDEdit's, checked
+    against ``model``."""
+    sd = strip_module_prefix(load_torch_state_dict(path))
+    _check_fits(sd, model, path, "DDPM UNet")
+    return sd
 
 
 def flatten_params(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -187,4 +205,28 @@ def adm_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             name, arr = torch_leaf(leaf, v)
         sd[f"{key}.{name}"] = to_tensor(arr)
+    return sd
+
+
+_DDPM_OUTER = ((re.compile(r"^(down|up)_(\d+)_(block|attn)_(\d+)$"), r"\1.\2.\3.\4"),
+               (re.compile(r"^(down|up)_(\d+)_(downsample|upsample)_conv$"), r"\1.\2.\3.conv"),
+               (re.compile(r"^mid_(block_1|block_2|attn_1)$"), r"mid.\1"),
+               (re.compile(r"^temb_dense_(\d+)$"), r"temb.dense.\1"))
+
+
+def ddpm_unet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``DDPMUNet`` params -> the SDEdit state dict: the inverse of
+    ``translate_ddpm`` / ``ddpm_key`` (diffpure_tpu/models/convert.py:148,
+    :208): ``down_0_block_1/norm1`` -> ``down.0.block.1.norm1``,
+    ``up_3_upsample_conv`` -> ``up.3.upsample.conv``, ``mid_attn_1/q`` ->
+    ``mid.attn_1.q``, ``temb_dense_0`` -> ``temb.dense.0``."""
+    sd = {}
+    for path, v in flatten_params(params):
+        head, *mods, leaf = path
+        for pat, rep in _DDPM_OUTER:
+            if pat.match(head):
+                head = pat.sub(rep, head)
+                break
+        name, arr = torch_leaf(leaf, v)
+        sd[".".join([head, *mods, name])] = to_tensor(arr)
     return sd

@@ -1,8 +1,9 @@
 """Purification runners (port of diffpure_tpu/purify/runners.py): the reverse
 VP-SDE (:91, ``diffusion_type='sde'``), the probability-flow ODE (:144,
 ``'ode'``), the input-anchored Langevin SDE (:188, ``'ldsde'``), the
-DPM-Solver++(2M) purification (:246, ``'dpm'``) and the ``purify``
-dispatcher (:391).
+DPM-Solver++(2M) purification (:246, ``'dpm'``), the discrete guided
+DDPM / DDIM loop (:285, ``'ddpm'``), the CelebA-HQ DDPM loop (:342,
+``'celebahq-ddpm'``) and the ``purify`` dispatcher (:391).
 
 Images are NHWC in [-1, 1]. ``model_fn(x, t_labels)`` is the epsilon model:
 an ``NCSNpp`` with ``score_type='score_sde'`` (continuous labels t*999), an
@@ -13,9 +14,12 @@ runner's stream layout: purification round ``it`` draws t* from stream
 of step i from (3*it + 2, i) (runners.py:114-117, em.py:42); the ODE and
 DPM runners draw t* from stream 2*it and the forward noise from 2*it + 1
 (runners.py:166, :260); the LDSDE runner does not diffuse and draws step
-i's increment from (it, i) (runners.py:214). An integer seed gives
-``SeededNoise`` with the runner's layout; tests pass an object with the
-same methods that returns the draws JAX made.
+i's increment from (it, i) (runners.py:214). The two discrete loops draw
+round ``it``'s forward noise from stream 2*it and step i's noise from
+(2*it + 1, i), where JAX splits the key of stream 2*it + 1 once a step
+(runners.py:313-339): ``DiscreteNoise``. An integer seed gives
+``SeededNoise`` (``DiscreteNoise``) with the runner's layout; tests pass an
+object with the same methods that returns the draws JAX made.
 
 Gradients (``cfg.grad_mode``, runners.py:121-138): ``'checkpoint'``
 backpropagates exactly through the solver, recomputing each step;
@@ -26,15 +30,22 @@ returns a result with no gradient (JAX's ``stop_gradient``; the solver runs
 without a graph). The DPM runner, as JAX's, knows only ``'none'`` and
 differentiates exactly (checkpointed steps) in every other mode; the LDSDE
 runner, as JAX's, knows ``'adjoint'`` and ``'none'`` and runs the
-checkpointed path under ``'reversible'``.
+checkpointed path under ``'reversible'``; the discrete loops, as JAX's
+``jax.checkpoint(step)`` scans, run each step checkpointed in every mode but
+``'none'``.
 """
 from __future__ import annotations
 
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
+from diffpure_tpu_torch.diffusion.discrete import ModelMeanType, ModelVarType, \
+    SpacedDiffusion, _gather, _to32
+from diffpure_tpu_torch.diffusion.schedules import get_named_beta_schedule, \
+    linear_beta_schedule
 from diffpure_tpu_torch.diffusion.score import get_score_fn, \
     make_guided_score_fn
 from diffpure_tpu_torch.diffusion.sde import VPSDE, batch_mul
@@ -46,6 +57,7 @@ from diffpure_tpu_torch.solvers.ode import odeint_euler, odeint_heun
 from diffpure_tpu_torch.solvers.reversible import odeint_reversible_heun, \
     sdeint_reversible_heun
 from diffpure_tpu_torch.utils.prng import fold_in, generator
+from diffpure_tpu_torch.utils.profiling import record_nfe
 
 Tensor = torch.Tensor
 ModelFn = Callable[[Tensor, Tensor], Tensor]
@@ -77,7 +89,24 @@ class SeededNoise:
         return brownian_increment(fold_in(self.seed, stream), i, like, dt)
 
 
-Noise = Union[int, SeededNoise]
+class DiscreteNoise:
+    """The discrete loops' noise from one integer seed (torch generators on
+    the data's device): round ``it``'s forward noise from stream 2*it, step
+    i's from (2*it + 1, i)."""
+
+    def __init__(self, seed: int):
+        self.seed = int(seed)
+
+    def forward_eps(self, it: int, shape, like: Tensor) -> Tensor:
+        g = generator(self.seed, 2 * it, device=like.device)
+        return torch.randn(shape, generator=g, device=like.device, dtype=like.dtype)
+
+    def step_eps(self, it: int, i: int, like: Tensor) -> Tensor:
+        g = generator(self.seed, 2 * it + 1, i, device=like.device)
+        return torch.randn(like.shape, generator=g, device=like.device, dtype=like.dtype)
+
+
+Noise = Union[int, SeededNoise, DiscreteNoise]
 
 
 def as_noise(noise, streams: int = 3) -> SeededNoise:
@@ -300,18 +329,123 @@ def purify_ldsde(model_fn: ModelFn, x: Tensor, noise: Noise,
     return torch.cat(xs, dim=0)
 
 
-_LATER = {"ddpm": "Slice 3 item 15", "celebahq-ddpm": "Slice 4 item 17"}
+def make_imagenet_diffusion(timestep_respacing: str = "1000") -> SpacedDiffusion:
+    """The guided-diffusion process of the ImageNet purification, with
+    rescaled timesteps (JAX :274; ref configs/imagenet.yml +
+    script_util.py:394-443)."""
+    betas = get_named_beta_schedule("linear", 1000)
+    return SpacedDiffusion.from_original(
+        betas, timestep_respacing or "1000", model_mean_type=ModelMeanType.EPSILON,
+        model_var_type=ModelVarType.LEARNED_RANGE, rescale_timesteps=True)
+
+
+def _discrete_loop(step, x0: Tensor, noise, it: int, t_star: int,
+                   cfg: PurifyConfig) -> Tensor:
+    """Steps t* - 1 ... 0 of a discrete loop from x0, each step
+    ``step(x, t, z)`` with its draw z; checkpointed and differentiable under
+    any grad_mode but 'none' (JAX's ``jax.checkpoint(step)`` scan), without
+    a graph under 'none'."""
+    if cfg.grad_mode == "none" and torch.is_grad_enabled():
+        with torch.no_grad():
+            return _discrete_loop(step, x0, noise, it, t_star, cfg)
+    remat = torch.is_grad_enabled()
+    xc = x0
+    for i in range(t_star):
+        t = torch.full((x0.shape[0],), t_star - 1 - i, dtype=torch.int32, device=x0.device)
+        z = noise.step_eps(it, i, xc)
+        xc = _checkpoint(step, xc, t, z, use_reentrant=False) if remat else step(xc, t, z)
+    return xc
+
+
+def _discrete_forward(x0: Tensor, noise, it: int, abar: np.ndarray, t_star: int) -> Tensor:
+    """x0 diffused to step t*: the float32 alpha-bar at t* - 1 and its
+    square roots in float32 (not through ``_extract``; JAX :309, :317)."""
+    e = noise.forward_eps(it, tuple(x0.shape), x0)
+    a_t = torch.tensor(np.asarray(abar, np.float32)[t_star - 1], device=x0.device)
+    return x0 * torch.sqrt(a_t) + e * torch.sqrt(1.0 - a_t)
+
+
+def as_discrete_noise(noise):
+    if isinstance(noise, (int, np.integer)):
+        return DiscreteNoise(noise)
+    return noise
+
+
+def purify_guided_ddpm(model_fn: ModelFn, x: Tensor, noise: Noise, cfg: PurifyConfig,
+                       diffusion: Optional[SpacedDiffusion] = None,
+                       use_ddim: bool = False) -> Tensor:
+    """Discrete guided-diffusion purification (ImageNet; JAX :285, ref
+    diffpure_guided.py): forward-diffuse to step ``cfg.t`` of ``diffusion``
+    (default: the 1000-step linear process with the learned range), then
+    ``cfg.t`` ancestral steps (``use_ddim``: deterministic DDIM steps, eta
+    0) with the denoised x0 clipped to [-1, 1]. A respaced ``diffusion``
+    (``make_imagenet_diffusion("ddim50")``) takes ``cfg.t`` in respaced
+    indices; its wrapped model maps them back to the original steps (ref
+    respace.py:124-135). The model sees float32 timesteps t * 1000 / N."""
+    noise = as_discrete_noise(noise)
+    if diffusion is None:
+        diffusion = make_imagenet_diffusion()
+    sampler = diffusion.ddim_sample if use_ddim else diffusion.p_sample
+
+    def step(xc: Tensor, t: Tensor, z: Tensor) -> Tensor:
+        return sampler(model_fn, xc, t, clip_denoised=True, noise=z)["sample"]
+
+    xs = []
+    x0 = x
+    for it in range(cfg.sample_step):
+        xt = _discrete_forward(x0, noise, it, diffusion.alphas_cumprod, cfg.t)
+        record_nfe("guided_ddpm", int(cfg.t))
+        x0 = _discrete_loop(step, xt, noise, it, cfg.t, cfg)
+        xs.append(x0)
+    return torch.cat(xs, dim=0)
+
+
+def purify_celebahq_ddpm(model_fn: ModelFn, x: Tensor, noise: Noise,
+                         cfg: PurifyConfig) -> Tensor:
+    """CelebA-HQ DDPM purification with the reference's hand-written
+    posterior step (JAX :342; ref diffpure_ddpm.py:37-54,99-142): the
+    linear betas (1e-4 to 2e-2) of ``cfg.N`` steps, float64 tables cast to
+    float32 once, the fixed-small log-variance log(max(var, 1e-20)), no x0
+    clipping, and no noise at t = 0. The model takes integer steps."""
+    noise = as_discrete_noise(noise)
+    betas64 = linear_beta_schedule(cfg.N, 1e-4, 2e-2)
+    alphas = 1.0 - betas64
+    alphas_cumprod = np.cumprod(alphas)
+    alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
+    posterior_variance = betas64 * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
+    logvar = np.log(np.maximum(posterior_variance, 1e-20))
+    weighted_score = betas64 / np.sqrt(1.0 - alphas_cumprod)
+    recip_sqrt_alphas = _to32(1.0 / np.sqrt(alphas), x.device)
+    weighted_score = _to32(weighted_score, x.device)
+    logvar = _to32(logvar, x.device)
+
+    def step(xc: Tensor, t: Tensor, z: Tensor) -> Tensor:
+        eps = model_fn(xc, t)
+        mean = (_gather(recip_sqrt_alphas, t, xc.shape)
+                * (xc - _gather(weighted_score, t, xc.shape) * eps))
+        lv = _gather(logvar, t, xc.shape)
+        mask = (t != 0).to(xc.dtype).reshape(t.shape + (1,) * (xc.ndim - 1))
+        return mean + mask * torch.exp(0.5 * lv) * z
+
+    xs = []
+    x0 = x
+    for it in range(cfg.sample_step):
+        xt = _discrete_forward(x0, noise, it, alphas_cumprod, cfg.t)
+        record_nfe("celebahq_ddpm", int(cfg.t))
+        x0 = _discrete_loop(step, xt, noise, it, cfg.t, cfg)
+        xs.append(x0)
+    return torch.cat(xs, dim=0)
+
+
 _RUNNERS = {"sde": purify_sde, "ode": purify_ode, "ldsde": purify_ldsde,
-            "dpm": purify_dpm}
+            "dpm": purify_dpm, "ddpm": purify_guided_ddpm,
+            "celebahq-ddpm": purify_celebahq_ddpm}
 
 
-def purify(model_fn: ModelFn, x: Tensor, noise: Noise,
-           cfg: PurifyConfig) -> Tensor:
-    """Runner dispatch (ref eval_sde_adv.py:44-55)."""
+def purify(model_fn: ModelFn, x: Tensor, noise: Noise, cfg: PurifyConfig,
+           **kwargs) -> Tensor:
+    """Runner dispatch (ref eval_sde_adv.py:44-55); ``kwargs`` go to the
+    runner (``diffusion``, ``use_ddim`` for 'ddpm'), as in JAX."""
     if cfg.diffusion_type in _RUNNERS:
-        return _RUNNERS[cfg.diffusion_type](model_fn, x, noise, cfg)
-    if cfg.diffusion_type in _LATER:
-        raise NotImplementedError(
-            f"diffusion_type={cfg.diffusion_type!r} waits for ROADMAP "
-            f"{_LATER[cfg.diffusion_type]}")
+        return _RUNNERS[cfg.diffusion_type](model_fn, x, noise, cfg, **kwargs)
     raise NotImplementedError(f"unknown diffusion type {cfg.diffusion_type}")

@@ -8,12 +8,15 @@ so ``record_nfe`` adds to the installed ledger directly: JAX's trace-time
 tally (``nfe_tally`` / ``absorb_nfe``) and host callbacks have nothing to
 do here. A solver records once per call, outside its steps, so the
 recomputation of ``checkpoint=True`` and the adjoint's backward add
-nothing. The JAX profiler glue (``trace``, ``annotate``,
+nothing. The ledger is the calling thread's: a purification run in
+another thread (a CPU reference computed beside the card's work) does not
+land in it. The JAX profiler glue (``trace``, ``annotate``,
 ``flops_estimate``) is not ported.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, Optional
@@ -36,25 +39,27 @@ class NFECounter:
         return f"NFE total={self.total()} ({', '.join(parts)})"
 
 
-_GLOBAL_NFE: Optional[NFECounter] = None
+_LEDGER = threading.local()  # .counter: the ledger count_nfe installed in this thread
 
 
 @contextlib.contextmanager
 def count_nfe() -> Iterator[NFECounter]:
-    """Scoped counting: ``with count_nfe() as c: ...; c.total()``."""
-    global _GLOBAL_NFE
-    outer, _GLOBAL_NFE = _GLOBAL_NFE, NFECounter()
+    """Scoped counting: ``with count_nfe() as c: ...; c.total()``. Counts
+    the evaluations recorded in the calling thread."""
+    outer = getattr(_LEDGER, "counter", None)
+    _LEDGER.counter = NFECounter()
     try:
-        yield _GLOBAL_NFE
+        yield _LEDGER.counter
     finally:
-        _GLOBAL_NFE = outer
+        _LEDGER.counter = outer
 
 
 def record_nfe(phase: str, nfe: int) -> None:
-    """Credit ``nfe`` forward evaluations to ``phase`` in the installed
-    ledger (none installed: nothing to do)."""
-    if _GLOBAL_NFE is not None:
-        _GLOBAL_NFE.add(phase, int(nfe))
+    """Credit ``nfe`` forward evaluations to ``phase`` in the ledger the
+    calling thread installed (none installed: nothing to do)."""
+    counter: Optional[NFECounter] = getattr(_LEDGER, "counter", None)
+    if counter is not None:
+        counter.add(phase, int(nfe))
 
 
 class PhaseTimer:

@@ -277,7 +277,10 @@ def test_eval_bpda_and_dispatch(tmp_path):
     rand = robustness_eval(dm, torch.from_numpy(x), torch.from_numpy(y), 0, "custom",
                            log=lambda s: None, attacks_to_run=())
     assert set(rand) == {"classifier_robust_acc", "defended_robust_acc", "x_adv"}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        robustness_eval(dm, torch.from_numpy(x), torch.from_numpy(y), 0, "stadv")
+    # 'stadv' dispatches to eval_stadv since item 13 (test_torch_stadv.py)
+    stadv = robustness_eval(dm, torch.from_numpy(x), torch.from_numpy(y), 0, "stadv",
+                            log=lambda s: None, n_iter=1)
+    assert set(stadv) == {"classifier_robust_acc", "defended_clean_acc",
+                          "defended_robust_acc", "x_adv"}
     with pytest.raises(ValueError, match="unknown attack version"):
         robustness_eval(dm, torch.from_numpy(x), torch.from_numpy(y), 0, "fgsm")

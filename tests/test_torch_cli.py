@@ -85,7 +85,9 @@ def test_cifar10_subset_and_shards_match_jax(tmp_path):
                                       num_shards=3)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # the CelebA-HQ reader is ported (test_torch_celebahq.py): here it
+    # finds no <root>/celebahq
+    with pytest.raises(FileNotFoundError, match="celebahq"):
         load_data("celebahq", 4, 0, root=root)
     # the ImageNet readers are ported (test_torch_imagenet_data.py): here
     # they find no <root>/imagenet/val
@@ -237,5 +239,62 @@ def test_cli_refuses_cuda_without_a_card(workdir, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _run_cli(SCRIPT[:-2] + ["--attack_version", "bpda"])
     assert not os.path.exists("exp_results")  # refused before any work
-    with pytest.raises(NotImplementedError, match="item 17"):
-        _run_cli(SCRIPT + ["--attack_version", "bpda", "--domain", "celebahq"])
+    # every domain of the reference runs since item 17; an unknown one raises
+    with pytest.raises(NotImplementedError, match="unknown domain"):
+        _run_cli(SCRIPT + ["--attack_version", "bpda", "--domain", "mnist"])
+
+
+def test_cli_stadv_on_cpu(workdir, monkeypatch):
+    """run_cifar_stadv_rn50.sh's attack through the CLI on the CPU (item 13):
+    the narrow NCSN++ and WRN of the fixture, t = 2, StAdv cut from the
+    CLI's 100 iterations to 2, one EOT sample."""
+    kwargs = cli._attack_kwargs
+    monkeypatch.setattr(cli, "_attack_kwargs", lambda args: {**kwargs(args), "n_iter": 2})
+    res = _run_cli(SCRIPT + ["--attack_version", "stadv", "--adv_eps", "0.05", "--t", "2",
+                             "--num_sub", "2", "--adv_batch_size", "2", "--eot_iter", "1"])
+    assert set(res) == {"classifier_robust_acc", "defended_clean_acc", "defended_robust_acc",
+                        "x_adv"}
+    assert all(0.0 <= res[k] <= 1.0 for k in res if k != "x_adv")
+    x_adv = res["x_adv"]
+    assert tuple(x_adv.shape) == (2, 32, 32, 3) and 0 <= float(x_adv.min()) <= float(x_adv.max()) <= 1
+    log_dir = os.path.join("exp_results", "images", CLF, "sde_stadv", "seed0", "data0")
+    for name in ("x_adv_classifier_stadv.npy", "x_adv_defended_stadv.npy"):
+        assert os.path.exists(os.path.join(log_dir, name)), name
+
+
+def test_cli_celebahq_models_and_checkpoints(tmp_path, monkeypatch):
+    """The celebahq domain (item 17): build_score_model builds SDEdit's DDPM
+    UNet at --precision and loads pretrained/celebahq/celeba_hq.ckpt (a
+    DataParallel state dict); build_classifier loads
+    pretrained/celebahq/<attribute>/net_best.pth (with a constant buffer the
+    model does not hold). A narrow UNet stands in for the full width."""
+    from diffpure_tpu_torch import models
+    from diffpure_tpu_torch.classifiers.attribute import AttributeClassifier
+    from diffpure_tpu_torch.models import DDPMUNet
+
+    small = functools.partial(DDPMUNet, resolution=32, ch=32, ch_mult=(1, 2),
+                              num_res_blocks=1, attn_resolutions=(16,))
+    monkeypatch.setattr(models, "DDPMUNet", small)
+    monkeypatch.chdir(tmp_path)
+    unet_sd = {k: torch.from_numpy(v) for k, v in seeded_normal_state_dict(small(), 5).items()}
+    clf_sd = {k: torch.from_numpy(v)
+              for k, v in seeded_normal_state_dict(AttributeClassifier(), 6).items()}
+    os.makedirs("pretrained/celebahq/Smiling")
+    torch.save({"module." + k: v for k, v in unet_sd.items()}, "pretrained/celebahq/celeba_hq.ckpt")
+    torch.save({**clf_sd, "lod_in": torch.tensor(0.0)}, "pretrained/celebahq/Smiling/net_best.pth")
+    args = config.build_parser().parse_args(
+        ["--config", "celeba.yml", "--domain", "celebahq", "--diffusion_type", "celebahq-ddpm",
+         "--classifier_name", "celebahq__Smiling", "--precision", "bf16"])
+    args.random_weights = False
+    cpu = torch.device("cpu")
+    score = cli.build_score_model(args, None, cpu)
+    assert score.dtype == torch.bfloat16 and not any(p.requires_grad for p in score.parameters())
+    for k, v in score.state_dict().items():
+        assert torch.equal(v, unet_sd[k]), k
+    clf = cli.build_classifier(args, cpu)
+    assert isinstance(clf, AttributeClassifier)
+    for k, v in clf.state_dict().items():
+        assert torch.equal(v, clf_sd[k]), k
+    with torch.inference_mode():
+        out = clf(torch.rand(1, 256, 256, 3))
+    assert tuple(out.shape) == (1, 2) and torch.equal(out[:, 0], -out[:, 1])

@@ -22,7 +22,7 @@ from diffpure_tpu.models.ddpm_v1 import DDPM as JaxDDPM
 from diffpure_tpu.models.ncsnpp import NCSNpp as JaxNCSNpp
 from diffpure_tpu.purify import PurifyConfig as JaxPurifyConfig
 from diffpure_tpu.purify.runners import purify_sde as jax_purify_sde
-from diffpure_tpu_torch.models import DDPM, NCSNpp
+from diffpure_tpu_torch.models import DDPM, DDPMUNet, NCSNpp
 from diffpure_tpu_torch.models import layers
 from diffpure_tpu_torch.models.convert import ddpm_state_dict_from_flax, \
     ncsnpp_state_dict_from_flax
@@ -116,8 +116,10 @@ def test_small_ddpm_matches_jax(variant):
 
 def test_registry_and_full_width_count():
     assert get_model_cls("ddpm") is DDPM and get_model_cls("ncsnpp") is NCSNpp
+    # SDEdit's CelebA-HQ UNet registers under JAX's name since item 17
+    assert get_model_cls("ddpm_sdedit") is DDPMUNet
     with pytest.raises(KeyError, match="unknown model"):
-        get_model_cls("ddpm_sdedit")
+        get_model_cls("ddpm_v2")
     with torch.device("meta"):
         model = create_model("ddpm")
     assert isinstance(model, DDPM)

@@ -2,7 +2,8 @@
 the flags of each of the three rand run scripts
 (run_scripts/torch/imagenet/run_in_rand_inf*.sh), read from the script,
 and a tiny budget: 1 image at t*=1, APGD cut to 2 iterations, one EOT
-sample.
+sample; and the first script's flags with ``--diffusion_type ddpm``, the
+discrete guided loop.
 
 The fixture writes a seeded image folder and a configs/imagenet.yml with
 the ADM narrowed (32 channels, one block a level, attention at 8 x 8 only,
@@ -126,4 +127,21 @@ def test_imagenet_rand_script_on_cpu(workdir, script):
         log = f.read()
     assert "NFE total=" in log and "results: {" in log and "on cpu" in log
     # both APGD runs went through the defence's gradient
+    assert len(re.findall(r"\[sde\] apgd-(ce|dlr): robust accuracy .*\(attacked 1,", log)) == 2
+
+
+def test_imagenet_ddpm_through_the_cli_on_cpu(workdir):
+    """--diffusion_type ddpm on the imagenet domain (item 15): the discrete
+    guided loop through DefendedModel, as in JAX, with the ResNet-50 rand
+    script's flags; APGD differentiates through the checkpointed steps."""
+    flags = script_flags("run_in_rand_inf.sh")
+    flags[flags.index("--diffusion_type") + 1] = "ddpm"
+    res = _run_cli(flags + ["--random_weights", "--device", "cpu"])
+    assert 0.0 <= res["defended_robust_acc"] <= 1.0
+    assert tuple(res["x_adv"].shape) == (1, 224, 224, 3)
+    log_dir = os.path.join("exp_results", "images", SCRIPTS["run_in_rand_inf.sh"], "ddpm_rand",
+                           "seed0", "data0")
+    with open(os.path.join(log_dir, "log.txt")) as f:
+        log = f.read()
+    assert "guided_ddpm=" in log and "sde_euler" not in log
     assert len(re.findall(r"\[sde\] apgd-(ce|dlr): robust accuracy .*\(attacked 1,", log)) == 2

@@ -138,14 +138,18 @@ def test_seeded_noise_replays_and_get_accuracy():
 
 
 def test_unported_paths_raise():
-    """The discrete runners wait for their ROADMAP items; 'ode', 'ldsde' and
-    grad_mode 'reversible' run since item 11 (tests/test_torch_ode.py); an
-    unknown grad mode raises."""
+    """Every runner of the reference runs: 'ode', 'ldsde' and grad_mode
+    'reversible' since item 11 (tests/test_torch_ode.py), the discrete
+    'ddpm' and 'celebahq-ddpm' loops since items 15 and 17
+    (tests/test_torch_discrete.py, test_torch_celebahq.py); an unknown
+    diffusion type or grad mode raises."""
     x = torch.zeros(1, 8, 8, 3)
-    for cfg in (PurifyConfig(diffusion_type="ddpm"),
-                PurifyConfig(diffusion_type="celebahq-ddpm")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            purify(lambda xx, t: xx, x, 0, cfg)
+    for cfg, model in ((PurifyConfig(diffusion_type="ddpm", t=2),
+                        lambda xx, t: torch.cat([xx, xx], dim=-1)),
+                       (PurifyConfig(diffusion_type="celebahq-ddpm", t=2), lambda xx, t: xx)):
+        assert purify(model, x, 0, cfg).shape == x.shape
+    with pytest.raises(NotImplementedError, match="unknown diffusion type"):
+        purify(lambda xx, t: xx, x, 0, PurifyConfig(diffusion_type="vp-ddim"))
     for cfg in (PurifyConfig(diffusion_type="ode", t=2), PurifyConfig(t=2, grad_mode="reversible"),
                 PurifyConfig(diffusion_type="ldsde", t=20)):
         assert purify(lambda xx, t: xx, x, 0, cfg).shape == x.shape

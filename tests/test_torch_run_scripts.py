@@ -1,7 +1,8 @@
 """The port's run scripts opened by ROADMAP items 11, 12 and 14
 (run_scripts/torch/): the twelve CIFAR-10 scripts (ResNet-50, WRN-70-16
 with dropout, the ODE purifier, the standard suite) and the three ImageNet
-``stand`` scripts.
+``stand`` scripts; and by items 13 and 17: the StAdv script and the two
+CelebA-HQ BPDA scripts. Every script of the reference has its port.
 
 - each keeps its original's flags (run_scripts/cifar10/, imagenet/) and
   calls ``python -m diffpure_tpu_torch.cli``;
@@ -9,6 +10,10 @@ with dropout, the ODE purifier, the standard suite) and the three ImageNet
   CPU with the models, the data and the attack replaced by recorders: the
   classifier the registry builds (full width, on the meta device), the
   purifier's config and the suite's config are the ones the flags name;
+- the StAdv script's flags reach eval_stadv with the reference's attack
+  (bound = adv_eps, 100 iterations, its EOT), the CelebA-HQ scripts'
+  reach eval_bpda with the attribute classifier, the celebahq-ddpm
+  purifier at t = 500 without a gradient, and batches of 2 256-px images;
 - the standard suite end to end through the CLI on the CPU with the ODE
   script's flags: a narrow NCSN++ and WRN (the fixture of
   tests/test_torch_cli.py), t = 2, the suite cut to 2 iterations, 2
@@ -45,13 +50,73 @@ def _flags(path):
     return dict(re.findall(r"^\s+(--\w+) (\S+)", text, re.M)), text
 
 
-def test_every_cifar_script_but_stadv_has_a_port():
-    """Of the reference's CIFAR-10 scripts only the StAdv one (item 13)
-    waits."""
-    orig = set(os.listdir(os.path.join(REPO, "run_scripts", "cifar10")))
-    port = set(os.listdir(os.path.join(REPO, "run_scripts", "torch", "cifar10")))
-    assert orig - port == {"run_cifar_stadv_rn50.sh"}
-    assert len(port) == 15
+def test_every_reference_script_has_a_port():
+    """24 of 24: the 16 of CIFAR-10 (StAdv's too), 6 of ImageNet and 2 of
+    CelebA-HQ."""
+    counts = {}
+    for domain in ("cifar10", "imagenet", "celebahq"):
+        orig = set(os.listdir(os.path.join(REPO, "run_scripts", domain)))
+        assert orig == set(os.listdir(os.path.join(REPO, "run_scripts", "torch", domain)))
+        counts[domain] = len(orig)
+    assert counts == {"cifar10": 16, "imagenet": 6, "celebahq": 2}
+
+
+# this slice's scripts: StAdv (item 13) and the CelebA-HQ BPDA ones (item 17)
+NEW_SCRIPTS = [("cifar10", "run_cifar_stadv_rn50.sh"),
+               ("celebahq", "run_celebahq_bpda_glasses.sh"),
+               ("celebahq", "run_celebahq_bpda_smiling.sh")]
+
+
+@pytest.mark.parametrize("domain,name", NEW_SCRIPTS)
+def test_new_script_keeps_the_original_flags(domain, name):
+    test_script_keeps_the_original_flags(domain, name)
+
+
+@pytest.mark.parametrize("domain,name", NEW_SCRIPTS)
+def test_new_script_flags_reach_their_driver(domain, name, monkeypatch, tmp_path):
+    flags, _ = _flags(os.path.join(REPO, "run_scripts", "torch", domain, name))
+    flags.update({"--seed": "0", "--data_seed": "0"})
+    seen = {}
+
+    def classifier(args, device):
+        with torch.device("meta"):
+            seen["classifier"] = type(get_classifier(args.classifier_name)).__name__
+        return lambda x: x
+
+    def stadv(defended, x, y, seed, cfg, log_dir=None, log=print):
+        seen.update(driver="stadv", purify=defended.purify_cfg, cfg=cfg, x=tuple(x.shape))
+        return dict(classifier_robust_acc=1.0, defended_clean_acc=1.0,
+                    defended_robust_acc=1.0, x_adv=x)
+
+    def bpda(defended, x, y, seed, cfg, log_dir=None, log=print):
+        seen.update(driver="bpda", purify=defended.purify_cfg, cfg=cfg, x=tuple(x.shape))
+        return dict(init_acc=1.0, robust_acc=1.0, x_adv=x)
+
+    size = 256 if domain == "celebahq" else 32
+    monkeypatch.setattr(cli, "build_score_model", lambda args, config, device: None)
+    monkeypatch.setattr(cli, "build_classifier", classifier)
+    monkeypatch.setattr(data_mod, "load_data", lambda dom, n, seed, **kw: (
+        np.zeros((kw["adv_batch_size"] if dom == "celebahq" else n, size, size, 3),
+                 np.float32), np.zeros(2, np.int64)))
+    monkeypatch.setattr(drivers, "eval_stadv", stadv)
+    monkeypatch.setattr(drivers, "eval_bpda", bpda)
+    monkeypatch.chdir(tmp_path)
+    argv = [t for kv in flags.items() for t in kv]
+    argv[argv.index("--config") + 1] = os.path.join(REPO, "configs", flags["--config"])
+    _run_cli(argv + ["--device", "cpu", "--random_weights"])
+
+    p, c = seen["purify"], seen["cfg"]
+    assert p.diffusion_type == flags["--diffusion_type"] and p.t == int(flags["--t"])
+    if domain == "cifar10":
+        assert seen["driver"] == "stadv" and seen["classifier"] == "CifarResNet50"
+        assert p.grad_mode == "checkpoint" and p.score_type == "score_sde"
+        assert (c.bound, c.n_iter, c.eot_iter) == (0.05, 100, 20)
+        assert seen["x"] == (64, 32, 32, 3)
+    else:
+        assert seen["driver"] == "bpda" and seen["classifier"] == "AttributeClassifier"
+        assert p.grad_mode == "none"
+        assert (c.adv_eps, c.eot_defense_reps, c.eot_attack_reps) == (0.062745098, 20, 15)
+        assert seen["x"] == (2, 256, 256, 3)
 
 
 @pytest.mark.parametrize("domain,name", SCRIPTS)
