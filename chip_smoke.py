@@ -9,9 +9,9 @@ Phases, each fatal on failure:
      kernels from diffpure_tpu_torch/csrc (timed); the count of wgmma
      (HGMMA) instructions in the SASS of the halo conv, flash attention,
      the CIFAR block GEMM and the attention block's core, which must be
-     non-zero for their bf16 kernels; the fp32 kernels of #3's chain and
-     #10 (FP32_KERNELS) must hold no tensor-core instruction (HMMA, HGMMA:
-     TF32 stays off) and spill nothing (-Xptxas -v);
+     non-zero for their bf16 kernels; the fp32 kernels of #1 / #2's, #3's
+     chain and #10 (FP32_KERNELS) must hold no tensor-core instruction
+     (HMMA, HGMMA: TF32 stays off) and spill nothing (-Xptxas -v);
   2. each hand-written kernel against its plain PyTorch version on the card,
      at every shape the CIFAR-10 NCSN++ gives it, batch 8, bf16 and fp32,
      and the bf16 blocks again at batch 128 (the attention block also at
@@ -25,13 +25,23 @@ Phases, each fatal on failure:
      (sdpa_core_yardstick); an attention block that launches an old GEMM,
      GN or core kernel (OLD_ATTN_KERNELS) or a second, out GEMM fails; and
      the attention block with an Inf in one example, whose neighbours must
-     agree with the plain version (phase_attn_isolation);
+     agree with the plain version (phase_attn_isolation); #1 / #2 in fp32
+     (every run script's precision) also at batch 64, the run scripts'
+     batch (phase_f32_blocks), each fp32 call run twice for the same bits,
+     with cuDNN's two fp32 convs (TF32 off) as a yardstick; an fp32 #1 / #2
+     call that launches a kernel of the old chain (OLD_F32_FWD_KERNELS)
+     fails; the fp32 GEMM alone against cuDNN's conv, beside its other
+     thread tile and its ablated copies, and the SM clock while it runs
+     (phase_f32_ablation);
   3. the slice: DefendedModel (full-width configs/cifar10.yml NCSN++ with a
      bf16 torso + WRN-28-10, seeded random weights) on 8 seeded images at
      t*=100 through get_accuracy under inference_mode; the kernel launch
      counters must read exactly 40, 36 and 10 per score evaluation;
   3b. the same at batch 128 (the CIFAR batch of the JAX bench), cold and
      warm, with the same counters per evaluation;
+  3c. the defended call in fp32 at batch 64 (the run scripts' precision
+     and batch), cold and warm, the same counters, and the device ms and
+     idle share of three fp32 evaluations at that batch;
   4. the same purification at t*=5 once through the kernels (on the card)
      and once through the plain versions (on the CPU, where the wrappers
      take them), with the same noise; the purified images must agree;
@@ -46,7 +56,8 @@ Phases, each fatal on failure:
   5. the gradient-image rate: the input gradient of the cross-entropy of
      DefendedModel at t*=100, batch 16, bf16 torso, weights frozen, with
      grad_mode 'checkpoint' and 'adjoint', cold and warm; the launch
-     counters must read exactly what each mode derives;
+     counters must read exactly what each mode derives; then 'checkpoint'
+     with the fp32 torso, cold and warm;
   6. the input gradient of the t*=5 purification (against a seeded
      cotangent) at batch 2, kernels (card) in fp32 and bf16 against the
      plain fp32 path (CPU), same noise, both grad modes;
@@ -194,8 +205,9 @@ line).
 ``--profile-adm`` (``--profile-ddpm``) profiles the ImageNet ADM's (the
 score_sde DDPM's) evaluation after phase 1 and ends (device time by kernel
 family, idle share; profile_adm.json, profile_ddpm.json);
-``--profile-cifar`` the CIFAR NCSN++'s at batch 8 and 128, with the block
-chains' steps and the host time per block call (profile_cifar.json);
+``--profile-cifar`` the CIFAR NCSN++'s at batch 8 and 128 (bf16) and at 8
+and 64 (fp32), with the block chains' steps and the host time per block
+call in each dtype (profile_cifar.json);
 ``--profile-grad`` phase 5's gradient step (device time by kernel and by
 part, idle share, tensor-map cache misses), one evaluation's backward at
 batch 8 and 16 by chain step, and phase 16's ImageNet gradient step at
@@ -222,6 +234,9 @@ SEED = 0
 CIFAR_PARAMS = 106_632_579
 EVALS = 100  # t* = 100 Euler steps, one score evaluation each
 CIFAR_BIG_N = 128  # the CIFAR batch of the JAX bench (bench.py:38 BATCH)
+# the fp32 batch of the CIFAR run scripts (15 of 16 pass --adv_batch_size 64,
+# none passes --precision: fp32 is the CLI's default)
+F32_BIG_N = 64
 # kernel -> (source, TPU kernel it replaces, launches per score evaluation)
 KERNELS = {
     "fused_resblock": ("diffpure_tpu_torch/csrc/fused_resblock.cu",
@@ -346,7 +361,12 @@ FLASH_WIDTHS_OFF_CENSUS = ((64, 1024, 32), (16, 1024, 128), (32, 1024, 48), (16,
 # tensor-core instruction (HMMA, HGMMA: TF32 stays off) and spill nothing
 # (phase 1).
 FP32_KERNELS = ("attn_f32_kernel", "attn_qkv_f32_kernel", "attn_qkv_sum_kernel",
-                "gnsilu_regs_kernel", "gn_regs_kernel", "gnsilu_l2_kernel", "gn_l2_kernel")
+                "gnsilu_regs_kernel", "gn_regs_kernel", "gnsilu_l2_kernel", "gn_l2_kernel",
+                "f32conv_kernel", "rb_gn_kernelIff")
+# The fp32 forward of #1 / #2 runs f32conv_kernel and rb_gn_kernel<float,
+# float> (csrc/resblock_f32.cu); an fp32 #1 / #2 call that launches a
+# kernel of the old chain fails (phase 2). #4 / #5 still launch them.
+OLD_F32_FWD_KERNELS = ("igemm_f32_kernel", "gn_apply_kernel")
 # The bf16 kernels that must run on wgmma: HGMMA in their SASS (phase 1).
 WGMMA_KERNELS = ("halo_wgmma_kernel", "flash_wgmma_kernel", "rb_wgmma_kernel",
                  "attn_wgmma_kernel")
@@ -706,7 +726,8 @@ def device_ms_many(torch, fns, reps=20):
 def device_ms(torch, fn, reps=10):
     """The kernels' own device time per call of fn, from the profiler over
     ``reps`` back-to-back calls (without the host's gaps between them): the
-    total, and its GEMM, GroupNorm and split-K shares (CHAIN_KINDS)."""
+    total, its GEMM, GroupNorm and split-K shares (CHAIN_KINDS), and the
+    names of the kernels it launched (``kernels``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -716,11 +737,12 @@ def device_ms(torch, fn, reps=10):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        by = {"total": 0.0, "gemm": 0.0, "gn": 0.0, "splitk": 0.0}
+        by = {"total": 0.0, "gemm": 0.0, "gn": 0.0, "splitk": 0.0, "kernels": []}
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", 0) or 0
             if not str(e.device_type).endswith("CUDA") or us <= 0:
                 continue
+            by["kernels"].append(e.key)
             by["total"] += us / 1e3 / reps
             kind = next((k for k, frags in CHAIN_KINDS if any(f in e.key for f in frags)), None)
             if kind in by:
@@ -730,16 +752,18 @@ def device_ms(torch, fn, reps=10):
     raise AssertionError("three profiler sessions recorded no device time")
 
 
-def conv_yardstick(torch, params, rs, H, cin, cout, n):
-    """cuDNN's F.conv2d on channels_last bf16 for a block's two 3x3 convs and
-    its 1x1 projection (on the output grid), at batch n: a yardstick for the
-    block's GEMMs only (not the same function: no GroupNorm, no epilogue),
-    on no path of the port. Returns (CUDA-event ms, device ms) per call."""
+def conv_yardstick(torch, params, rs, H, cin, cout, n, dtype=None, device_time=True):
+    """cuDNN's F.conv2d on channels_last ``dtype`` (bf16 by default) for a
+    block's two 3x3 convs and its 1x1 projection (on the output grid), at
+    batch n: a yardstick for the block's GEMMs only (not the same function:
+    no GroupNorm, no epilogue), on no path of the port; fp32 with
+    torch.backends.cudnn.allow_tf32 off (main sets it). Returns (CUDA-event
+    ms, device ms or None) per call."""
     import torch.nn.functional as F
 
     Ho = {"none": H, "down": H // 2, "up": 2 * H}[rs]
     cl = dict(memory_format=torch.channels_last)
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
 
     def act(c):
         return torch.randn(n, c, Ho, Ho, device=params[2].device, dtype=bf).contiguous(**cl)
@@ -754,8 +778,8 @@ def conv_yardstick(torch, params, rs, H, cin, cout, n):
         F.conv2d(a2, w1, padding=1)
         if wp is not None:
             F.conv2d(xs, wp)
-    return cuda_ms(torch, call), (device_ms(torch, call)["total"] if n == YARDSTICK_DEVICE_N
-                                  else None)
+    return cuda_ms(torch, call), (device_ms(torch, call)["total"]
+                                  if n == YARDSTICK_DEVICE_N and device_time else None)
 
 
 def phase_kernels(torch, dev, shapes, n=N, dtypes=("bfloat16", "float32")):
@@ -845,10 +869,14 @@ def phase_kernels(torch, dev, shapes, n=N, dtypes=("bfloat16", "float32")):
                     if old:
                         rec["ok"] = ok = False
                         line += f" OLD KERNELS {old}"
-                elif dtype_name == "bfloat16":
-                    flops, nbytes = block_cost(name, rs, H, c1, c2, cout, n, 2)
+                else:
+                    flops, nbytes = block_cost(name, rs, H, c1, c2, cout, n, x.element_size())
                     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES
-                    lib_ms, lib_dev = conv_yardstick(torch, params, rs, H, cin, cout, n)
+                    # fp32: cuDNN's fp32 convs with TF32 off, CUDA events only
+                    # (the profiler sessions are a budget)
+                    f32 = dtype_name == "float32"
+                    lib_ms, lib_dev = conv_yardstick(torch, params, rs, H, cin, cout, n, dtype,
+                                                     device_time=not f32)
                     rec.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
                                bound_by="operations" if t_ops >= t_bytes else "bytes",
                                tflops=flops / rec["device_ms"] / 1e9,
@@ -857,7 +885,21 @@ def phase_kernels(torch, dev, shapes, n=N, dtypes=("bfloat16", "float32")):
                     rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
                     line = (f" ({rec['tflops']:.1f} TFLOP/s, GEMM {rec['gemm_tflops']:.1f}, "
                             f"{rec['bound_share']:.3f} of bound) cuDNN convs {lib_ms:.4f} ms "
-                            + (f"(device {lib_dev:.4f})" if lib_dev is not None else ""))
+                            + (f"(device {lib_dev:.4f})" if lib_dev is not None else "")
+                            + (f" (allow_tf32={torch.backends.cudnn.allow_tf32})" if f32
+                               else ""))
+                    if f32:
+                        again = kern()
+                        old = [k for k in dev_ms["kernels"]
+                               if any(f in k for f in OLD_F32_FWD_KERNELS)]
+                        rec.update(same_bits=bool(torch.equal(got, again)),
+                                   device_kernels=dev_ms["kernels"],
+                                   allow_tf32=torch.backends.cudnn.allow_tf32)
+                        line += " same bits" if rec["same_bits"] else " BITS DIFFER"
+                        if old:
+                            line += f" OLD KERNELS {old}"
+                        if old or not rec["same_bits"]:
+                            rec["ok"] = ok = False
             records.append(rec)
             log(f"  {name:18s} {rs:4s} {H:2d}x{H:<2d} {c1:3d}+{c2:<3d}->{cout:3d} "
                 f"b{n:<3d} {dtype_name:8s} rel err {err / scale:.2e} <= {REL[dtype_name]:.0e} "
@@ -868,6 +910,263 @@ def phase_kernels(torch, dev, shapes, n=N, dtypes=("bfloat16", "float32")):
     if bad:
         raise AssertionError(f"{len(bad)} kernel checks failed: {bad}")
     return records
+
+
+def phase_f32_blocks(torch, dev, shapes, n=F32_BIG_N, reps=5):
+    """#1 / #2 in fp32 (the run scripts' precision) at batch n against the
+    plain version at each resblock shape of ``shapes``, run twice (the same
+    bits), with CUDA-event ms, the plain version's, and cuDNN's fp32 convs
+    as a yardstick (conv_yardstick, TF32 off); the kernels' device time and
+    names for all shapes from one profiler session (device_ms_many). A call
+    that launches a kernel of OLD_F32_FWD_KERNELS fails."""
+    from diffpure_tpu_torch.ops import fused_resblock as frb
+    from diffpure_tpu_torch.ops.groupnorm import ncsn_num_groups
+
+    records, kerns = [], []
+    for i, ((name, rs, H, c1, c2, cout), calls) in enumerate(sorted(shapes.items())):
+        if name == "fused_attnblock":
+            continue
+        params, x, temb, _ = block_inputs(torch, dev, i, name, rs, H, c1, c2, cout, n)
+        cin = c1 + c2
+        g1, g2 = ncsn_num_groups(cin), ncsn_num_groups(cout)
+        pk = frb.pack_resblock_params(params, torch.float32, dev)
+        kw = dict(num_groups1=g1, num_groups2=g2)
+        if name == "fused_resblock_cat":
+            x1, x2 = x[..., :c1].contiguous(), x[..., c1:].contiguous()
+            kern = functools.partial(frb.fused_resblock_cat, x1, x2, temb, params, packed=pk,
+                                     **kw)
+        else:
+            kern = functools.partial(frb.fused_resblock, x, temb, params, resample=rs,
+                                     packed=pk, **kw)
+        with torch.inference_mode():
+            got, again = kern(), kern()
+            torch.cuda.synchronize()
+            want = frb.fused_resblock_reference(x, temb, params, resample=rs, **kw)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            same = bool(torch.equal(got, again))
+            ok = bool(torch.isfinite(got).all()) and err <= REL["float32"] * scale and same
+            flops, nbytes = block_cost(name, rs, H, c1, c2, cout, n, 4)
+            t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES
+            lib_ms, _ = conv_yardstick(torch, params, rs, H, cin, cout, n, torch.float32,
+                                       device_time=False)
+            plain_ms = cuda_ms(torch, lambda: frb.fused_resblock_reference(
+                x, temb, params, resample=rs, **kw), reps=3, warmup=1)
+            records.append(dict(
+                kernel=name, resample=rs, H=H, c1=c1, c2=c2, cout=cout, batch=n,
+                calls_per_eval=calls, dtype="float32", max_abs_err=err, rel_err=err / scale,
+                rel_tol=REL["float32"], same_bits=same, ms=cuda_ms(torch, kern, reps=reps),
+                plain_ms=plain_ms, flops=flops, bytes=nbytes,
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                conv_library_ms=lib_ms, allow_tf32=torch.backends.cudnn.allow_tf32, ok=ok))
+        kerns.append(kern)
+    with torch.inference_mode():
+        timed = device_ms_many(torch, kerns, reps=reps)
+    for rec, (ms, names) in zip(records, timed):
+        old = [k for k in names if any(f in k for f in OLD_F32_FWD_KERNELS)]
+        rec.update(device_ms=ms, device_kernels=names, tflops=rec["flops"] / ms / 1e9,
+                   bound_share=rec["bound_ms"] / ms)
+        if old:
+            rec["ok"] = False
+        log(f"  {rec['kernel']:18s} {rec['resample']:4s} {rec['H']:2d}x{rec['H']:<2d} "
+            f"{rec['c1']:3d}+{rec['c2']:<3d}->{rec['cout']:3d} b{n:<3d} float32  rel err "
+            f"{rec['rel_err']:.2e} <= 1e-04{' same bits' if rec['same_bits'] else ' BITS DIFFER'}"
+            f" kernel {rec['ms']:.4f} ms device {ms:.4f} ms ({rec['tflops']:.1f} TFLOP/s, "
+            f"{rec['bound_share']:.3f} of bound {rec['bound_ms']:.4f}) plain "
+            f"{rec['plain_ms']:.4f} ms cuDNN fp32 convs {rec['conv_library_ms']:.4f} ms "
+            f"(allow_tf32={rec['allow_tf32']})"
+            + (f" OLD KERNELS {old}" if old else "") + f" {'ok' if rec['ok'] else 'FAIL'}")
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} fp32 block checks at batch {n} failed: {bad}")
+    return records
+
+
+# The fp32 GEMM alone (csrc/resblock_f32.cu diffpure_f32conv): conv0 of the
+# census's 32x32 128 -> 128, 16x16 256 -> 256 and 8x8 concat 512 -> 256
+# blocks, (H, cin, cout), at batch 8 and F32_BIG_N; beside the plan's
+# kernel, the other thread tile (8 x 8 or 8 x 16, split for its own grid)
+# and the 8 x 16 tile's ablated copies (FMAs removed, shared loads removed).
+F32_ABLATION = ((32, 128, 128), (16, 256, 256), (8, 512, 256))
+F32_ABLATIONS = ("kernel", "other tile", "1/8 of the FMAs", "shared loads once a step")
+
+
+def sample_clocks(torch, fn, seconds=2.0):
+    """nvidia-smi's SM clock, maximum SM clock and power draw, sampled about
+    every 0.3 s while fn runs back to back for ``seconds``."""
+    import threading
+
+    samples, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            samples.append(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+                 "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                timeout=30).stdout.strip())
+            stop.wait(0.3)
+
+    fn()
+    torch.cuda.synchronize()
+    th = threading.Thread(target=poll)
+    th.start()
+    t_end = time.time() + seconds
+    while time.time() < t_end:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    stop.set()
+    th.join()
+    return samples
+
+
+def phase_f32_ablation(torch, dev, reps=10):
+    """The fp32 GEMM as a plain 3x3 conv at the F32_ABLATION shapes, tiled
+    by resblock_f32_plan, against cuDNN's fp32 conv (TF32 off) at REL, and
+    beside it the F32_ABLATIONS variants, each's device time from one
+    profiler session: what the kernel's time is made of, and what the
+    plan's choice of thread tile gains."""
+    import torch.nn.functional as F
+    from diffpure_tpu_torch.ops import _cuda
+    from diffpure_tpu_torch.ops import fused_resblock as frb
+
+    lib = _cuda.lib()
+    sms = _cuda.num_sms(dev)
+    cases, fns = [], []
+    for n in (N, F32_BIG_N):
+        for H, cin, cout in F32_ABLATION:
+            g = torch.Generator(device="cpu").manual_seed(H * cin + n)
+            act = torch.randn(n, H, H, cin, generator=g).to(dev)
+            w = (torch.randn(cout, cin, 3, 3, generator=g) / (9 * cin) ** 0.5).to(dev)
+            wk = w.permute(0, 2, 3, 1).reshape(cout, 9 * cin).contiguous()
+            plan = frb.resblock_f32_plan(n, H, H, cin, 0, cout, sms)
+            conv = plan.convs[0]
+            tn = 8 if conv.tn == 16 else 16
+            splits, per = frb._f32_split(conv.steps, plan.mtiles * plan.ntiles, n * H * H, cout,
+                                         sms * frb.F32_BLOCKS_PER_SM[tn],
+                                         _cuda.SPLITK_WORKSPACE)
+            other = frb.F32ConvPlan(tn, frb.F32_STAGES[tn], conv.steps, splits, per, 0)
+            out = torch.empty(n, H, H, cout, device=dev)
+            ws = torch.empty(_cuda.SPLITK_WORKSPACE, device=dev)
+            want = F.conv2d(act.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+            for variant in F32_ABLATIONS:
+                cp = other if variant == "other tile" else conv
+                ablate = max(0, F32_ABLATIONS.index(variant) - 1)
+                if ablate and cp.tn != 16:
+                    continue  # the ablated copies exist for the 8 x 16 tile
+
+                def call(act=act, wk=wk, out=out, ws=ws, cp=cp, ablate=ablate, n=n, H=H,
+                         cin=cin, cout=cout):
+                    _cuda.check(lib.diffpure_f32conv(
+                        act.data_ptr(), n, H, H, cin, wk.data_ptr(), cout, out.data_ptr(),
+                        ws.data_ptr(), _cuda.SPLITK_WORKSPACE, cp.tn, cp.stages, cp.splits,
+                        cp.per, ablate, _cuda.stream(dev)), "f32conv")
+                call()
+                torch.cuda.synchronize()
+                rec = dict(batch=n, H=H, cin=cin, cout=cout, variant=variant, tn=cp.tn,
+                           splits=cp.splits, flops=2 * n * H * H * 9 * cin * cout)
+                if not ablate:
+                    err = float((out - want).abs().max())
+                    rec.update(max_abs_err=err, rel_err=err / float(want.abs().max()),
+                               ok=err <= REL["float32"] * float(want.abs().max()))
+                cases.append(rec)
+                fns.append(call)
+    timed = device_ms_many(torch, fns, reps=reps)
+    # the card's SM clock and power while the kernel runs back to back at the
+    # last batch-F32_BIG_N shape (its FMA rate is the clock's)
+    last = max(i for i, r in enumerate(cases) if r["variant"] == F32_ABLATIONS[0])
+    clocks = sample_clocks(torch, fns[last])
+    log(f"  SM clock MHz, max MHz, power W while the kernel runs: {clocks}")
+    cases[last]["clocks"] = clocks
+    for rec, (ms, _) in zip(cases, timed):
+        rec.update(device_ms=ms, tflops=rec["flops"] / ms / 1e9)
+        log(f"  f32conv b{rec['batch']:<3d} {rec['H']:2d}x{rec['H']:<2d} {rec['cin']:3d}->"
+            f"{rec['cout']:3d} (8 x {rec['tn']:2d}, splits {rec['splits']:2d}) "
+            f"{rec['variant']:24s} device {ms:.4f} ms ({rec['tflops']:.1f} TFLOP/s by the "
+            f"kernel's FLOPs)" + (f" rel err {rec['rel_err']:.2e} {'ok' if rec['ok'] else 'FAIL'}"
+                                  if "ok" in rec else ""))
+    bad = [r for r in cases if not r.get("ok", True)]
+    if bad:
+        raise AssertionError(f"the fp32 GEMM disagrees with cuDNN's conv: {bad}")
+    return cases
+
+
+def phase_f32_defended(torch, dev, score, clf, rng, smi, want):
+    """Phase 3c: the defended call in fp32 at the run scripts' batch
+    (F32_BIG_N), t*=100, cold and warm (purified images/s, the launch
+    counters ``want``), then three warm fp32 evaluations of the score model
+    at that batch under the profiler: device ms and idle share per
+    evaluation, and the block chains' steps."""
+    from diffpure_tpu_torch.eval import DefendedModel, get_accuracy
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.purify import PurifyConfig
+
+    score.dtype = torch.float32
+    x = torch.from_numpy(rng.uniform(size=(F32_BIG_N, 32, 32, 3)).astype("float32")).to(dev)
+    y = torch.from_numpy(rng.integers(0, 10, F32_BIG_N)).to(dev)
+    dm = DefendedModel(score, clf, PurifyConfig(t=EVALS, grad_mode="none"), log_every=0)
+    res = dict(runs=[])
+    for run in ("cold", "warm"):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with torch.inference_mode():
+            acc = get_accuracy(dm, x, y, seed=SEED + 9, bs=F32_BIG_N)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = launch_counts()
+        res["runs"].append(dict(run=run, wall_s=wall, images_per_s=F32_BIG_N / wall,
+                                counts=counts))
+        log(f"  {run}: {wall:.3f} s, {F32_BIG_N / wall:.3f} images/s on {smi}, accuracy "
+            f"{acc:.3f} (random weights); launches {counts}")
+        if counts != want:
+            raise AssertionError(f"fp32 defended call: launch counts {counts} != {want}")
+    prof = profile_eval(torch, score, x * 2 - 1, torch.full((F32_BIG_N,), 99.9, device=dev))
+    res["profile"] = {k: prof[k] for k in ("wall_ms_per_eval", "device_ms_per_eval",
+                                           "idle_share", "chain_steps")}
+    log(f"  one fp32 evaluation at batch {F32_BIG_N}: wall {prof['wall_ms_per_eval']:.3f} ms, "
+        f"device {prof['device_ms_per_eval']:.3f} ms, idle share {prof['idle_share']:.3f}; "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(prof["chain_steps"].items())))
+    score.dtype = torch.bfloat16
+    return res
+
+
+def phase_f32_grad(torch, score, clf, xg, yg, smi):
+    """Phase 5 in fp32: the checkpoint input gradient of CE(DefendedModel)
+    at t*=100, batch GRAD_N, cold and warm (gradient-images/s), with its
+    exact launch counters."""
+    from diffpure_tpu_torch.eval import DefendedModel
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.purify import PurifyConfig
+
+    score.dtype = torch.float32
+    dmg = DefendedModel(score, clf, PurifyConfig(t=EVALS, grad_mode="checkpoint"), log_every=0)
+    fwd, bwd = GRAD_EVALS["checkpoint"]
+    want = {**expected_counts(EVALS * fwd),
+            **{k: KERNELS[v[2]][2] * EVALS * bwd for k, v in BWD_KERNELS.items()}}
+    runs = []
+    for run in ("cold", "warm"):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        gx, _ = input_grad(torch, dmg, xg, yg, SEED + 5)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs.append(dict(mode="checkpoint", dtype="float32", run=run, wall_s=wall,
+                         grad_images_per_s=GRAD_N / wall, counts=counts, peak_gib=peak))
+        log(f"  checkpoint fp32 {run}: {wall:.3f} s, {GRAD_N / wall:.3f} gradient-images/s on "
+            f"{smi}; peak device memory {peak:.2f} GiB; launches {counts}")
+        if tuple(gx.shape) != tuple(xg.shape) or not bool(torch.isfinite(gx).all()) \
+                or not bool((gx != 0).any()):
+            raise AssertionError(f"fp32 checkpoint: bad input gradient, shape {tuple(gx.shape)}")
+        if counts != want:
+            raise AssertionError(f"fp32 checkpoint: launch counts {counts} != {want}")
+    score.dtype = torch.bfloat16
+    return runs
 
 
 def phase_identity_resample(torch, dev, n=N):
@@ -1624,7 +1923,7 @@ def profile_eval(torch, model, x, t, evals=3):
 # the GroupNorm pass, the GEMM (the mma.sync one and the wgmma one), the
 # split-K pass, the attention core.
 CHAIN_KINDS = (("gn", ("gn_apply_kernel", "rb_gn_kernel", "gn_regs_kernel")),
-               ("gemm", ("igemm_", "rb_wgmma_kernel", "attn_qkv_f32_kernel")),
+               ("gemm", ("igemm_", "rb_wgmma_kernel", "attn_qkv_f32_kernel", "f32conv_kernel")),
                ("splitk", ("splitk_", "attn_qkv_sum_kernel")),
                ("attn", ("attn_kernel", "attn_wgmma_kernel", "attn_f32_kernel")))
 
@@ -1682,8 +1981,9 @@ def chain_steps(prof, evals):
     return {k: v / 1e3 / evals for k, v in steps.items()}
 
 
-def host_us_per_call(torch, dev):
-    """Host microseconds per resblock call at batch 8, bf16: back-to-back
+def host_us_per_call(torch, dev, dtype=None):
+    """Host microseconds per resblock call at batch 8 in ``dtype`` (bf16 by
+    default): back-to-back
     calls timed on the host clock up to the last enqueue, once through
     ops/fused_resblock._launch and once through the public wrapper under
     inference_mode; beside them the CUDA-event ms per call (the device
@@ -1691,12 +1991,13 @@ def host_us_per_call(torch, dev):
     from diffpure_tpu_torch.ops import fused_resblock as frb
     from diffpure_tpu_torch.ops.groupnorm import ncsn_num_groups
 
+    dtype = dtype or torch.bfloat16
     out = {}
     for rs, H, c, cout in (("none", 4, 256, 256), ("none", 32, 128, 128)):
         params, x32, temb32, _ = block_inputs(torch, dev, 0, "fused_resblock", rs, H, c, 0, cout)
-        x, temb = x32.to(torch.bfloat16), temb32.to(torch.bfloat16)
+        x, temb = x32.to(dtype), temb32.to(dtype)
         g1, g2 = ncsn_num_groups(c), ncsn_num_groups(cout)
-        pk = frb.pack_resblock_params(params, torch.bfloat16, dev)
+        pk = frb.pack_resblock_params(params, dtype, dev)
         calls = {
             "_launch": lambda: frb._launch(x, None, temb, pk, g1, g2, 1e-6, True, rs),
             "fused_resblock": lambda: frb.fused_resblock(
@@ -1716,31 +2017,39 @@ def host_us_per_call(torch, dev):
 
 
 def profile_cifar(torch, dev, smi):
-    """--profile-cifar: warm evaluations of the full-width NCSN++ (bf16
-    torso) at batch 8 and 128 under the profiler (device ms by kernel, the
-    block chains' steps, idle share), the host time per block call, and
-    phase 3b's defended call at batch 128 (t*=100, cold and warm wall)."""
+    """--profile-cifar: warm evaluations of the full-width NCSN++ under the
+    profiler (device ms by kernel, the block chains' steps, idle share),
+    bf16 torso at batch 8 and 128 and fp32 (the CLI's default precision)
+    at batch 8 and F32_BIG_N, the host time per block call in each dtype,
+    and phase 3b's defended call at batch 128 (t*=100, cold and warm
+    wall)."""
     import numpy as np
     from diffpure_tpu_torch.eval import DefendedModel, get_accuracy
     from diffpure_tpu_torch.purify import PurifyConfig
 
     score, clf = build_models(torch, dev, torch.bfloat16)
     res = dict(card=smi)
-    for n in (N, CIFAR_BIG_N):
-        log(f"== profile: CIFAR NCSN++ evaluations, batch {n}, bf16")
-        x, t = torch.randn(n, 32, 32, 3, device=dev), torch.full((n,), 99.9, device=dev)
-        prof = profile_eval(torch, score, x, t)
-        res[f"batch_{n}"] = prof
-        log(f"  wall {prof['wall_ms_per_eval']:.3f} ms, device {prof['device_ms_per_eval']:.3f} "
-            f"ms per evaluation, idle share {prof['idle_share']:.3f} on {smi}")
-        for step, ms in sorted(prof["chain_steps"].items(), key=lambda kv: -kv[1]):
-            log(f"  chain step {step:24s} {ms:8.3f} ms")
-        for name, ms, calls in prof["top_kernels"][:12]:
-            log(f"  {ms:8.3f} ms x{calls:<4d} {name[:100]}")
-    res["host_us"] = host_us_per_call(torch, dev)
-    for k, v in res["host_us"].items():
-        log(f"  host {k:36s} {v['host_us']:8.1f} us per call (CUDA events "
-            f"{v['cuda_event_ms'] * 1e3:8.1f} us)")
+    for dtype, tag, batches in ((torch.bfloat16, "bf16", (N, CIFAR_BIG_N)),
+                                (torch.float32, "fp32", (N, F32_BIG_N))):
+        score.dtype = dtype
+        for n in batches:
+            log(f"== profile: CIFAR NCSN++ evaluations, batch {n}, {tag}")
+            x, t = torch.randn(n, 32, 32, 3, device=dev), torch.full((n,), 99.9, device=dev)
+            prof = profile_eval(torch, score, x, t)
+            res[f"batch_{n}" if tag == "bf16" else f"fp32_batch_{n}"] = prof
+            log(f"  wall {prof['wall_ms_per_eval']:.3f} ms, device "
+                f"{prof['device_ms_per_eval']:.3f} ms per evaluation, idle share "
+                f"{prof['idle_share']:.3f} on {smi}")
+            for step, ms in sorted(prof["chain_steps"].items(), key=lambda kv: -kv[1]):
+                log(f"  chain step {step:24s} {ms:8.3f} ms")
+            for name, ms, calls in prof["top_kernels"][:12]:
+                log(f"  {ms:8.3f} ms x{calls:<4d} {name[:100]}")
+        host = host_us_per_call(torch, dev, dtype)
+        res["host_us" if tag == "bf16" else "fp32_host_us"] = host
+        for k, v in host.items():
+            log(f"  host {tag} {k:36s} {v['host_us']:8.1f} us per call (CUDA events "
+                f"{v['cuda_event_ms'] * 1e3:8.1f} us)")
+    score.dtype = torch.bfloat16
     rng = np.random.default_rng(SEED + 8)
     x128 = torch.from_numpy(rng.uniform(size=(CIFAR_BIG_N, 32, 32, 3)).astype(np.float32)).to(dev)
     y128 = torch.from_numpy(rng.integers(0, 10, CIFAR_BIG_N)).to(dev)
@@ -4004,8 +4313,8 @@ def main() -> int:
                          "(batch 8, fp32) and end (no result line)")
     ap.add_argument("--profile-cifar", action="store_true",
                     help="after phase 1, profile warm CIFAR NCSN++ evaluations (batch 8 "
-                         "and 128, bf16; the block chains' steps) and the host time per "
-                         "block call, and end (no result line)")
+                         "and 128 bf16, 8 and 64 fp32; the block chains' steps) and the host "
+                         "time per block call, and end (no result line)")
     ap.add_argument("--profile-grad", action="store_true",
                     help="after phase 1, profile warm steps of phase 5's gradient and one "
                          "evaluation's backward at batch 8 and 16 (the chain's steps), and "
@@ -4125,6 +4434,12 @@ def main() -> int:
     attn16_records = phase_kernels(torch, dev, attn_shapes, n=GRAD_N, dtypes=("bfloat16",))
     log(f"== phase 2 at batch {CIFAR_BIG_N} (bench.py's CIFAR batch), bf16 blocks")
     big_records = phase_kernels(torch, dev, shapes, n=CIFAR_BIG_N, dtypes=("bfloat16",))
+    log(f"== phase 2 at batch {F32_BIG_N} (the run scripts' batch), fp32 blocks #1 / #2; "
+        f"cuDNN's fp32 convs with torch.backends.cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}")
+    f32_records = phase_f32_blocks(torch, dev, shapes)
+    log("== phase 2, the fp32 GEMM alone against cuDNN's conv, and its ablated copies")
+    f32_ablation = phase_f32_ablation(torch, dev)
     log("== phase 2, up and down blocks with an identity skip (off the census)")
     identity_checks = phase_identity_resample(torch, dev)
     log("== phase 2, the attention block with a non-finite example beside finite ones")
@@ -4144,7 +4459,7 @@ def main() -> int:
         card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
         wgmma=wgmma, shapes=records, big_shapes=big_records, attn16_shapes=attn16_records,
         identity_checks=identity_checks, isolation_checks=isolation_checks, bwd_shapes=bwd_records, bwd16_shapes=bwd16_records,
-        phase_s=phase_s), indent=1))
+        f32_shapes=f32_records, f32_ablation=f32_ablation, phase_s=phase_s), indent=1))
     if args.stop_after == "2b":
         log("stopped after phase 2b as asked (partial run)")
         return 3
@@ -4262,6 +4577,12 @@ def main() -> int:
         raise AssertionError(f"bad logits: shape {tuple(out.shape)}")
     phase_done("3b")
 
+    # ---- phase 3c -----------------------------------------------------------
+    log(f"== phase 3c: DefendedModel, t*=100, fp32 NCSN++ + WRN-28-10 (the run scripts' "
+        f"precision and batch), batch {F32_BIG_N}")
+    f32_runs = phase_f32_defended(torch, dev, score, clf, rng, smi, want)
+    phase_done("3c")
+
     # ---- phase 4 ------------------------------------------------------------
     log("== phase 4: purification t*=5, kernels (GPU) against plain (CPU)")
     cfg5 = PurifyConfig(t=5, grad_mode="none")
@@ -4321,6 +4642,8 @@ def main() -> int:
                 raise AssertionError(f"{mode}: bad input gradient, shape {tuple(gx.shape)}")
             if counts != want:
                 raise AssertionError(f"{mode}: launch counts {counts} != {want}")
+    log(f"== phase 5, fp32 (the run scripts' precision): checkpoint, batch {GRAD_N}")
+    f32_grad_runs = phase_f32_grad(torch, score, clf, xg, yg, smi)
     phase_done("5")
 
     # ---- phase 6 ------------------------------------------------------------
@@ -4654,6 +4977,18 @@ def main() -> int:
             # each (attn_yardstick)
             library_ms=sum(r["library_ms"] * r["calls_per_eval"] for r in mine)
             if name == "fused_attnblock" else None))
+        if name in ("fused_resblock", "fused_resblock_cat"):
+            # the fp32 chain (the run scripts' precision), per evaluation at
+            # batch 8 and F32_BIG_N: CUDA events, device time, bound
+            kernels[-1]["fp32"] = {
+                f"batch_{n}": dict(
+                    ms=sum(r["ms"] * r["calls_per_eval"] for r in rs),
+                    device_ms=sum(r["device_ms"] * r["calls_per_eval"] for r in rs),
+                    bound_ms=sum(r["bound_ms"] * r["calls_per_eval"] for r in rs),
+                    max_abs_err=max(r["max_abs_err"] for r in rs))
+                for n, rs in ((N, [r for r in records if r["kernel"] == name
+                                   and r["dtype"] == "float32"]),
+                              (F32_BIG_N, [r for r in f32_records if r["kernel"] == name]))}
     for name, (source, replaces) in ADM_KERNELS.items():
         # per ADM evaluation at batch 4, bf16: the kernel's calls at each shape
         mine = [r for r in adm_records if r["kernel"] == name and r["dtype"] == "bfloat16"]
@@ -4694,7 +5029,8 @@ def main() -> int:
         wgmma=wgmma, shapes=records, big_shapes=big_records, attn16_shapes=attn16_records,
         identity_checks=identity_checks, isolation_checks=isolation_checks, bwd_shapes=bwd_records, bwd16_shapes=bwd16_records,
         slice_runs=runs, big_runs=big_runs,
-        slice_checks=slice_checks,
+        slice_checks=slice_checks, f32_shapes=f32_records, f32_ablation=f32_ablation,
+        f32_runs=f32_runs, f32_grad_runs=f32_grad_runs,
         grad_runs=grad_runs, grad_checks=grad_checks,
         attack=dict(seconds=attack_s, counts=attack_counts, classifier_robust_acc=accs[0],
                     defended_robust_acc=accs[1], max_dist=dist),

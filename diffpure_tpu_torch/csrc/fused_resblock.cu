@@ -43,75 +43,28 @@
 // 7.4 -> 1.2 ms; GN passes 1.8 -> 1.45 ms: the passes are now latency
 // chains of about 10 us each, not bandwidth), and at batch 128 16.8 ms
 // where it took 116.6 (chip_smoke.py phase 2, --profile-cifar).
-// fp32 (resblock_fwd_f32): the PR 1 chain, common.cuh gn_apply_kernel (one block
-// per group and example) and launch_gemm (plain fp32 FMAs, never TF32;
-// deterministic split-K).
+// fp32 (resblock_fwd_f32, resblock_f32.cu): the same four steps on the FMA
+// units (never TF32): rb_gn_kernel<float, float> for both GroupNorm passes
+// and f32conv_kernel, a 128 x 128 (or 128 x 64) tile of 8 x 8 outputs a
+// thread over a cp.async ring, tiles and split-K from ops/fused_resblock.py
+// resblock_f32_plan.
 #include "common.cuh"
 #include "gn_cluster.cuh"
 #include "igemm_wgmma.cuh"
 
 using namespace dp;
 
-// fp32: the GN pass and launch_gemm of common.cuh.
-static cudaError_t resblock_fwd_f32(const void* x1, const void* x2, int c1, int c2, int N,
-                                    int H, int W, int resample, const void* temb,
-                                    const float* gn1s, const float* gn1b, int g1, const void* w0,
-                                    const float* b0, const float* gn2s, const float* gn2b,
-                                    int g2, const void* w1, const float* bias1, int has_proj,
-                                    int cout, float eps, float oscale, void* act1, void* xs,
-                                    float* h1, void* act2, float* ws, long ws_elems, void* out,
-                                    cudaStream_t st) {
-  const int cin = c1 + c2;
-  const int Ho = resample == RS_DOWN ? H / 2 : (resample == RS_UP ? H * 2 : H);
-  const int Wo = resample == RS_DOWN ? W / 2 : (resample == RS_UP ? W * 2 : W);
-  const Src x = {x1, x2, c1, c2, H, W, 0};
-  // the skip branch's input on the output grid: x itself, or its resample
-  // written by the GN1 pass
-  const Src skip = resample == RS_NONE ? x : Src{xs, nullptr, cin, 0, Ho, Wo, 0};
-  const GnArgs gn1 = {x, g1, gn1s, gn1b, eps, 1, resample, act1,
-                      resample == RS_NONE ? nullptr : xs};
-  cudaError_t err = launch_gn_apply<float>(gn1, N, st);
-  if (err != cudaSuccess) return err;
-
-  GemmArgs a0 = {};
-  a0.M = N * Ho * Wo;
-  a0.Nc = cout;
-  a0.K = a0.Kmain = 9 * cin;
-  a0.Ho = Ho;
-  a0.Wo = Wo;
-  a0.taps = 9;
-  a0.src = Src{act1, nullptr, cin, 0, Ho, Wo, 0};
-  a0.w = w0;
-  a0.bias = b0;
-  a0.temb = temb;
-  a0.oscale = 1.f;
-  a0.out = h1;
-  a0.out_f32 = 1;
-  if ((err = launch_gemm<float>(a0, ws, ws_elems, st)) != cudaSuccess) return err;
-
-  const GnArgs gn2 = {Src{h1, nullptr, cout, 0, Ho, Wo, 1}, g2, gn2s, gn2b, eps, 1,
-                      RS_NONE, act2, nullptr};
-  if ((err = launch_gn_apply<float>(gn2, N, st)) != cudaSuccess) return err;
-
-  GemmArgs a1 = {};
-  a1.M = N * Ho * Wo;
-  a1.Nc = cout;
-  a1.Kmain = 9 * cout;
-  a1.K = a1.Kmain + (has_proj ? cin : 0);
-  a1.Ho = Ho;
-  a1.Wo = Wo;
-  a1.taps = 9;
-  a1.src = Src{act2, nullptr, cout, 0, Ho, Wo, 0};
-  a1.proj = skip;
-  a1.w = w1;
-  a1.bias = bias1;
-  a1.has_resid = !has_proj;  // identity skip (cin == cout)
-  a1.resid = skip;
-  a1.oscale = oscale;
-  a1.out = out;
-  a1.out_f32 = 0;
-  return launch_gemm<float>(a1, ws, ws_elems, st);
-}
+namespace dp {
+// the fp32 chain, resblock_f32.cu
+cudaError_t resblock_fwd_f32(const float* x1, const float* x2, int c1, int c2, int N, int H,
+                             int W, int resample, const float* temb, const float* gn1s,
+                             const float* gn1b, int g1, const float* w0, const float* b0,
+                             const float* gn2s, const float* gn2b, int g2, const float* w1,
+                             const float* bias1, int has_proj, int cout, float eps,
+                             float oscale, float* act1, float* xs, float* h1, float* act2,
+                             float* ws, long ws_elems, float* out, const int* plan,
+                             cudaStream_t st);
+}  // namespace dp
 
 // The bf16 chain: rb_gn_kernel and the wgmma GEMM. plan: the tile bm x bn,
 // the A box (Wo columns x bh rows x bimg images), each conv's K slices
@@ -123,9 +76,11 @@ static cudaError_t resblock_fwd_wgmma(const bf16* x1, const bf16* x2, int c1, in
                                       const float* gn2b, int g2, const bf16* w1s,
                                       const float* bias1, int has_proj, int cout, float eps,
                                       float oscale, bf16* act1, bf16* xs, float* h1, bf16* act2,
-                                      float* ws, long ws_elems, bf16* out, int bm, int bn, int bh,
-                                      int bimg, int splits0, int per0, int splits1, int per1,
+                                      float* ws, long ws_elems, bf16* out, const int* plan,
                                       cudaStream_t st) {
+  if (plan == nullptr) return cudaErrorInvalidValue;
+  const int bm = plan[0], bn = plan[1], bh = plan[2], bimg = plan[3], splits0 = plan[4],
+            per0 = plan[5], splits1 = plan[6], per1 = plan[7];
   const int cin = c1 + c2;
   const int Ho = resample == RS_DOWN ? H / 2 : (resample == RS_UP ? H * 2 : H);
   const int Wo = resample == RS_DOWN ? W / 2 : (resample == RS_UP ? W * 2 : W);
@@ -209,11 +164,13 @@ extern "C" {
 // bf16 runs on the wgmma chain and reads w0s (9 cin / 64, cout, 64) and w1s
 // (9 cout / 64 [+ cin / 64], cout, 64) instead of w0 and w1: the weight
 // stages of ops/fused_resblock.py, step (c // 64) * 9 + tap for input
-// channel c, the projection's steps last, each row in the 128-byte swizzle;
-// and the plan: tile bm x bn, A box bh rows x bimg images (x Wo columns),
-// (splits, steps per slice) of conv0 and of conv1. fp32 ignores these.
+// channel c, the projection's steps last, each row in the 128-byte swizzle
+// (fp32 ignores w0s, w1s). plan: 8 ints, resblock_plan's for bf16 (tile bm,
+// bn, A box bh rows x bimg images (x Wo columns), then (splits, steps per
+// slice) of conv0 and of conv1), resblock_f32_plan's for fp32 (128, bn,
+// ring stages, 0, the same splits).
 // Returns cudaGetLastError() of the first failing launch, or
-// cudaErrorInvalidValue for a shape or plan the bf16 chain does not take.
+// cudaErrorInvalidValue for a shape or plan the chain does not take.
 int diffpure_resblock_fwd(int dtype, const void* x1, const void* x2, int c1, int c2, int N,
                           int H, int W, int resample, const void* temb, const float* gn1s,
                           const float* gn1b, int g1, const void* w0, const float* b0,
@@ -221,8 +178,7 @@ int diffpure_resblock_fwd(int dtype, const void* x1, const void* x2, int c1, int
                           const float* bias1, int has_proj, int cout, float eps,
                           float oscale, void* act1, void* xs, float* h1, void* act2,
                           float* ws, long ws_elems, void* out, const void* w0s,
-                          const void* w1s, int bm, int bn, int bh, int bimg, int splits0,
-                          int per0, int splits1, int per1, void* stream) {
+                          const void* w1s, const int* plan, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return resblock_fwd_wgmma(
@@ -230,10 +186,13 @@ int diffpure_resblock_fwd(int dtype, const void* x1, const void* x2, int c1, int
         static_cast<const bf16*>(temb), gn1s, gn1b, g1, static_cast<const bf16*>(w0s), b0, gn2s,
         gn2b, g2, static_cast<const bf16*>(w1s), bias1, has_proj, cout, eps, oscale,
         static_cast<bf16*>(act1), static_cast<bf16*>(xs), h1, static_cast<bf16*>(act2), ws,
-        ws_elems, static_cast<bf16*>(out), bm, bn, bh, bimg, splits0, per0, splits1, per1, st);
-  return resblock_fwd_f32(x1, x2, c1, c2, N, H, W, resample, temb, gn1s, gn1b, g1, w0, b0,
-                          gn2s, gn2b, g2, w1, bias1, has_proj, cout, eps, oscale, act1, xs, h1,
-                          act2, ws, ws_elems, out, st);
+        ws_elems, static_cast<bf16*>(out), plan, st);
+  return resblock_fwd_f32(
+      static_cast<const float*>(x1), static_cast<const float*>(x2), c1, c2, N, H, W, resample,
+      static_cast<const float*>(temb), gn1s, gn1b, g1, static_cast<const float*>(w0), b0, gn2s,
+      gn2b, g2, static_cast<const float*>(w1), bias1, has_proj, cout, eps, oscale,
+      static_cast<float*>(act1), static_cast<float*>(xs), h1, static_cast<float*>(act2), ws,
+      ws_elems, static_cast<float*>(out), plan, st);
 }
 
 const char* diffpure_error_string(int err) {

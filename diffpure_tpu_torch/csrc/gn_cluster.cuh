@@ -22,9 +22,11 @@ namespace dp {
 namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------------------
-// bf16 GroupNorm + SiLU (+ naive 2x resample) pass: act = resample(SiLU(GN(x)))
-// in bf16 and, with raw != nullptr, raw = resample(x) in bf16, for x = x1 | x2
-// (bf16) or h1 (fp32). One cluster of CL <= GN_CLUSTER blocks per example
+// GroupNorm + SiLU (+ naive 2x resample) pass: act = resample(SiLU(GN(x)))
+// in TO and, with raw != nullptr, raw = resample(x) in TO, for x = x1 | x2
+// (TI) or h1 (fp32): TI = bf16 or fp32 with TO = bf16 in the bf16 chains,
+// TI = TO = fp32 in the fp32 forward chain (resblock_f32.cu). One cluster
+// of CL <= GN_CLUSTER blocks per example
 // (blockIdx.y; CL from the map's size, launch_rb_gn); block b of it takes
 // input pixels [b HW / CL, (b + 1) HW / CL).
 // A thread owns the VEC channels v VEC.. (16 bytes of the input) of every
@@ -80,8 +82,8 @@ struct RbGnArgs {
   const float* beta;
   float eps;
   int resample;
-  bf16* act;      // (N, Ho, Wo, C)
-  bf16* raw;      // (N, Ho, Wo, C) or nullptr
+  void* act;      // (N, Ho, Wo, C), TO
+  void* raw;      // (N, Ho, Wo, C), TO, or nullptr
   float2* stats;  // (N, G) (mean, rstd) out, or nullptr
   int cl;         // blocks per example: the cluster's size
   int no_silu;    // 1: act = resample(GN(x)), the affine without the SiLU
@@ -119,7 +121,7 @@ __device__ __forceinline__ void gn_block_groups(const float (&s)[VEC], bool acti
   }
 }
 
-template <typename TI>
+template <typename TI, typename TO = bf16>
 __global__ void __launch_bounds__(GN_THREADS) rb_gn_kernel(const __grid_constant__ RbGnArgs a) {
   constexpr int VEC = GnVec<TI>::VEC;
   __shared__ float part[GN_THREADS * 8];
@@ -248,8 +250,8 @@ __global__ void __launch_bounds__(GN_THREADS) rb_gn_kernel(const __grid_constant
   const int Ho = a.resample == RS_DOWN ? a.H / 2 : (a.resample == RS_UP ? a.H * 2 : a.H);
   const int Wo = a.resample == RS_DOWN ? a.W / 2 : (a.resample == RS_UP ? a.W * 2 : a.W);
   const int ohw = Ho * Wo;
-  bf16* act = a.act + (long)n * ohw * C + c0;
-  bf16* raw = a.raw != nullptr ? a.raw + (long)n * ohw * C + c0 : nullptr;
+  TO* act = static_cast<TO*>(a.act) + (long)n * ohw * C + c0;
+  TO* raw = a.raw != nullptr ? static_cast<TO*>(a.raw) + (long)n * ohw * C + c0 : nullptr;
   if (a.resample == RS_DOWN) {
     // output pixels [b OHW / CL, (b + 1) OHW / CL), each from its 2x2 window
     const int q1 = (int)((long)(b + 1) * ohw / a.cl);
@@ -371,11 +373,11 @@ cudaError_t launch_gn_cluster(void (*kernel)(Args), const Args& a, int cl, int N
 
 // Requires C % VEC == 0 with the seam c1 at a multiple of VEC, C <=
 // GN_MAX_C, G <= GN_MAX_G, C % G == 0 (the caller checks).
-template <typename TI>
+template <typename TI, typename TO = bf16>
 cudaError_t launch_rb_gn(RbGnArgs a, int N, cudaStream_t st) {
-  a.cl = gn_cluster_size(reinterpret_cast<const void*>(rb_gn_kernel<TI>),
+  a.cl = gn_cluster_size(reinterpret_cast<const void*>(rb_gn_kernel<TI, TO>),
                          (long)a.H * a.W * (a.c1 + a.c2) / GnVec<TI>::VEC, GN_RES, N);
-  return launch_gn_cluster(rb_gn_kernel<TI>, a, a.cl, N, st);
+  return launch_gn_cluster(rb_gn_kernel<TI, TO>, a, a.cl, N, st);
 }
 
 // ---------------------------------------------------------------------------

@@ -86,8 +86,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         P, P, I, P, P, I, I,              # gn2s, gn2b, g2, w1, bias1, has_proj, cout
         F, F, P, P, P, P,                 # eps, oscale, act1, xs, h1, act2
         P, L, P, P, P,                    # ws, ws_elems, out, w0s, w1s
-        I, I, I, I, I, I, I, I, P]        # bm, bn, bh, bimg, splits0, per0, splits1, per1, stream
+        P, P]                             # plan (8 ints), stream
     lib.diffpure_resblock_fwd.restype = I
+    lib.diffpure_f32conv.argtypes = [
+        P, I, I, I, I, P, I,              # act, N, H, W, C, w, cout
+        P, P, L, I, I, I, I, I, P]        # out, ws, ws_elems, tn, stages, splits, per, ablate, stream
+    lib.diffpure_f32conv.restype = I
     lib.diffpure_resblock_bwd.argtypes = [
         I, P, P, I, I, I, I, I, I, P, P,  # dtype, x1, x2, c1, c2, N, H, W, resample, temb, g
         P, P, I, P, P,                    # gn1s, gn1b, g1, w0, b0

@@ -26,7 +26,10 @@ of its input gradient:
   ``resblock_bwd_plan`` says, with ``pack_resblock_bwd_params``' stages of
   the transposed weights. Both take channel counts that are multiples of
   64 and maps their TMA boxes tile (``check_resblock_shape``), and raise
-  on others.
+  on others. The fp32 forward (``csrc/resblock_f32.cu``) runs its convs on
+  the FMA units in 128 x 128 tiles of 8 x 16 or 8 x 8 outputs a thread,
+  as ``resblock_f32_plan`` says, on the pack's ``w0`` / ``w1``, and takes
+  channel counts that are multiples of 4.
 
 The block: GN1 (fp32 stats, eps 1e-6) + SiLU -> optional naive 2x
 down/up-sample of h and of the skip input -> conv3x3 + b0 + temb row ->
@@ -223,6 +226,13 @@ class ResblockPlan:
     splits: Tuple[int, int]
     per: Tuple[int, int]
 
+    @property
+    def ints(self) -> Tuple[int, ...]:
+        """The 8 ints the C side reads: bm, bn, the box's bh and bimg,
+        then (splits, per) of conv0 and of conv1."""
+        return (self.bm, self.bn, self.box[1], self.box[2], self.splits[0], self.per[0],
+                self.splits[1], self.per[1])
+
 
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
@@ -347,15 +357,117 @@ def resblock_bwd_plan(N: int, Ho: int, Wo: int, cin: int, cout: int, proj: bool,
     return ResblockBwdPlan(gemms, tuple(ints))
 
 
+# The fp32 forward's GEMM (csrc/resblock_f32.cu f32conv_kernel): tiles of
+# F32_BM output pixels x F32_BN channels, K in steps of F32_BK through a
+# ring of shared memory (rows padded to F32_ROW floats), 8 x tn outputs a
+# thread: tn 16 (F32_TN[0]: 128 threads, two blocks an SM, 3 steps a ring)
+# where each K slice is at least F32_MIN_PER steps, else tn 8 (256 threads,
+# one block an SM, 4 steps), which ran 10-33% faster on the shorter slices
+# of batch 8 on an H100 (chip_smoke.py phase_f32_ablation).
+F32_BM = 128
+F32_BN = 128
+F32_BK = 32
+F32_ROW = F32_BK + 4
+F32_TN = (16, 8)
+F32_BLOCKS_PER_SM = {16: 2, 8: 1}
+F32_STAGES = {16: 3, 8: 4}
+F32_MIN_PER = 16
+# an SM's shared memory a block may use (H100: 227 KB), and what the card
+# keeps of it for each resident block
+SMEM_PER_BLOCK = 232448
+SMEM_RESERVED = 1024
+# Split-K: at most this many slices, each at least this many K steps.
+F32_MAX_SPLITS = 48
+F32_MIN_STEPS = 2
+
+
+def f32_smem(stages: int) -> int:
+    """Bytes of dynamic shared memory of the fp32 GEMM's ring."""
+    return 4 * stages * (F32_BM + F32_BN) * F32_ROW
+
+
+@dataclasses.dataclass(frozen=True)
+class F32ConvPlan:
+    """One conv of the fp32 forward: thread tile 8 x ``tn``, a ring of
+    ``stages`` K steps, ``steps`` steps split into ``splits`` slices of
+    ``per`` (the last may be shorter), whose partials a second pass sums in
+    slice order; ``smem`` bytes of shared memory a block."""
+    tn: int
+    stages: int
+    steps: int
+    splits: int
+    per: int
+    smem: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ResblockF32Plan:
+    """The fp32 forward's two convs (F32ConvPlan each) on ``mtiles`` x
+    ``ntiles`` tiles of F32_BM x F32_BN."""
+    mtiles: int
+    ntiles: int
+    convs: Tuple[F32ConvPlan, F32ConvPlan]
+
+    @property
+    def ints(self) -> Tuple[int, ...]:
+        """The 8 ints the C side reads: (tn, stages, splits, per) of conv0
+        and of conv1."""
+        return tuple(v for c in self.convs for v in (c.tn, c.stages, c.splits, c.per))
+
+
+def _f32_split(k: int, tiles: int, M: int, nout: int, slots: int,
+               ws_elems: int) -> Tuple[int, int]:
+    """(splits, per): k K steps in slices of ``per`` steps, up to slots //
+    tiles slices of at least F32_MIN_STEPS steps whose fp32 partials fit
+    ``ws_elems``, where the tiles alone do not fill their waves of
+    ``slots`` blocks."""
+    s = 1
+    if not _fills(tiles, slots):
+        s = max(1, min(slots // tiles, k // F32_MIN_STEPS, F32_MAX_SPLITS,
+                       ws_elems // (M * nout)))
+    p = -(-k // s)
+    return -(-k // p), p
+
+
+def _f32_conv(k: int, tiles: int, M: int, nout: int, sms: int, ws_elems: int) -> F32ConvPlan:
+    """tn 16 unless its split leaves slices under F32_MIN_PER steps."""
+    for tn in F32_TN:
+        splits, per = _f32_split(k, tiles, M, nout, sms * F32_BLOCKS_PER_SM[tn], ws_elems)
+        if splits == 1 or per >= F32_MIN_PER or tn == F32_TN[-1]:
+            return F32ConvPlan(tn, F32_STAGES[tn], k, splits, per, f32_smem(F32_STAGES[tn]))
+
+
+@functools.lru_cache(maxsize=None)
+def resblock_f32_plan(N: int, Ho: int, Wo: int, cin: int, cr: int, cout: int,
+                      sms: int = SMS, ws_elems: int = _cuda.SPLITK_WORKSPACE
+                      ) -> ResblockF32Plan:
+    """The fp32 forward's plan: both convs on the same tiles, each with its
+    thread tile, ring and K split (_f32_conv). cin: conv0's input channels,
+    cr: the projection's (0 for an identity skip), cout: the output's; Ho x
+    Wo: the output grid."""
+    M = N * Ho * Wo
+    mtiles, ntiles = -(-M // F32_BM), -(-cout // F32_BN)
+    steps = (-(-9 * cin // F32_BK), -(-(9 * cout + cr) // F32_BK))
+    return ResblockF32Plan(mtiles, ntiles, tuple(
+        _f32_conv(k, mtiles * ntiles, M, cout, sms, ws_elems) for k in steps))
+
+
 def check_resblock_shape(dtype: torch.dtype, N: int, H: int, W: int, c1: int,
                          c2: int, cout: int, resample: str, has_proj: bool,
                          g1: int, g2: int, sms: int = SMS, backward: bool = False):
     """Raise on what the kernel for ``dtype`` does not take, forward or
-    (``backward``) input gradient; the bf16 plan, ResblockPlan or
-    ResblockBwdPlan (None for fp32, whose kernels take any channel counts
-    that are multiples of 4)."""
+    (``backward``) input gradient; its plan: bf16 ResblockPlan or
+    ResblockBwdPlan, fp32 ResblockF32Plan for the forward (None for the
+    fp32 backward, whose chain takes any channel counts that are multiples
+    of 4, as the fp32 forward does)."""
     if dtype != torch.bfloat16:
-        return None
+        if c1 % 4 or c2 % 4 or cout % 4:
+            raise ValueError(f"the fp32 resblock kernel takes channel counts that are "
+                             f"multiples of 4; got {c1} + {c2} -> {cout}")
+        if backward:
+            return None
+        Ho, Wo = {"none": (H, W), "down": (H // 2, W // 2), "up": (H * 2, W * 2)}[resample]
+        return resblock_f32_plan(N, Ho, Wo, c1 + c2, c1 + c2 if has_proj else 0, cout, sms)
     if c1 % KC or c2 % KC:
         raise ValueError(f"the bf16 resblock kernel takes inputs of channel counts that "
                          f"are multiples of {KC}; got {c1} + {c2}")
@@ -469,7 +581,7 @@ def _launch(x1: Tensor, x2: Optional[Tensor], temb_row: Tensor,
     cin, cout = c1 + c2, pk.cout
     plan = check_resblock_shape(dtype, N, H, W, c1, c2, cout, resample, pk.has_proj,
                                 g1, g2, _cuda.num_sms(dev))
-    if plan is not None and pk.w0s is None:
+    if dtype == torch.bfloat16 and pk.w0s is None:
         raise ValueError("packed weights lack the bf16 kernel's stages")
     p_x1 = _cuda.check_operand(x1, "x1", dev, dtype)
     p_x2 = None if x2 is None else _cuda.check_operand(
@@ -487,24 +599,21 @@ def _launch(x1: Tensor, x2: Optional[Tensor], temb_row: Tensor,
         dev, pix * cin * esize, pix * cin * esize if resample != "none" else 0,
         pix * cout * 4, pix * cout * esize)
     gn1s, gn1b, w0, b0, gn2s, gn2b, w1, bias1, w0s, w1s = pk.ptrs
-    bm = bn = bh = bimg = 0
-    splits, per = (0, 0), (0, 0)
-    if plan is not None:
-        bm, bn, (_, bh, bimg), splits, per = plan.bm, plan.bn, plan.box, plan.splits, plan.per
     err = _cuda.lib().diffpure_resblock_fwd(
         _cuda.DTYPE_CODE[dtype], p_x1, p_x2, c1, c2, N, H, W,
         _RESAMPLE[resample], p_temb, gn1s, gn1b, g1, w0, b0, gn2s, gn2b, g2,
         w1, bias1, int(pk.has_proj), cout, eps, INV_SQRT2 if rescale else 1.0,
         act1, xs, h1, act2, ws, _cuda.SPLITK_WORKSPACE, out.data_ptr(), w0s, w1s,
-        bm, bn, bh, bimg, splits[0], per[0], splits[1], per[1], _cuda.stream(dev))
+        _plan_ints(plan), _cuda.stream(dev))
     _cuda.check(err, "fused_resblock kernel")
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def _plan_ints(plan):
-    """A plan's ints (ResblockBwdPlan, fused_attnblock's AttnblockPlan) as the
-    C array the launch passes (kept alive here)."""
+    """A plan's ints (ResblockPlan, ResblockF32Plan, ResblockBwdPlan,
+    fused_attnblock's AttnblockPlan) as the C array the launch passes (kept
+    alive here)."""
     return (ctypes.c_int * len(plan.ints))(*plan.ints)
 
 

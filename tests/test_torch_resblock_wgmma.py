@@ -199,12 +199,16 @@ def test_shape_gate_raises_where_no_box_tiles_the_map(H, W):
 
 
 def test_shape_gate_takes_the_census_and_leaves_fp32_alone(census):
+    """Every census shape gets the bf16 plan in bf16, and in fp32 the fp32
+    chain's own plan (resblock_f32_plan), never a bf16 one."""
     for (name, rs, H, c1, c2, cout), _ in census.items():
+        Ho = {"none": H, "down": H // 2, "up": 2 * H}[rs]
         for batch in (1, 2, 8, 16, 128):
-            assert frb.check_resblock_shape(torch.bfloat16, batch, H, H, c1, c2, cout, rs,
-                                            True, 32, 32) is not None
-            assert frb.check_resblock_shape(torch.float32, batch, H, H, c1, c2, cout, rs,
-                                            True, 32, 32) is None
+            assert isinstance(frb.check_resblock_shape(torch.bfloat16, batch, H, H, c1, c2, cout,
+                                                       rs, True, 32, 32), frb.ResblockPlan)
+            plan = frb.check_resblock_shape(torch.float32, batch, H, H, c1, c2, cout, rs,
+                                            True, 32, 32)
+            assert plan == frb.resblock_f32_plan(batch, Ho, Ho, c1 + c2, c1 + c2, cout)
 
 
 @pytest.mark.parametrize("rs,H", [("up", 16), ("down", 16), ("up", 4), ("down", 32)])
