@@ -9,9 +9,10 @@ Phases, each fatal on failure:
      kernels from diffpure_tpu_torch/csrc (timed); the count of wgmma
      (HGMMA) instructions in the SASS of the halo conv, flash attention,
      the CIFAR block GEMM and the attention block's core, which must be
-     non-zero for their bf16 kernels; the fp32 kernels of #1 / #2's, #3's
-     chain and #10 (FP32_KERNELS) must hold no tensor-core instruction
-     (HMMA, HGMMA: TF32 stays off) and spill nothing (-Xptxas -v);
+     non-zero for their bf16 kernels; the fp32 kernels of #1 / #2's and
+     #4 / #5's chains, #3's chain and #10 (FP32_KERNELS) must hold no
+     tensor-core instruction (HMMA, HGMMA: TF32 stays off) and spill nothing
+     (-Xptxas -v);
   2. each hand-written kernel against its plain PyTorch version on the card,
      at every shape the CIFAR-10 NCSN++ gives it, batch 8, bf16 and fp32,
      and the bf16 blocks again at batch 128 (the attention block also at
@@ -47,12 +48,16 @@ Phases, each fatal on failure:
      take them), with the same noise; the purified images must agree;
   2b. (run after phase 2) each backward kernel against its plain version
      (autograd of the plain block on the card) at every resblock and
-     concat-resblock shape of the main path, batch 8, bf16 and fp32, and
-     batch 16 (phase 5's), bf16; per shape the wrapper's CUDA-event time,
-     the profiler's device time by chain step (GN1 and conv0 recompute,
-     conv1^T, GN2 backward, conv0^T, skip adjoint, GN1 backward), TFLOP/s
-     and cuDNN's four products as a yardstick; a bf16 backward that
-     launches the old GEMM or GN backward kernel (OLD_BWD_KERNELS) fails;
+     concat-resblock shape of the main path, batch 8, bf16 and fp32, batch
+     16 (phase 5's), bf16 and fp32, and batch 64 (the run scripts'), fp32;
+     per shape the wrapper's CUDA-event time, the profiler's device time by
+     chain step (GN1 and conv0 recompute, conv1^T, GN2 backward, conv0^T,
+     skip adjoint, GN1 backward; fp32 at 16 and 64 from one profiler
+     session), TFLOP/s and cuDNN's four products as a yardstick (fp32 with
+     TF32 off); each fp32 call runs twice and must give the same bits; a
+     bf16 backward that launches the old GEMM or GN backward kernel
+     (OLD_BWD_KERNELS), or an fp32 one that launches the old fp32 chain
+     (OLD_F32_BWD_KERNELS), fails;
   5. the gradient-image rate: the input gradient of the cross-entropy of
      DefendedModel at t*=100, batch 16, bf16 torso, weights frozen, with
      grad_mode 'checkpoint' and 'adjoint', cold and warm; the launch
@@ -101,7 +106,7 @@ Phases, each fatal on failure:
      resblock_type='ddpm' (2 blocks per level, fp32 and bf16), kernels
      (card) against plain (CPU), same noise;
   12. BPDA+EOT on the main path: the defence vote (timed), eval_bpda
-     through the bf16 CIFAR defence at t*=100, batch 4, 2 PGD steps, 2
+     through the bf16 CIFAR defence at t*=BPDA_T (50), batch 4, 2 PGD steps, 2
      attack and 4 defence reps, then one PGD step with the attack reps one
      a call (the chunked seeds); x_adv must lie in the eps-ball and in
      [0, 1], class_batch never turn from false to true, and the launch
@@ -131,7 +136,7 @@ Phases, each fatal on failure:
      cotangent), fp32 and bf16, both grad modes, kernels (card) against
      the plain fp32 path (CPU), the same noise; #6-#9 must launch (phase_adm_grad_parity);
   16. the ImageNet gradient-image rate: the input gradient of the
-     cross-entropy of DefendedModel(resize_to=256) at t*=50, bf16 ADM +
+     cross-entropy of DefendedModel(resize_to=256) at t*=25, bf16 ADM +
      ResNet-50, batch 2, both grad modes, once each (phase 15 warmed the
      paths), wall time, gradient-images/s and peak device memory, the
      launch counters exactly the forward census times the mode's forward
@@ -154,7 +159,7 @@ Phases, each fatal on failure:
      and purify_sde (reversible), fp32 and bf16, kernels (card) against
      plain (CPU), the launch counters each mode derives; whether the score
      model gives the same bits twice; reversible Heun's gradient at batch
-     16, t*=100 (rate, peak memory, reconstruction error) beside phase 5's,
+     16, t*=REV_T (50) (rate, peak memory, reconstruction error) beside phase 5's,
      and its gap to the exact gradient of the same solve (autograd through
      its steps) (phase_purifiers);
   21. eval_autoattack 'standard' (APGD-CE, APGD-T, FAB-T, Square) through
@@ -210,8 +215,9 @@ and 64 (fp32), with the block chains' steps and the host time per block
 call in each dtype (profile_cifar.json);
 ``--profile-grad`` phase 5's gradient step (device time by kernel and by
 part, idle share, tensor-map cache misses), one evaluation's backward at
-batch 8 and 16 by chain step, and phase 16's ImageNet gradient step at
-t*=10 by part and by kernel family (profile_grad.json).
+batch 8 and 16 by chain step, the same in fp32 (the run scripts'
+precision) at batch 16 and 64 (profile_grad_f32), and phase 16's ImageNet
+gradient step at t*=10 by part and by kernel family (profile_grad.json).
 """
 from __future__ import annotations
 
@@ -301,13 +307,17 @@ GRAD_PROFILE_T = 10
 # The backward chain's launches (#4/#5) by kernel-name fragment: the
 # recomputed GN1 pass, the GEMMs (BWD_GEMMS, in launch order), the
 # GroupNorm+SiLU backward passes (BWD_GNS, in launch order), the split-K
-# passes. The bf16 chain launches none of OLD_BWD_KERNELS (phase 2b).
+# passes. The bf16 chain launches none of OLD_BWD_KERNELS, the fp32 chain
+# (csrc/resblock_f32.cu: f32conv_kernel, rb_gn_kernel<float, float>,
+# rb_gn_bwd_kernel<float, float>) none of the old fp32 chain's,
+# OLD_F32_BWD_KERNELS, at a census shape (phase 2b).
 BWD_KINDS = (("gn", ("gn_apply_kernel", "rb_gn_kernel")),
              ("gn_bwd", ("gn_silu_bwd_kernel", "rb_gn_bwd_kernel")),
-             ("gemm", ("igemm_", "rb_wgmma_kernel")), ("splitk", ("splitk_",)))
+             ("gemm", ("igemm_", "rb_wgmma_kernel", "f32conv_kernel")), ("splitk", ("splitk_",)))
 BWD_GEMMS = ("conv0 recompute", "conv1^T", "conv0^T", "skip adjoint")
 BWD_GNS = ("GN2+SiLU backward", "GN1+SiLU backward")
 OLD_BWD_KERNELS = ("igemm_bf16_kernel", "gn_silu_bwd_kernel")
+OLD_F32_BWD_KERNELS = ("igemm_f32_kernel", "gn_apply_kernel", "gn_silu_bwd_kernel")
 # The attention block's (#3) calls per evaluation of the CIFAR NCSN++, by
 # shape as shape_census gives them: 9 at 16x16x256, the middle block at
 # 4x4x256 (phase 2 checks the census against it).
@@ -357,15 +367,18 @@ DEVICE_TIMED = ("group_stats", "gn_film_silu_apply")
 # both.
 FLASH_WIDTHS_OFF_CENSUS = ((64, 1024, 32), (16, 1024, 128), (32, 1024, 48), (16, 1024, 96),
                            (8, 1024, 160), (8, 1024, 256), (32, 1024, 36))
-# The fp32 kernels of #3's chain and #10 (both dtypes), which must hold no
-# tensor-core instruction (HMMA, HGMMA: TF32 stays off) and spill nothing
-# (phase 1).
+# The fp32 kernels of #1 / #2's and #4 / #5's chains (f32conv_kernel,
+# rb_gn_kernel<float, float>, rb_gn_bwd_kernel<float, float>), #3's chain
+# and #10 (both dtypes), which must hold no tensor-core instruction (HMMA,
+# HGMMA: TF32 stays off) and spill nothing (phase 1).
 FP32_KERNELS = ("attn_f32_kernel", "attn_qkv_f32_kernel", "attn_qkv_sum_kernel",
                 "gnsilu_regs_kernel", "gn_regs_kernel", "gnsilu_l2_kernel", "gn_l2_kernel",
-                "f32conv_kernel", "rb_gn_kernelIff")
+                "f32conv_kernel", "rb_gn_kernelIff", "rb_gn_bwd_kernelIff")
 # The fp32 forward of #1 / #2 runs f32conv_kernel and rb_gn_kernel<float,
 # float> (csrc/resblock_f32.cu); an fp32 #1 / #2 call that launches a
-# kernel of the old chain fails (phase 2). #4 / #5 still launch them.
+# kernel of the old chain fails (phase 2), and #4 / #5 launch none of them
+# either (OLD_F32_BWD_KERNELS): gn_apply_kernel is left only for GroupNorm
+# passes beyond the cluster kernels' scratch, off the census.
 OLD_F32_FWD_KERNELS = ("igemm_f32_kernel", "gn_apply_kernel")
 # The bf16 kernels that must run on wgmma: HGMMA in their SASS (phase 1).
 WGMMA_KERNELS = ("halo_wgmma_kernel", "flash_wgmma_kernel", "rb_wgmma_kernel",
@@ -428,9 +441,10 @@ NCSN_DDPM_REL = {"float32": 2e-4, "bfloat16": 5e-2}
 ADM_GRAD_PARITY_T = 1
 ADM_GRAD_REL = {"float32": 5e-4, "bfloat16": 1e-2}
 # Phase 16: the ImageNet gradient-image rate at JAX's ADM_GRAD_BATCH
-# (bench.py:186) and t* = ADM_GRAD_T: 50 since phases 22-24 came (JAX's
-# cell is t* = 150; at 150 the phase took 113.8 s of a full run).
-ADM_GRAD_N, ADM_GRAD_T = 2, 50
+# (bench.py:186) and t* = ADM_GRAD_T: 25 (JAX's cell is t* = 150; at 150
+# the phase took 113.8 s of a full run, at 50 49.1 s on the slowest card
+# machine seen): a depth cut that holds the run in 1200 s there.
+ADM_GRAD_N, ADM_GRAD_T = 2, 25
 # Phase 17: eval_autoattack 'rand' through the ImageNet defence: batch, t*
 # (Euler steps), APGD iterations, EOT samples, eps (the scripts' 0.0157).
 # t* 5 here and phase 7's AA_T 50: depth cuts that hold the run in 1200 s
@@ -445,8 +459,10 @@ AA_T = 50
 # phase 11's forward bound (5e-2, about 4x).
 DDPM_GRAD_CENSUS = (44, 4)
 NCSN_DDPM_GRAD_REL = 5e-2
-# phase 12: BPDA+EOT through the main path's defence
-BPDA_N = 4
+# phase 12: BPDA+EOT through the main path's defence, at t* = BPDA_T (the
+# scripts' 100 cut to 50, a depth cut that holds the run in 1200 s on the
+# slowest card machines seen)
+BPDA_N, BPDA_T = 4, 50
 BPDA_CFG = dict(adv_steps=2, eot_attack_reps=2, eot_defense_reps=4, defense_batch=4)
 # phase 13: DPM-Solver++(2M) steps (score evaluations) at t* = 100
 DPM_STEPS = 20
@@ -514,6 +530,11 @@ ZOO_N, ZOO_RATE_N, ZOO_REL = 4, 64, 1e-4
 PURIFY_MODES = (("ode", "checkpoint"), ("ode", "adjoint"), ("ode", "reversible"),
                 ("ldsde", "checkpoint"), ("ldsde", "adjoint"), ("sde", "reversible"))
 PURIFY_T, PURIFY_N = 2, 1
+# (c) reversible Heun's gradient at batch GRAD_N and t* = REV_T, beside
+# phase 5's at 100: 50, a depth cut (with its yardstick, the exact gradient
+# of the same solve, it took ≈ 50 s of the run at 100 on the slowest card
+# machine seen)
+REV_T = 50
 # Phase 21: AutoAttack 'standard' through the bf16 CIFAR defence (WRN-28-10)
 # at the budget AA_STANDARD (t* = 5: at 10 the suites took 46 s of the
 # run), in each norm at its run scripts' eps
@@ -691,11 +712,11 @@ def block_inputs(torch, dev, i, name, rs, H, c1, c2, cout, n=N):
 YARDSTICK_DEVICE_N = N
 
 
-def device_ms_many(torch, fns, reps=20):
-    """The device time per call of each of ``fns`` (ms) and the names of
-    the kernels it launched, from one profiler session: each fn runs
-    ``reps`` times back to back, then a spin kernel (torch.cuda._sleep)
-    closes its share of the session's kernels."""
+def kernel_events_many(torch, fns, reps=20):
+    """The device events of each of ``fns``, in launch order, from one
+    profiler session: each fn runs ``reps`` times back to back, then a
+    spin kernel (torch.cuda._sleep) closes its share of the session's
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     for f in fns:
@@ -710,17 +731,24 @@ def device_ms_many(torch, fns, reps=20):
             torch.cuda.synchronize()
         evs = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
                      key=lambda e: e.time_range.start)
-        out, us, names = [], 0.0, set()
+        out, cur = [], []
         for e in evs:
             if "spin_kernel" in e.name:
-                out.append((us / 1e3 / reps, sorted(names)))
-                us, names = 0.0, set()
+                out.append(cur)
+                cur = []
             else:
-                us += e.time_range.end - e.time_range.start
-                names.add(e.name)
-        if len(out) == len(fns) and all(ms > 0 for ms, _ in out):
+                cur.append(e)
+        if len(out) == len(fns) and all(out):
             return out
     raise AssertionError("three profiler sessions did not record every function's kernels")
+
+
+def device_ms_many(torch, fns, reps=20):
+    """The device time per call of each of ``fns`` (ms) and the names of
+    the kernels it launched, from one profiler session
+    (kernel_events_many)."""
+    return [(sum(e.time_range.end - e.time_range.start for e in evs) / 1e3 / reps,
+             sorted({e.name for e in evs})) for evs in kernel_events_many(torch, fns, reps)]
 
 
 def device_ms(torch, fn, reps=10):
@@ -1373,13 +1401,12 @@ def sdpa_core_yardstick(torch, x, params, groups, reps=20):
                 library_backends=backends)
 
 
-def bwd_device_ms(torch, fn, reps=10):
-    """The backward kernel's own device time per call of fn, from the
-    profiler over ``reps`` back-to-back calls: the total, each step of the
-    chain (BWD_KINDS, labelled in launch order) and the kernels' names."""
+def bwd_steps(evs, reps):
+    """The backward kernel's device time per call from the events of
+    ``reps`` back-to-back calls: the total, each step of the chain
+    (BWD_KINDS, labelled in launch order) and the kernels' names."""
     from collections import Counter
 
-    evs = kernel_events(torch, fn, reps)
     steps, names, gi, bi = Counter(), set(), 0, 0
     for e in evs:
         names.add(e.name)
@@ -1403,18 +1430,24 @@ def bwd_device_ms(torch, fn, reps=10):
     return dict(total=sum(steps.values()), steps=steps, shares=shares, kernels=sorted(names))
 
 
-def bwd_conv_yardstick(torch, params, rs, H, cin, cout, n):
-    """cuDNN on channels_last bf16 for the backward's four products at
-    batch n: conv0 (the recompute), conv1 and conv0 transposed
-    (F.conv_transpose2d, the adjoints of the 3x3 SAME convs) and the skip
-    projection's adjoint, on the output grid: a yardstick for the chain's
-    GEMMs only (no GroupNorm, no epilogue), on no path of the port.
-    Returns (CUDA-event ms, device ms) per call."""
+def bwd_device_ms(torch, fn, reps=10):
+    """bwd_steps of ``reps`` back-to-back calls of fn under the profiler."""
+    return bwd_steps(kernel_events(torch, fn, reps), reps)
+
+
+def bwd_conv_yardstick(torch, params, rs, H, cin, cout, n, dtype=None, device_time=True):
+    """cuDNN on channels_last ``dtype`` (bf16 by default) for the
+    backward's four products at batch n: conv0 (the recompute), conv1 and
+    conv0 transposed (F.conv_transpose2d, the adjoints of the 3x3 SAME
+    convs) and the skip projection's adjoint, on the output grid: a
+    yardstick for the chain's GEMMs only (no GroupNorm, no epilogue), on no
+    path of the port; fp32 with torch.backends.cudnn.allow_tf32 off (main
+    sets it). Returns (CUDA-event ms, device ms or None) per call."""
     import torch.nn.functional as F
 
     Ho = {"none": H, "down": H // 2, "up": 2 * H}[rs]
     cl = dict(memory_format=torch.channels_last)
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
 
     def act(c):
         return torch.randn(n, c, Ho, Ho, device=params[2].device, dtype=bf).contiguous(**cl)
@@ -1429,25 +1462,56 @@ def bwd_conv_yardstick(torch, params, rs, H, cin, cout, n):
         F.conv_transpose2d(dc1, w0, padding=1)
         if wp is not None:
             F.conv_transpose2d(g, wp)
-    return cuda_ms(torch, call), (device_ms(torch, call)["total"] if n == YARDSTICK_DEVICE_N
-                                  else None)
+    return cuda_ms(torch, call), (device_ms(torch, call)["total"]
+                                  if n == YARDSTICK_DEVICE_N and device_time else None)
 
 
 def phase_bwd_kernels(torch, dev, shapes, n=N, dtypes=("float32", "bfloat16"),
-                      forbid=OLD_BWD_KERNELS, plain_timing=True):
+                      forbid=OLD_BWD_KERNELS, plain_timing=True, one_session=False):
     """Each backward kernel against autograd of the plain block on the card,
     at every resblock / concat-resblock shape of ``shapes`` (the inputs of
     phase 2 plus a seeded output cotangent g) at batch n; returns per-shape
     records: CUDA-event ms of back-to-back wrapper calls, the profiler's
-    device ms with the chain's steps (bwd_device_ms), plain ms; for bf16
-    TFLOP/s, the share of the bound and cuDNN's products as a yardstick
-    (conv_library_ms). ``plain_gap``: the plain bf16 backward against the
-    plain fp32 one. A bf16 backward that launches a kernel of ``forbid``
+    device ms with the chain's steps (bwd_steps; one session per call, or
+    for all shapes with ``one_session``), plain ms, TFLOP/s, the share of
+    the bound and cuDNN's products as a yardstick (conv_library_ms; fp32
+    with TF32 off, CUDA events only). ``plain_gap``: the plain bf16
+    backward against the plain fp32 one. Each fp32 call runs twice and must
+    give the same bits. A bf16 backward that launches a kernel of
+    ``forbid``, or an fp32 one that launches one of OLD_F32_BWD_KERNELS,
     fails."""
     from diffpure_tpu_torch.ops import fused_resblock as frb
     from diffpure_tpu_torch.ops.groupnorm import ncsn_num_groups
 
-    records = []
+    records, kerns = [], []
+
+    def finish(rec, dev_ms):
+        f32 = rec["dtype"] == "float32"
+        old = [k for k in dev_ms["kernels"]
+               if any(f in k for f in (OLD_F32_BWD_KERNELS if f32 else forbid))]
+        rec.update(device_ms=dev_ms["total"], device_steps=dev_ms["steps"],
+                   device_shares=dev_ms["shares"], device_kernels=dev_ms["kernels"],
+                   tflops=rec["flops"] / dev_ms["total"] / 1e9,
+                   bound_share=rec["bound_ms"] / dev_ms["total"])
+        if old:
+            rec["ok"] = False
+        sh = dev_ms["shares"]
+        lib_dev = rec["conv_library_device_ms"]
+        plain_s = "" if rec["plain_ms"] is None else f" plain {rec['plain_ms']:.4f} ms"
+        log(f"  {rec['kernel']:22s} {rec['resample']:4s} {rec['H']:2d}x{rec['H']:<2d} "
+            f"{rec['c1']:3d}+{rec['c2']:<3d}->{rec['cout']:3d} b{rec['batch']:<3d} "
+            f"{rec['dtype']:8s} rel err {max(rec['rel_err'].values()):.2e} <= "
+            f"{rec['rel_tol']:.1e}" + ("" if not f32 else " same bits" if rec["same_bits"]
+                                       else " BITS DIFFER")
+            + f" kernel {rec['ms']:.4f} ms device {rec['device_ms']:.4f} ms (recompute "
+            f"{sh['recompute']:.4f}, GEMMs {sh['gemms']:.4f}, GN bwd {sh['gn_backward']:.4f}; "
+            f"{rec['tflops']:.1f} TFLOP/s, {rec['bound_share']:.3f} of bound "
+            f"{rec['bound_ms']:.4f}) cuDNN products {rec['conv_library_ms']:.4f} ms "
+            + (f"(device {lib_dev:.4f})" if lib_dev is not None else "")
+            + (f"(allow_tf32={rec['allow_tf32']})" if f32 else "")
+            + (f" OLD KERNELS {old}" if old else "") + plain_s
+            + f" {'ok' if rec['ok'] else 'FAIL'}")
+
     for i, ((name, rs, H, c1, c2, cout), calls) in enumerate(sorted(shapes.items())):
         if name == "fused_attnblock":
             continue
@@ -1458,69 +1522,83 @@ def phase_bwd_kernels(torch, dev, shapes, n=N, dtypes=("float32", "bfloat16"),
         wants = {}
         for dtype_name in dtypes:
             dtype = getattr(torch, dtype_name)
+            f32 = dtype_name == "float32"
             x, temb, g = x32.to(dtype), temb32.to(dtype), g32.to(dtype)
             pk = frb.pack_resblock_params(params, dtype, dev)
             pkb = frb.pack_resblock_bwd_params(params, dtype, dev)
             if name == "fused_resblock_cat":
                 x1, x2 = x[..., :c1].contiguous(), x[..., c1:].contiguous()
-                kern = lambda: frb.fused_resblock_cat_bwd(  # noqa: E731
-                    x1, x2, temb, params, g, packed=pk, packed_bwd=pkb, **kw)
-                plain = lambda: frb.fused_resblock_cat_bwd_reference(  # noqa: E731
-                    x1, x2, temb, params, g, **kw)
+                kern = functools.partial(frb.fused_resblock_cat_bwd, x1, x2, temb, params, g,
+                                         packed=pk, packed_bwd=pkb, **kw)
+                plain = functools.partial(frb.fused_resblock_cat_bwd_reference, x1, x2, temb,
+                                          params, g, **kw)
                 outs = ("dx1", "dx2", "dtemb")
             else:
-                kern = lambda: frb.fused_resblock_bwd(  # noqa: E731
-                    x, temb, params, g, resample=rs, packed=pk, packed_bwd=pkb, **kw)
-                plain = lambda: frb.fused_resblock_bwd_reference(  # noqa: E731
-                    x, temb, params, g, resample=rs, **kw)
+                kern = functools.partial(frb.fused_resblock_bwd, x, temb, params, g,
+                                         resample=rs, packed=pk, packed_bwd=pkb, **kw)
+                plain = functools.partial(frb.fused_resblock_bwd_reference, x, temb, params, g,
+                                          resample=rs, **kw)
                 outs = ("dx", "dtemb")
             got = kern()
+            again = kern() if f32 else got
             torch.cuda.synchronize()
             want = wants[dtype_name] = plain()
             errs = {o: float((a - b).abs().max()) for o, a, b in zip(outs, got, want)}
             rels = {o: errs[o] / float(b.abs().max()) for o, b in zip(outs, want)}
-            ok = all(bool(torch.isfinite(a).all()) for a in got) and \
+            same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+            ok = all(bool(torch.isfinite(a).all()) for a in got) and same and \
                 max(rels.values()) <= BWD_REL[dtype_name]
-            dev_ms = bwd_device_ms(torch, kern)
-            old = [k for k in dev_ms["kernels"] if any(f in k for f in forbid)]
-            if dtype_name == "bfloat16" and old:
-                ok = False
+            flops, nbytes = block_cost(name + "_bwd", rs, H, c1, c2, cout, n,
+                                       x.element_size())
+            t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES
+            # fp32: cuDNN's fp32 products with TF32 off, CUDA events only
+            # (the profiler sessions are a budget)
+            lib_ms, lib_dev = bwd_conv_yardstick(torch, params, rs, H, c1 + c2, cout, n, dtype,
+                                                 device_time=not f32)
             rec = dict(kernel=name + "_bwd", resample=rs, H=H, c1=c1, c2=c2, cout=cout,
                        batch=n, calls_per_eval=calls, dtype=dtype_name,
                        max_abs_err=max(errs.values()), rel_err=rels,
                        rel_tol=BWD_REL[dtype_name], ms=cuda_ms(torch, kern),
-                       device_ms=dev_ms["total"], device_steps=dev_ms["steps"],
-                       device_shares=dev_ms["shares"], device_kernels=dev_ms["kernels"],
-                       plain_ms=cuda_ms(torch, plain) if plain_timing else None, ok=ok)
+                       plain_ms=cuda_ms(torch, plain) if plain_timing else None,
+                       flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       conv_library_ms=lib_ms, conv_library_device_ms=lib_dev, ok=ok)
+            if f32:
+                rec.update(same_bits=same, allow_tf32=torch.backends.cudnn.allow_tf32)
             if dtype_name == "bfloat16" and "float32" in wants:
                 rec["plain_gap"] = {o: float((a - b).abs().max() / b.abs().max())
                                     for o, a, b in zip(outs, want, wants["float32"])}
-            line = ""
-            if dtype_name == "bfloat16":
-                flops, nbytes = block_cost(name + "_bwd", rs, H, c1, c2, cout, n, 2)
-                t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES
-                lib_ms, lib_dev = bwd_conv_yardstick(torch, params, rs, H, c1 + c2, cout, n)
-                rec.update(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
-                           bound_by="operations" if t_ops >= t_bytes else "bytes",
-                           tflops=flops / rec["device_ms"] / 1e9,
-                           conv_library_ms=lib_ms, conv_library_device_ms=lib_dev)
-                rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
-                sh = dev_ms["shares"]
-                line = (f" (recompute {sh['recompute']:.4f}, GEMMs {sh['gemms']:.4f}, GN bwd "
-                        f"{sh['gn_backward']:.4f}; {rec['tflops']:.1f} TFLOP/s, "
-                        f"{rec['bound_share']:.3f} of bound) cuDNN products {lib_ms:.4f} ms "
-                        + (f"(device {lib_dev:.4f})" if lib_dev is not None else "")
-                        + (f" OLD KERNELS {old}" if old else ""))
             records.append(rec)
-            plain_s = "" if rec["plain_ms"] is None else f" plain {rec['plain_ms']:.4f} ms"
-            log(f"  {name + '_bwd':22s} {rs:4s} {H:2d}x{H:<2d} {c1:3d}+{c2:<3d}->{cout:3d} "
-                f"b{n:<3d} {dtype_name:8s} rel err {max(rels.values()):.2e} <= "
-                f"{BWD_REL[dtype_name]:.1e} kernel {rec['ms']:.4f} ms device "
-                f"{rec['device_ms']:.4f} ms{line}{plain_s} {'ok' if ok else 'FAIL'}")
+            if one_session:
+                kerns.append(kern)
+            else:
+                finish(rec, bwd_device_ms(torch, kern))
+    if one_session:
+        for rec, evs in zip(records, kernel_events_many(torch, kerns, reps=10)):
+            finish(rec, bwd_steps(evs, 10))
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} backward kernel checks failed: {bad}")
     return records
+
+
+def bwd_per_eval(records, label):
+    """Per evaluation's backward, for each backward kernel and dtype of
+    ``records``: the calls' CUDA-event, device, bound and cuDNN-yardstick
+    ms, logged; returns them."""
+    out = {}
+    for r in records:
+        v = out.setdefault(f"{r['kernel']} {r['dtype']}", dict(
+            ms=0.0, device_ms=0.0, bound_ms=0.0, conv_library_ms=0.0, max_abs_err=0.0))
+        for f in ("ms", "device_ms", "bound_ms", "conv_library_ms"):
+            v[f] += r[f] * r["calls_per_eval"]
+        v["max_abs_err"] = max(v["max_abs_err"], r["max_abs_err"])
+    for k, v in out.items():
+        log(f"  {label}, {k}, per evaluation's backward: kernel {v['ms']:.3f} ms, device "
+            f"{v['device_ms']:.3f} ms, bound {v['bound_ms']:.3f} ms "
+            f"({v['bound_ms'] / v['device_ms']:.3f} of it), cuDNN products "
+            f"{v['conv_library_ms']:.3f} ms")
+    return out
 
 
 def build_adm(torch, dev):
@@ -2099,23 +2177,25 @@ def wg_map_misses(torch):
     return int(fn())
 
 
-def host_us_bwd(torch, dev):
-    """Host microseconds per backward wrapper call at batch 8, bf16, timed
-    as host_us_per_call times the forward's: ops/fused_resblock._launch_bwd
-    and the public fused_resblock_bwd, back to back up to the last
-    enqueue; beside them the CUDA-event ms per call."""
+def host_us_bwd(torch, dev, dtype=None):
+    """Host microseconds per backward wrapper call at batch 8 in ``dtype``
+    (bf16 by default), timed as host_us_per_call times the forward's:
+    ops/fused_resblock._launch_bwd and the public fused_resblock_bwd, back
+    to back up to the last enqueue; beside them the CUDA-event ms per
+    call."""
     from diffpure_tpu_torch.ops import fused_resblock as frb
     from diffpure_tpu_torch.ops.groupnorm import ncsn_num_groups
 
+    dtype = dtype or torch.bfloat16
     out = {}
     for rs, H, c, cout in (("none", 4, 256, 256), ("none", 32, 128, 128)):
         params, x32, temb32, normal = block_inputs(torch, dev, 0, "fused_resblock", rs, H, c, 0,
                                                    cout)
-        x, temb = x32.to(torch.bfloat16), temb32.to(torch.bfloat16)
-        g = normal(N, H, H, cout).to(torch.bfloat16)
+        x, temb = x32.to(dtype), temb32.to(dtype)
+        g = normal(N, H, H, cout).to(dtype)
         g1, g2 = ncsn_num_groups(c), ncsn_num_groups(cout)
-        pk = frb.pack_resblock_params(params, torch.bfloat16, dev)
-        pkb = frb.pack_resblock_bwd_params(params, torch.bfloat16, dev)
+        pk = frb.pack_resblock_params(params, dtype, dev)
+        pkb = frb.pack_resblock_bwd_params(params, dtype, dev)
         calls = {
             "_launch_bwd": lambda: frb._launch_bwd(x, None, temb, g, pk, pkb, g1, g2, 1e-6,
                                                    True, rs),
@@ -2135,44 +2215,17 @@ def host_us_bwd(torch, dev):
     return out
 
 
-def profile_grad(torch, dev, smi):
-    """--profile-grad: phase 5's gradient (CE of DefendedModel, CIFAR NCSN++
-    bf16 + WRN-28-10, batch 16, 'checkpoint') timed cold and warm at
-    t*=100, then a warm gradient of GRAD_PROFILE_T steps under the
-    profiler: per step the device time by kernel and the idle share, and
-    the step's parts, each measured on its own: two forward evaluations
-    (the step and its recompute; #1/#2 and #3 by chain step), one backward
-    evaluation of the blocks (#4/#5, by chain step, also at batch 8), the
-    attention blocks' plain autograd backward (from the step's profile),
-    the classifier's forward and backward (once per gradient), the rest;
-    the tensor-map cache misses per step; the host time per backward
-    call."""
-    import numpy as np
+def grad_step_profile(torch, dev, score, clf, xg, yg, steps=GRAD_PROFILE_T):
+    """A warm 'checkpoint' gradient of CE(DefendedModel) of ``steps`` steps
+    at xg's batch, in the score model's dtype: the wall per step without
+    the profiler and the tensor-map cache misses per step, then under the
+    profiler the wall and device ms per step, the idle share, the device ms
+    by kernel, and the attention blocks' plain autograd backward (the
+    NCSN++'s only KernelFunction, #3)."""
     from torch.profiler import ProfilerActivity, profile
     from diffpure_tpu_torch.eval import DefendedModel
     from diffpure_tpu_torch.purify import PurifyConfig
 
-    score, clf = build_models(torch, dev, torch.bfloat16)
-    for m in (score, clf):
-        m.requires_grad_(False)
-    rng = np.random.default_rng(SEED + 12)
-    xg = torch.from_numpy(rng.uniform(size=(GRAD_N, 32, 32, 3)).astype(np.float32)).to(dev)
-    yg = torch.from_numpy(rng.integers(0, 10, GRAD_N)).to(dev)
-    res = dict(card=smi, batch=GRAD_N, mode="checkpoint", profiled_steps=GRAD_PROFILE_T)
-    log(f"== profile: gradient of CE(DefendedModel), CIFAR NCSN++ bf16, batch {GRAD_N}, "
-        f"checkpoint, on {smi}")
-    dm = DefendedModel(score, clf, PurifyConfig(t=EVALS, grad_mode="checkpoint"), log_every=0)
-    walls = []
-    for run in ("cold", "warm"):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        input_grad(torch, dm, xg, yg, SEED + 5)
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-        log(f"  t*={EVALS} {run}: {walls[-1]:.3f} s ({walls[-1] / EVALS * 1e3:.1f} ms per step)")
-    res["wall_s"] = dict(zip(("cold", "warm"), walls))
-
-    steps = GRAD_PROFILE_T
     dmp = DefendedModel(score, clf, PurifyConfig(t=steps, grad_mode="checkpoint"), log_every=0)
     input_grad(torch, dmp, xg, yg, SEED + 5)
     torch.cuda.synchronize()
@@ -2180,7 +2233,7 @@ def profile_grad(torch, dev, smi):
     t0 = time.time()
     input_grad(torch, dmp, xg, yg, SEED + 5)
     torch.cuda.synchronize()
-    res["wall_ms_per_step_unprofiled"] = (time.time() - t0) * 1e3 / steps
+    res = dict(wall_ms_per_step_unprofiled=(time.time() - t0) * 1e3 / steps)
     miss1 = wg_map_misses(torch)
     res["wg_map_misses_per_step"] = None if miss0 is None else (miss1 - miss0) / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2195,24 +2248,33 @@ def profile_grad(torch, dev, smi):
             kernels.append((e.key, us / 1e3 / steps, e.count / steps))
             busy += us / 1e3
     kernels.sort(key=lambda r: -r[1])
-    # the NCSN++'s only KernelFunction is the attention block's (#3)
-    attn_bwd = range_device_ms(prof, "KernelFunctionBackward") / steps
+    res.update(wall_ms_per_step_profiled=wall_ms / steps, device_ms_per_step=busy / steps,
+               idle_share=max(0.0, 1.0 - busy / wall_ms), top_kernels=kernels[:30],
+               attn_bwd_ms_per_step=range_device_ms(prof, "KernelFunctionBackward") / steps)
+    return res
 
-    census = shape_census(torch, score, xg[:N] * 2 - 1)
-    for n in (N, GRAD_N):
-        log(f"== profile: one evaluation's backward (#4 + #5), batch {n}, bf16")
-        recs = phase_bwd_kernels(torch, dev, census, n=n, dtypes=("bfloat16",), forbid=(),
-                                 plain_timing=False)
-        per_eval = {"device_ms": 0.0, "steps": {}}
-        for r in recs:
-            per_eval["device_ms"] += r["device_ms"] * r["calls_per_eval"]
-            for k, v in r["device_steps"].items():
-                per_eval["steps"][k] = per_eval["steps"].get(k, 0.0) + v * r["calls_per_eval"]
-        res[f"bwd_batch_{n}"] = dict(per_eval=per_eval, shapes=recs)
-        log(f"  #4 + #5 device {per_eval['device_ms']:.3f} ms per evaluation's backward")
-        for k, v in sorted(per_eval["steps"].items(), key=lambda kv: -kv[1]):
-            log(f"    chain step {k:40s} {v:8.3f} ms")
-    fwd = profile_eval(torch, score, xg * 2 - 1, torch.full((GRAD_N,), 99.9, device=dev))
+
+def grad_step_parts(torch, dev, score, clf, xg, yg, step, census, dtype_name):
+    """The gradient step's device ms by part, each measured on its own at
+    xg's batch: two forward evaluations (the step and its recompute; #1/#2
+    and #3 by chain step), one evaluation's backward of the blocks (#4/#5,
+    by chain step: phase_bwd_kernels in one profiler session), the
+    attention blocks' plain autograd backward (from ``step``,
+    grad_step_profile's), the classifier's forward and backward (once per
+    gradient), the rest."""
+    n = xg.shape[0]
+    log(f"== profile: one evaluation's backward (#4 + #5), batch {n}, {dtype_name}")
+    recs = phase_bwd_kernels(torch, dev, census, n=n, dtypes=(dtype_name,), forbid=(),
+                             plain_timing=False, one_session=True)
+    per_eval = {"device_ms": 0.0, "steps": {}}
+    for r in recs:
+        per_eval["device_ms"] += r["device_ms"] * r["calls_per_eval"]
+        for k, v in r["device_steps"].items():
+            per_eval["steps"][k] = per_eval["steps"].get(k, 0.0) + v * r["calls_per_eval"]
+    log(f"  #4 + #5 device {per_eval['device_ms']:.3f} ms per evaluation's backward")
+    for k, v in sorted(per_eval["steps"].items(), key=lambda kv: -kv[1]):
+        log(f"    chain step {k:40s} {v:8.3f} ms")
+    fwd = profile_eval(torch, score, xg * 2 - 1, torch.full((n,), 99.9, device=dev))
     fwd_attn = fwd["chain_steps"].get("attention block (#3)", 0.0)
     fwd_blocks = sum(fwd["chain_steps"].values()) - fwd_attn
 
@@ -2221,28 +2283,109 @@ def profile_grad(torch, dev, smi):
     clf_ms = device_ms(torch, clf_grad, reps=5)["total"]
     parts = {"#1/#2 forward, twice (the step and its recompute)": 2 * fwd_blocks,
              "#3 attention forward, twice": 2 * fwd_attn,
-             "#4/#5 backward": res[f"bwd_batch_{GRAD_N}"]["per_eval"]["device_ms"],
-             "attention block backward (plain autograd)": attn_bwd,
-             "classifier forward + backward (once per gradient)": clf_ms / steps}
+             "#4/#5 backward": per_eval["device_ms"],
+             "attention block backward (plain autograd)": step["attn_bwd_ms_per_step"],
+             "classifier forward + backward (once per gradient)":
+                 clf_ms / GRAD_PROFILE_T}
     parts["rest (the score model's plain ops, the solver's arithmetic, casts)"] = \
-        busy / steps - sum(parts.values())
-    res.update(wall_ms_per_step_profiled=wall_ms / steps,
-               wall_ms_per_step=res["wall_s"]["warm"] * 1e3 / EVALS,
-               device_ms_per_step=busy / steps, idle_share=max(0.0, 1.0 - busy / wall_ms),
-               parts_ms_per_step=parts, forward_eval=fwd, top_kernels=kernels[:30],
-               classifier_ms=clf_ms)
-    log(f"  t*={steps}: wall {res['wall_ms_per_step_unprofiled']:.2f} ms per step; under the "
-        f"profiler: wall {wall_ms / steps:.2f} ms, device {busy / steps:.2f} ms per step, "
-        f"idle share {res['idle_share']:.3f}; tensor-map cache misses per step "
-        f"{res['wg_map_misses_per_step']}")
-    for label, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        step["device_ms_per_step"] - sum(parts.values())
+    return dict(parts_ms_per_step=parts, bwd_per_eval=per_eval, bwd_shapes=recs,
+                forward_eval=fwd, classifier_ms=clf_ms)
+
+
+def log_grad_step(step, parts=None):
+    log(f"  t*={GRAD_PROFILE_T}: wall {step['wall_ms_per_step_unprofiled']:.2f} ms per step; "
+        f"under the profiler: wall {step['wall_ms_per_step_profiled']:.2f} ms, device "
+        f"{step['device_ms_per_step']:.2f} ms per step, idle share {step['idle_share']:.3f}; "
+        f"tensor-map cache misses per step {step['wg_map_misses_per_step']}")
+    for label, ms in sorted((parts or {}).items(), key=lambda kv: -kv[1]):
         log(f"  {label:68s} {ms:8.3f} ms per step")
-    for name, ms, calls in kernels[:15]:
+    for name, ms, calls in step["top_kernels"][:15]:
         log(f"  {ms:8.3f} ms x{calls:<6.1f} {name[:100]}")
-    res["host_us"] = host_us_bwd(torch, dev)
-    for k, v in res["host_us"].items():
-        log(f"  host {k:36s} {v['host_us']:8.1f} us per call (CUDA events "
-            f"{v['cuda_event_ms'] * 1e3:8.1f} us)")
+
+
+def timed_grads(torch, score, clf, xg, yg):
+    """Phase 5's 'checkpoint' gradient at t*=100 at xg's batch, cold and
+    warm: wall seconds."""
+    from diffpure_tpu_torch.eval import DefendedModel
+    from diffpure_tpu_torch.purify import PurifyConfig
+
+    dm = DefendedModel(score, clf, PurifyConfig(t=EVALS, grad_mode="checkpoint"), log_every=0)
+    walls = {}
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        input_grad(torch, dm, xg, yg, SEED + 5)
+        torch.cuda.synchronize()
+        walls[run] = time.time() - t0
+        log(f"  t*={EVALS} {run}: {walls[run]:.3f} s ({walls[run] / EVALS * 1e3:.1f} ms per "
+            f"step, {xg.shape[0] / walls[run]:.3f} gradient-images/s)")
+    return walls
+
+
+def profile_grad_f32(torch, dev, smi, score, clf, census):
+    """--profile-grad's fp32 leg (the run scripts' precision): phase 5's
+    fp32 'checkpoint' gradient at batch GRAD_N timed cold and warm at
+    t*=100, then at GRAD_N and F32_BIG_N (the run scripts' batch) a warm
+    gradient of GRAD_PROFILE_T steps (grad_step_profile) and the step's
+    device ms by part (grad_step_parts)."""
+    import numpy as np
+
+    score.dtype = torch.float32
+    rng = np.random.default_rng(SEED + 13)
+    res = {}
+    for n in (GRAD_N, F32_BIG_N):
+        xg = torch.from_numpy(rng.uniform(size=(n, 32, 32, 3)).astype(np.float32)).to(dev)
+        yg = torch.from_numpy(rng.integers(0, 10, n)).to(dev)
+        log(f"== profile: gradient of CE(DefendedModel), CIFAR NCSN++ fp32, batch {n}, "
+            f"checkpoint, on {smi}")
+        r = res[f"batch_{n}"] = {}
+        if n == GRAD_N:
+            r["wall_s"] = timed_grads(torch, score, clf, xg, yg)
+        r["step"] = grad_step_profile(torch, dev, score, clf, xg, yg)
+        r.update(grad_step_parts(torch, dev, score, clf, xg, yg, r["step"], census, "float32"))
+        log_grad_step(r["step"], r["parts_ms_per_step"])
+    score.dtype = torch.bfloat16
+    return res
+
+
+def profile_grad(torch, dev, smi):
+    """--profile-grad: phase 5's gradient (CE of DefendedModel, CIFAR NCSN++
+    bf16 + WRN-28-10, batch 16, 'checkpoint') timed cold and warm at
+    t*=100, then a warm gradient of GRAD_PROFILE_T steps under the
+    profiler: per step the device time by kernel and the idle share, and
+    the step's parts, each measured on its own (grad_step_parts; #4/#5 by
+    chain step also at batch 8); the tensor-map cache misses per step; the
+    same in fp32 at batch 16 and 64 (profile_grad_f32); the host time per
+    backward call in each dtype; the ImageNet step."""
+    import numpy as np
+
+    score, clf = build_models(torch, dev, torch.bfloat16)
+    for m in (score, clf):
+        m.requires_grad_(False)
+    rng = np.random.default_rng(SEED + 12)
+    xg = torch.from_numpy(rng.uniform(size=(GRAD_N, 32, 32, 3)).astype(np.float32)).to(dev)
+    yg = torch.from_numpy(rng.integers(0, 10, GRAD_N)).to(dev)
+    res = dict(card=smi, batch=GRAD_N, mode="checkpoint", profiled_steps=GRAD_PROFILE_T)
+    log(f"== profile: gradient of CE(DefendedModel), CIFAR NCSN++ bf16, batch {GRAD_N}, "
+        f"checkpoint, on {smi}")
+    res["wall_s"] = timed_grads(torch, score, clf, xg, yg)
+    step = grad_step_profile(torch, dev, score, clf, xg, yg)
+    census = shape_census(torch, score, xg[:N] * 2 - 1)
+    log(f"== profile: one evaluation's backward (#4 + #5), batch {N}, bf16")
+    recs8 = phase_bwd_kernels(torch, dev, census, n=N, dtypes=("bfloat16",), forbid=(),
+                              plain_timing=False, one_session=True)
+    res["bwd_batch_8"] = bwd_per_eval(recs8, f"batch {N}")
+    parts = grad_step_parts(torch, dev, score, clf, xg, yg, step, census, "bfloat16")
+    res.update(step, wall_ms_per_step=res["wall_s"]["warm"] * 1e3 / EVALS, **parts)
+    log_grad_step(step, parts["parts_ms_per_step"])
+    res["fp32"] = profile_grad_f32(torch, dev, smi, score, clf, census)
+    for tag, name, dtype in (("host_us", "bf16", torch.bfloat16),
+                             ("fp32_host_us", "fp32", torch.float32)):
+        res[tag] = host_us_bwd(torch, dev, dtype)
+        for k, v in res[tag].items():
+            log(f"  host {name} {k:36s} {v['host_us']:8.1f} us per call (CUDA events "
+                f"{v['cuda_event_ms'] * 1e3:8.1f} us)")
     del score, clf
     res["imagenet"] = profile_adm_grad(torch, dev, smi)
     (OUT / "profile_grad.json").write_text(json.dumps(res, indent=1))
@@ -2745,7 +2888,7 @@ def phase_bpda(torch, score, clf, x, smi):
     from diffpure_tpu_torch.utils.profiling import count_nfe
 
     score.dtype = torch.bfloat16
-    dm = DefendedModel(score, clf, PurifyConfig(t=EVALS, grad_mode="none"), log_every=0)
+    dm = DefendedModel(score, clf, PurifyConfig(t=BPDA_T, grad_mode="none"), log_every=0)
     cfg = BPDAEOTConfig(**BPDA_CFG)
     n = x.shape[0]
     torch.cuda.synchronize()
@@ -2833,7 +2976,7 @@ def phase_bpda(torch, score, clf, x, smi):
     wall = time.time() - t0
     counts = launch_counts()
     check("flip verification", x_adv, class_batch, cfg.adv_steps, nfe, counts)
-    verified = nfe.total() // EVALS - 1 - (cfg.adv_steps + 1)  # past the vote and the steps
+    verified = nfe.total() // BPDA_T - 1 - (cfg.adv_steps + 1)  # past the vote and the steps
     log(f"  flip verification: {wall:.3f} s on {smi}; {verified} verification vote(s) of "
         f"{cfg.eot_defense_reps} reps through the kernels")
     if verified < 1:
@@ -3436,7 +3579,7 @@ def phase_purifiers(torch, dev, score, clf, x01, rng, smi, cpu, sde_rate=None,
     PURIFY_MODES), fp32 and bf16, with the launch counters each mode derives
     (purify_evals), #4 / #5 included; (c) whether the score model returns
     the same bits twice (the reversal needs it), and reversible Heun's
-    gradient at batch GRAD_N, t*=EVALS: wall, gradient-images/s, peak
+    gradient at batch GRAD_N, t*=REV_T: wall, gradient-images/s, peak
     memory and the reconstruction error, beside phase 5's ``grad_runs``,
     and its gap to the exact gradient of the same solve on the same inputs
     and noise (reversible_heun_unrolled), max |rev - exact| / max |exact|.
@@ -3499,7 +3642,7 @@ def phase_purifiers(torch, dev, score, clf, x01, rng, smi, cpu, sde_rate=None,
             f"{'the same bits' if torch.equal(a, b) else 'DIFFERENT bits'} (max |diff| "
             f"{out['determinism'][dtype_name]['max_abs_diff']:.3e})")
     score.dtype = torch.bfloat16
-    dmr = DefendedModel(score, clf, PurifyConfig(t=EVALS, grad_mode="reversible"), log_every=0)
+    dmr = DefendedModel(score, clf, PurifyConfig(t=REV_T, grad_mode="reversible"), log_every=0)
     reset_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3510,7 +3653,7 @@ def phase_purifiers(torch, dev, score, clf, x01, rng, smi, cpu, sde_rate=None,
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     counts = launch_counts()
-    want = grad_counts(*purify_evals("sde", "reversible", EVALS))
+    want = grad_counts(*purify_evals("sde", "reversible", REV_T))
     err = last_reconstruction_error()
     with mock.patch.object(runners, "sdeint_reversible_heun", reversible_heun_unrolled):
         gx_exact, _ = input_grad(torch, dmr, xg, yg, SEED + 34)
@@ -3520,7 +3663,7 @@ def phase_purifiers(torch, dev, score, clf, x01, rng, smi, cpu, sde_rate=None,
                              gap_to_exact=gap)
     others = "; ".join(f"{r['mode']} {r['run']} {r['grad_images_per_s']:.3f}, peak "
                        f"{r['peak_gib']:.2f} GiB" for r in grad_runs)
-    log(f"  reversible, t*={EVALS}, bf16, batch {GRAD_N}: {wall:.3f} s, "
+    log(f"  reversible, t*={REV_T}, bf16, batch {GRAD_N}: {wall:.3f} s, "
         f"{GRAD_N / wall:.3f} gradient-images/s on {smi}; peak device memory {peak:.2f} GiB "
         f"({held:.2f} held before); reconstruction error {err:.3e}; gradient against the "
         f"exact one of the same solve: rel {gap:.3e}; launches {counts} (phase 5: {others})")
@@ -4452,14 +4595,26 @@ def main() -> int:
     # ---- phase 2b -----------------------------------------------------------
     log("== phase 2b: backward kernel against plain at the main-path shapes, batch 8")
     bwd_records = phase_bwd_kernels(torch, dev, shapes)
+    bwd_per_eval(bwd_records, f"batch {N}")
     log(f"== phase 2b at batch {GRAD_N} (phase 5's gradient batch), bf16")
     bwd16_records = phase_bwd_kernels(torch, dev, shapes, n=GRAD_N, dtypes=("bfloat16",))
+    bwd_per_eval(bwd16_records, f"batch {GRAD_N}")
+    # fp32, the run scripts' precision: at phase 5's batch and theirs, each
+    # batch's device time from one profiler session
+    bwd_f32_records = {}
+    for n in (GRAD_N, F32_BIG_N):
+        log(f"== phase 2b at batch {n}, fp32 #4 / #5; cuDNN's fp32 products with "
+            f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+        bwd_f32_records[n] = phase_bwd_kernels(torch, dev, shapes, n=n, dtypes=("float32",),
+                                               plain_timing=n != F32_BIG_N, one_session=True)
+        bwd_per_eval(bwd_f32_records[n], f"batch {n}")
     phase_done("2b")
     (OUT / "result.json").write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
         wgmma=wgmma, shapes=records, big_shapes=big_records, attn16_shapes=attn16_records,
         identity_checks=identity_checks, isolation_checks=isolation_checks, bwd_shapes=bwd_records, bwd16_shapes=bwd16_records,
-        f32_shapes=f32_records, f32_ablation=f32_ablation, phase_s=phase_s), indent=1))
+        bwd_f32_shapes=bwd_f32_records, f32_shapes=f32_records, f32_ablation=f32_ablation,
+        phase_s=phase_s), indent=1))
     if args.stop_after == "2b":
         log("stopped after phase 2b as asked (partial run)")
         return 3
@@ -4843,7 +4998,7 @@ def main() -> int:
     phase_done("11")
 
     # ---- phase 12 -----------------------------------------------------------
-    log(f"== phase 12: eval_bpda (BPDA+EOT), t*={EVALS}, bf16 NCSN++ + WRN-28-10, batch "
+    log(f"== phase 12: eval_bpda (BPDA+EOT), t*={BPDA_T}, bf16 NCSN++ + WRN-28-10, batch "
         f"{BPDA_N}, {BPDA_CFG}")
     bpda_runs = phase_bpda(torch, score, clf, x01[:BPDA_N], smi)
     phase_done("12")
@@ -4911,7 +5066,7 @@ def main() -> int:
     # ---- phase 20 -----------------------------------------------------------
     log(f"== phase 20: the ODE, LDSDE and reversible purifiers: ODE t*={EVALS}, bf16, batch {N}; "
         f"t*={PURIFY_T}, batch {PURIFY_N}, {len(PURIFY_MODES)} modes, fp32 + bf16, card against "
-        f"CPU; reversible Heun's gradient at batch {GRAD_N}, t*={EVALS}")
+        f"CPU; reversible Heun's gradient at batch {GRAD_N}, t*={REV_T}")
     warm5 = [r for r in grad_runs if r["run"] == "warm"]
     purifiers, finish_purifiers = phase_purifiers(torch, dev, score, clf, x01, rng, smi, cpu,
                                                   sde_rate=runs[1]["images_per_s"],
@@ -4977,18 +5132,21 @@ def main() -> int:
             # each (attn_yardstick)
             library_ms=sum(r["library_ms"] * r["calls_per_eval"] for r in mine)
             if name == "fused_attnblock" else None))
-        if name in ("fused_resblock", "fused_resblock_cat"):
-            # the fp32 chain (the run scripts' precision), per evaluation at
-            # batch 8 and F32_BIG_N: CUDA events, device time, bound
+        if name != "fused_attnblock":
+            # the fp32 chain (the run scripts' precision), per evaluation (its
+            # backward) at batch 8 and F32_BIG_N (and GRAD_N for the backward):
+            # CUDA events, device time, bound
+            pools = ((N, pool), (F32_BIG_N, f32_records)) if name in KERNELS else \
+                ((N, pool), (GRAD_N, bwd_f32_records[GRAD_N]),
+                 (F32_BIG_N, bwd_f32_records[F32_BIG_N]))
             kernels[-1]["fp32"] = {
                 f"batch_{n}": dict(
                     ms=sum(r["ms"] * r["calls_per_eval"] for r in rs),
                     device_ms=sum(r["device_ms"] * r["calls_per_eval"] for r in rs),
                     bound_ms=sum(r["bound_ms"] * r["calls_per_eval"] for r in rs),
                     max_abs_err=max(r["max_abs_err"] for r in rs))
-                for n, rs in ((N, [r for r in records if r["kernel"] == name
-                                   and r["dtype"] == "float32"]),
-                              (F32_BIG_N, [r for r in f32_records if r["kernel"] == name]))}
+                for n, rs in ((n, [r for r in rs if r["kernel"] == name
+                                   and r["dtype"] == "float32"]) for n, rs in pools)}
     for name, (source, replaces) in ADM_KERNELS.items():
         # per ADM evaluation at batch 4, bf16: the kernel's calls at each shape
         mine = [r for r in adm_records if r["kernel"] == name and r["dtype"] == "bfloat16"]
@@ -5028,7 +5186,7 @@ def main() -> int:
         card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
         wgmma=wgmma, shapes=records, big_shapes=big_records, attn16_shapes=attn16_records,
         identity_checks=identity_checks, isolation_checks=isolation_checks, bwd_shapes=bwd_records, bwd16_shapes=bwd16_records,
-        slice_runs=runs, big_runs=big_runs,
+        bwd_f32_shapes=bwd_f32_records, slice_runs=runs, big_runs=big_runs,
         slice_checks=slice_checks, f32_shapes=f32_records, f32_ablation=f32_ablation,
         f32_runs=f32_runs, f32_grad_runs=f32_grad_runs,
         grad_runs=grad_runs, grad_checks=grad_checks,

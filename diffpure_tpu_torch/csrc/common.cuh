@@ -2,11 +2,10 @@
 //   - gn_apply_kernel: GroupNorm statistics of a map (two passes, fp32) and
 //     then the normalised (+ SiLU) and naively 2x-resampled activation,
 //     written once in the compute dtype;
-//   - an fp32 implicit-GEMM kernel (3x3 SAME conv or pointwise) that reads
-//     that activation, optionally a second raw source for a folded 1x1 skip
-//     projection, and whose epilogue adds bias, a per-example row, a
-//     residual and a rescale, on the FMA units (the bf16 GEMMs run on
-//     igemm_wgmma.cuh), and the split-K pass both GEMMs share.
+//   - the split-K pass the block GEMMs share (the fp32 one of
+//     resblock_f32.cu, the bf16 one of igemm_wgmma.cuh): the K slices'
+//     partials summed in slice order, then the epilogue (bias, a
+//     per-example row, a residual, a rescale).
 //
 // Layout: every map is NHWC. A map may be split at a channel seam across
 // two tensors (the UNet up-path pair (h, skip)); the loaders index the
@@ -261,28 +260,16 @@ cudaError_t launch_gn_apply(const GnArgs& a, int N, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// Implicit GEMM: out[M, Nc] = epilogue(A[M, K] @ B[K, Nc]). The backward
-// chain (fused_resblock_bwd.cu) runs its transposed 3x3 convs and the skip
-// adjoint through the same kernels: a transposed SAME 3x3 conv of stride 1
-// is a 3x3 conv with the flipped, channel-transposed weights.
-// Row m is output pixel (n, oy, ox) of an Ho x Wo grid. A's columns are
-//   [0, Kmain):  (tap, channel) of the activation src, which lies on the
-//                output grid; taps == 9 is a 3x3 SAME conv, whose
-//                out-of-image taps are 0 in activation space;
-//   [Kmain, K):  channels of the proj source at the row's pixel (the 1x1
-//                skip projection folded into the same accumulator).
-// Both sources lie on the output grid. B is stored (Nc, K), k contiguous, in
-// T. Epilogue: (acc + bias + temb[n] + resid) * oscale, stored as T or fp32,
-// where resid is channels col.. of the resid source at the row's pixel (an
-// identity skip). fp32 multiplies in full fp32 on the FMA units.
+// The split-K epilogue of the block GEMMs: out[M, Nc] = (the sum of the
+// K slices' partials + bias + temb[n] + resid) * oscale, row m being
+// output pixel (n, oy, ox) of an Ho x Wo grid; resid is channels col.. of
+// the resid source at the row's pixel (an identity skip). Stored as T or
+// fp32.
 // ---------------------------------------------------------------------------
 
 struct GemmArgs {
-  int M, Nc, K, Kmain;
-  int Ho, Wo, taps;
-  Src src;
-  Src proj;
-  const void* w;
+  int M, Nc;
+  int Ho, Wo;
   const float* bias;
   const void* temb;
   int has_resid;
@@ -290,21 +277,9 @@ struct GemmArgs {
   float oscale;
   void* out;
   int out_f32;
-  // split-K, set by launch_gemm
-  int splits, k_per_split;
-  float* ws;
+  int splits;
+  float* ws;  // (splits, M, Nc) partials
 };
-
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int MAX_SPLITS = 16;  // K-slices of a split-K GEMM
-constexpr int MIN_STEPS = 4;    // fewest BK-steps a K-slice gets
-
-// B is stored (Nc, K), k contiguous: each thread reads 4 consecutive k of
-// one column n, like its A row.
-__device__ __forceinline__ float4 load_b4(const GemmArgs& a, int n, int k, int kend) {
-  if (n >= a.Nc || k >= kend) return make_float4(0.f, 0.f, 0.f, 0.f);
-  return load4(static_cast<const float*>(a.w) + (long)n * a.K + k);
-}
 
 // (acc + bias + temb[n] + resid) * oscale for 4 columns of one row, stored.
 // bias may be nullptr (the backward's transposed convs have none).
@@ -329,121 +304,6 @@ __device__ __forceinline__ void epilogue4(const GemmArgs& a, int row, int col, f
     store4(static_cast<float*>(a.out) + (long)row * a.Nc + col, v);
   else
     store4(static_cast<T*>(a.out) + (long)row * a.Nc + col, v);
-}
-
-// A finished accumulator quad: the raw partial of this K-slice when K is
-// split, else through the epilogue.
-template <typename T>
-__device__ __forceinline__ void finish4(const GemmArgs& a, int row, int col, float4 v) {
-  if (a.splits > 1)
-    store4(a.ws + ((long)blockIdx.z * a.M + row) * a.Nc + col, v);
-  else
-    epilogue4<T>(a, row, col, v);
-}
-
-// Both GEMM kernels: a 64 x 64 output tile per block, K in steps of 32.
-// Each thread loads A for one fixed row and B for one fixed column, 4
-// consecutive k at lk and lk + 16. blockIdx.z picks a K-slice (split-K).
-struct TileCoords {
-  int m0, n0, kbeg, kend, lrow, lk, n_img, oy, ox;
-  bool row_ok;
-  __device__ TileCoords(const GemmArgs& a) {
-    const int tid = threadIdx.x, hw = a.Ho * a.Wo;
-    m0 = blockIdx.x * BM;
-    n0 = blockIdx.y * BN;
-    kbeg = blockIdx.z * a.k_per_split;
-    kend = min(a.K, kbeg + a.k_per_split);
-    lrow = tid % BM;
-    lk = (tid / BM) * 4;
-    const int m = m0 + lrow;
-    row_ok = m < a.M;
-    n_img = m / hw;
-    const int rem = m - n_img * hw;
-    oy = rem / a.Wo;
-    ox = rem - oy * a.Wo;
-  }
-};
-
-// Address of A's 4 elements (row, k..k+3), or nullptr where they are 0
-// (outside the image, past the K-slice or past M). Both A sources hold T.
-template <typename T>
-__device__ __forceinline__ const T* a_addr(const GemmArgs& a, const TileCoords& tc, int k) {
-  if (!tc.row_ok || k >= tc.kend) return nullptr;
-  const Src* s = &a.proj;
-  int y = tc.oy, x = tc.ox, c = k - a.Kmain;
-  if (k < a.Kmain) {
-    const int C = a.src.c0 + a.src.c1, tap = k / C;
-    c = k - tap * C;
-    if (a.taps == 9) {
-      y += tap / 3 - 1;
-      x += tap % 3 - 1;
-      if (y < 0 || y >= a.Ho || x < 0 || x >= a.Wo) return nullptr;
-    }
-    s = &a.src;
-  }
-  const long pix = ((long)tc.n_img * s->H + y) * s->W + x;
-  if (c < s->c0) return static_cast<const T*>(s->p0) + pix * s->c0 + c;
-  return static_cast<const T*>(s->p1) + pix * s->c1 + (c - s->c0);
-}
-
-// fp32: plain FMAs, 4 x 4 outputs per thread from shared tiles [k][m], [k][n];
-// the next step's loads are issued (into registers) before this step's FMAs.
-static __global__ void __launch_bounds__(NT) igemm_f32_kernel(const __grid_constant__ GemmArgs a) {
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const TileCoords tc(a);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int bn = tc.n0 + tc.lrow;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  auto fetch_a = [&](int k) {
-    const float* p = a_addr<float>(a, tc, k);
-    return p != nullptr ? load4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
-  };
-  float4 a0 = fetch_a(tc.kbeg + tc.lk);
-  float4 a1 = fetch_a(tc.kbeg + tc.lk + 16);
-  float4 b0 = load_b4(a, bn, tc.kbeg + tc.lk, tc.kend);
-  float4 b1 = load_b4(a, bn, tc.kbeg + tc.lk + 16, tc.kend);
-  for (int k0 = tc.kbeg; k0 < tc.kend; k0 += BK) {
-    __syncthreads();  // the previous step's reads of As/Bs are done
-    const int r = tc.lrow, k = tc.lk;
-    As[k + 0][r] = a0.x; As[k + 1][r] = a0.y; As[k + 2][r] = a0.z; As[k + 3][r] = a0.w;
-    As[k + 16][r] = a1.x; As[k + 17][r] = a1.y; As[k + 18][r] = a1.z; As[k + 19][r] = a1.w;
-    Bs[k + 0][r] = b0.x; Bs[k + 1][r] = b0.y; Bs[k + 2][r] = b0.z; Bs[k + 3][r] = b0.w;
-    Bs[k + 16][r] = b1.x; Bs[k + 17][r] = b1.y; Bs[k + 18][r] = b1.z; Bs[k + 19][r] = b1.w;
-    __syncthreads();
-    if (k0 + BK < tc.kend) {  // in flight while the FMAs below run
-      a0 = fetch_a(k0 + BK + tc.lk);
-      a1 = fetch_a(k0 + BK + tc.lk + 16);
-      b0 = load_b4(a, bn, k0 + BK + tc.lk, tc.kend);
-      b1 = load_b4(a, bn, k0 + BK + tc.lk + 16, tc.kend);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-  }
-
-  const int col = tc.n0 + tx * 4;
-  if (col >= a.Nc) return;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = tc.m0 + ty * 4 + i;
-    if (row >= a.M) break;
-    finish4<float>(a, row, col, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-  }
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -475,33 +335,6 @@ inline int num_sms() {
       sms = 132;
   }
   return sms;
-}
-
-// Launches the fp32 GEMM (the bf16 GEMMs run on igemm_wgmma.cuh). A grid
-// of fewer tiles than SMs is split along K into
-// up to MAX_SPLITS slices of at least MIN_STEPS steps, aiming at two waves
-// of blocks; ws (ws_elems fp32) holds the partials, and bounds the split.
-template <typename T>
-cudaError_t launch_gemm(GemmArgs a, float* ws, long ws_elems, cudaStream_t st) {
-  static_assert(std::is_same<T, float>::value, "bf16 GEMMs run on igemm_wgmma.cuh");
-  const int gm = (a.M + BM - 1) / BM, gn = (a.Nc + BN - 1) / BN;
-  const int tiles = gm * gn, steps = (a.K + BK - 1) / BK;
-  int splits = 1;
-  if (tiles < num_sms()) {
-    splits = std::min({(2 * num_sms() + tiles - 1) / tiles, steps / MIN_STEPS, MAX_SPLITS});
-    splits = (int)std::min<long>(splits, ws_elems / ((long)a.M * a.Nc));
-    splits = std::max(splits, 1);
-  }
-  const int steps_per = (steps + splits - 1) / splits;
-  a.k_per_split = steps_per * BK;
-  a.splits = (steps + steps_per - 1) / steps_per;
-  a.ws = ws;
-  igemm_f32_kernel<<<dim3(gm, gn, a.splits), NT, 0, st>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || a.splits == 1) return err;
-  const long quads = (long)a.M * a.Nc / 4;
-  splitk_epilogue_kernel<T><<<(unsigned)((quads + NT - 1) / NT), NT, 0, st>>>(a);
-  return cudaGetLastError();
 }
 
 }  // namespace dp

@@ -42,240 +42,32 @@
 // rb_gn_bwd_kernel for both backward passes: one cluster per example, x
 // kept in registers across its passes, sums in rank order; GN1's backward
 // takes its statistics from the recompute, GN2's takes one round for them).
-// fp32 (resblock_bwd_f32): the PR 2 chain: common.cuh's gn_apply_kernel and
-// launch_gemm (plain fp32 FMAs, never TF32; deterministic split-K) and
-// gn_silu_bwd_kernel below (one block per (group, example), four passes).
+// fp32 (resblock_bwd_f32, resblock_f32.cu): the same seven steps on the
+// FMA units (never TF32): the products on the fp32 forward's f32conv_kernel
+// (a cp.async ring, 8 x 16 or 8 x 8 outputs a thread, split-K summed in
+// slice order; w1t, w0t and wskipt as its (Nc, K) operand), the GN passes
+// on rb_gn_kernel<float, float> and rb_gn_bwd_kernel<float, float>, tiles
+// and splits from ops/fused_resblock.py resblock_bwd_f32_plan.
 #include "common.cuh"
 #include "gn_cluster.cuh"
 #include "igemm_wgmma.cuh"
 
 using namespace dp;
 
+namespace dp {
+// the fp32 chain, resblock_f32.cu
+cudaError_t resblock_bwd_f32(const float* x1, const float* x2, int c1, int c2, int N, int H,
+                             int W, int resample, const float* temb, const float* g,
+                             const float* gn1s, const float* gn1b, int g1, const float* w0,
+                             const float* b0, const float* gn2s, const float* gn2b, int g2,
+                             const float* w1t, const float* w0t, const float* wskipt, int cout,
+                             float eps, float oscale, float* act1, float* h1, float* da2,
+                             float* dc1, float* dh, float* dskip, float* ws, long ws_elems,
+                             float* dx1, float* dx2, float* dtemb, float2* gn1_stats,
+                             const int* plan, cudaStream_t st);
+}  // namespace dp
+
 namespace {
-
-// d(loss)/d(act) at pixel (y, x) of the GN input's grid, read from a map on
-// the grid after the block's resample, through the resample's transpose.
-template <typename T>
-__device__ __forceinline__ float read_transposed(const Src& s, int resample, int n, int y,
-                                                 int x, int c) {
-  const long row = (long)n * s.H;
-  if (resample == RS_DOWN)  // 2x2 mean -> each input pixel got 1/4 of one output
-    return 0.25f * src_load1<T>(s, (row + (y >> 1)) * s.W + (x >> 1), c);
-  if (resample == RS_UP) {  // nearest 2x -> the sum of the four copies (JAX's order)
-    const long p0 = (row + 2 * y) * s.W + 2 * x, p1 = p0 + s.W;
-    return (src_load1<T>(s, p0, c) + src_load1<T>(s, p0 + 1, c)) +
-           (src_load1<T>(s, p1, c) + src_load1<T>(s, p1 + 1, c));
-  }
-  return src_load1<T>(s, (row + y) * s.W + x, c);
-}
-
-struct GnBwdArgs {
-  Src x;         // the GN's input, H x W
-  Src d;         // d(loss)/d(SiLU(GN(x))), on the grid after `resample`
-  int resample;  // RS_*: how x's grid maps onto d's
-  int G;
-  const float* gamma;
-  const float* beta;
-  float eps;
-  Src add;          // added to the output through the same transpose; p0 == nullptr: none
-  float add_scale;  // times add
-  void* out0;       // channels [0, oc0), row pitch oc0
-  void* out1;       // channels [oc0, C), row pitch C - oc0 (the cat block's dx2)
-  int oc0;
-  int out_f32;   // output stored as fp32, else as T
-  float* dsum;   // (N, C) sum over HW of the output before `add`, or nullptr
-};
-
-// GroupNorm + SiLU backward, one block per (group, example):
-//   xhat = (x - mean) * rstd, y = xhat * gamma + beta,
-//   dxhat = d * silu'(y) * gamma,
-//   dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)),
-// the means over the group (JAX _gn_silu_bwd_inkernel :140). Threads
-// [0, nthr) each keep one channel of the group (nthr is a multiple of the
-// group's width), so the per-channel sum for dtemb needs no atomics.
-template <typename T>
-__global__ void __launch_bounds__(NT) gn_silu_bwd_kernel(const __grid_constant__ GnBwdArgs a) {
-  __shared__ float red[NT / 32];
-  __shared__ float part[NT];
-  const Src& s = a.x;
-  const int g = blockIdx.x, n = blockIdx.y;
-  const int C = s.c0 + s.c1, cg = C / a.G, hw = s.H * s.W;
-  const int nthr = (NT / cg) * cg, pstep = nthr / cg;
-  const bool active = threadIdx.x < nthr;
-  const int c = g * cg + (int)(threadIdx.x % cg);
-  const int pbeg = active ? (int)(threadIdx.x / cg) : hw;
-  const long pix0 = (long)n * hw;
-  const float cnt = (float)((long)hw * cg);
-
-  float acc = 0.f;
-  for (int p = pbeg; p < hw; p += pstep) acc += src_load1<T>(s, pix0 + p, c);
-  const float mean = block_sum(acc, red) / cnt;
-  acc = 0.f;
-  for (int p = pbeg; p < hw; p += pstep) {
-    const float v = src_load1<T>(s, pix0 + p, c) - mean;
-    acc += v * v;
-  }
-  const float rstd = rsqrtf(block_sum(acc, red) / cnt + a.eps);
-  const float gam = a.gamma[c], bet = a.beta[c];
-
-  // dxhat at pixel p; xh gets xhat
-  auto dxhat = [&](int p, float& xh) {
-    const int y = p / s.W, x = p - y * s.W;
-    xh = (src_load1<T>(s, pix0 + p, c) - mean) * rstd;
-    const float yv = xh * gam + bet;
-    const float sig = 1.f / (1.f + expf(-yv));
-    return read_transposed<T>(a.d, a.resample, n, y, x, c) * (sig * (1.f + yv * (1.f - sig))) *
-           gam;
-  };
-  float s1 = 0.f, s2 = 0.f;
-  for (int p = pbeg; p < hw; p += pstep) {
-    float xh;
-    const float dh = dxhat(p, xh);
-    s1 += dh;
-    s2 += dh * xh;
-  }
-  const float m1 = block_sum(s1, red) / cnt;
-  const float m2 = block_sum(s2, red) / cnt;
-
-  float csum = 0.f;
-  for (int p = pbeg; p < hw; p += pstep) {
-    float xh;
-    float v = rstd * (dxhat(p, xh) - m1 - xh * m2);
-    csum += v;
-    if (a.add.p0 != nullptr) {
-      const int y = p / s.W, x = p - y * s.W;
-      v += a.add_scale * read_transposed<T>(a.add, a.resample, n, y, x, c);
-    }
-    const long pix = pix0 + p;
-    void* base = a.out0;
-    long idx = pix * a.oc0 + c;
-    if (c >= a.oc0) {
-      base = a.out1;
-      idx = pix * (C - a.oc0) + (c - a.oc0);
-    }
-    if (a.out_f32)
-      static_cast<float*>(base)[idx] = v;
-    else
-      static_cast<T*>(base)[idx] = from_f32<T>(v);
-  }
-  if (a.dsum != nullptr) {  // uniform across the block
-    part[threadIdx.x] = csum;
-    __syncthreads();
-    if (threadIdx.x < cg) {
-      float t = 0.f;
-      for (int j = threadIdx.x; j < nthr; j += cg) t += part[j];  // in thread order
-      a.dsum[(long)n * C + g * cg + threadIdx.x] = t;
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch_gn_bwd(const GnBwdArgs& a, int N, cudaStream_t st) {
-  const int C = a.x.c0 + a.x.c1;
-  if (C % a.G != 0 || C / a.G > NT) return cudaErrorInvalidValue;
-  gn_silu_bwd_kernel<T><<<dim3(a.G, N), NT, 0, st>>>(a);
-  return cudaGetLastError();
-}
-
-// The fp32 chain (T = float).
-template <typename T>
-cudaError_t resblock_bwd_f32(const void* x1, const void* x2, int c1, int c2, int N, int H, int W,
-                         int resample, const void* temb, const void* g, const float* gn1s,
-                         const float* gn1b, int g1, const void* w0, const float* b0,
-                         const float* gn2s, const float* gn2b, int g2, const void* w1t,
-                         const void* w0t, const void* wskipt, int cout, float eps, float oscale,
-                         void* act1, float* h1, float* da2, void* dc1, float* dh, float* dskip,
-                         float* ws, long ws_elems, float* dx1, float* dx2, float* dtemb,
-                         cudaStream_t st) {
-  const int cin = c1 + c2;
-  const int Ho = resample == RS_DOWN ? H / 2 : (resample == RS_UP ? H * 2 : H);
-  const int Wo = resample == RS_DOWN ? W / 2 : (resample == RS_UP ? W * 2 : W);
-  const int M = N * Ho * Wo;
-  const Src x = {x1, x2, c1, c2, H, W, 0};
-  const Src gsrc = {g, nullptr, cout, 0, Ho, Wo, 0};
-
-  // 1-2: recompute h1 = conv0(resample(silu(gn1(x)))) + b0 + temb, as the forward
-  const GnArgs gn1 = {x, g1, gn1s, gn1b, eps, 1, resample, act1, nullptr};
-  cudaError_t err = launch_gn_apply<T>(gn1, N, st);
-  if (err != cudaSuccess) return err;
-  GemmArgs a0 = {};
-  a0.M = M;
-  a0.Nc = cout;
-  a0.K = a0.Kmain = 9 * cin;
-  a0.Ho = Ho;
-  a0.Wo = Wo;
-  a0.taps = 9;
-  a0.src = Src{act1, nullptr, cin, 0, Ho, Wo, 0};
-  a0.w = w0;
-  a0.bias = b0;
-  a0.temb = temb;
-  a0.oscale = 1.f;
-  a0.out = h1;
-  a0.out_f32 = 1;
-  if ((err = launch_gemm<T>(a0, ws, ws_elems, st)) != cudaSuccess) return err;
-
-  // 3: d_a2 = conv1^T(g) * oscale
-  GemmArgs a1 = {};
-  a1.M = M;
-  a1.Nc = cout;
-  a1.K = a1.Kmain = 9 * cout;
-  a1.Ho = Ho;
-  a1.Wo = Wo;
-  a1.taps = 9;
-  a1.src = gsrc;
-  a1.w = w1t;
-  a1.oscale = oscale;
-  a1.out = da2;
-  a1.out_f32 = 1;
-  if ((err = launch_gemm<T>(a1, ws, ws_elems, st)) != cudaSuccess) return err;
-
-  // 4: through SiLU(GN2(h1)): d_c1 (T) and dtemb
-  const GnBwdArgs b2 = {Src{h1, nullptr, cout, 0, Ho, Wo, 1}, Src{da2, nullptr, cout, 0, Ho, Wo, 1},
-                        RS_NONE, g2, gn2s, gn2b, eps, Src{}, 0.f, dc1, nullptr, cout, 0, dtemb};
-  if ((err = launch_gn_bwd<T>(b2, N, st)) != cudaSuccess) return err;
-
-  // 5: d_h = conv0^T(d_c1), cin channels on the output grid
-  GemmArgs a2 = {};
-  a2.M = M;
-  a2.Nc = cin;
-  a2.K = a2.Kmain = 9 * cout;
-  a2.Ho = Ho;
-  a2.Wo = Wo;
-  a2.taps = 9;
-  a2.src = Src{dc1, nullptr, cout, 0, Ho, Wo, 0};
-  a2.w = w0t;
-  a2.oscale = 1.f;
-  a2.out = dh;
-  a2.out_f32 = 1;
-  if ((err = launch_gemm<T>(a2, ws, ws_elems, st)) != cudaSuccess) return err;
-
-  // 6: the skip adjoint, on the output grid
-  Src add = gsrc;
-  float add_scale = oscale;
-  if (wskipt != nullptr) {
-    GemmArgs a3 = {};
-    a3.M = M;
-    a3.Nc = cin;
-    a3.K = a3.Kmain = cout;
-    a3.Ho = Ho;
-    a3.Wo = Wo;
-    a3.taps = 1;
-    a3.src = gsrc;
-    a3.w = wskipt;
-    a3.oscale = oscale;
-    a3.out = dskip;
-    a3.out_f32 = 1;
-    if ((err = launch_gemm<T>(a3, ws, ws_elems, st)) != cudaSuccess) return err;
-    add = Src{dskip, nullptr, cin, 0, Ho, Wo, 1};
-    add_scale = 1.f;
-  }
-
-  // 7: dx = GN1+SiLU backward of resample^T(d_h) + resample^T(skip adjoint)
-  const GnBwdArgs b1 = {x,        Src{dh, nullptr, cin, 0, Ho, Wo, 1}, resample, g1, gn1s, gn1b,
-                        eps,      add, add_scale, dx1, dx2, c1, 1, nullptr};
-  return launch_gn_bwd<T>(b1, N, st);
-}
-
 
 // The bf16 chain: every product on the wgmma GEMM (igemm_wgmma.cuh), every
 // GroupNorm pass in the cluster layout (gn_cluster.cuh). plan: for each of
@@ -440,10 +232,13 @@ extern "C" {
 // rows in the 128-byte swizzle): w0s (9 cin / 64, cout, 64), the forward's;
 // w1ts (9 cout / 64, cout, 64) and w0ts (9 cout / 64, cin, 64), the
 // flipped, channel-transposed 3x3 weights; wskipts (cout / 64, cin, 64) or
-// NULL; gn1_stats, (N, g1) float2 scratch for GN1's (mean, rstd); and
-// plan, 24 ints: (bm, bn, bh, bimg, splits, steps per slice) of conv0's
-// recompute, conv1^T, conv0^T and the skip adjoint. fp32 ignores these. Returns cudaGetLastError() of the first failing launch, or
-// cudaErrorInvalidValue for a shape or plan the bf16 chain does not take.
+// NULL; and plan, 24 ints: (bm, bn, bh, bimg, splits, steps per slice) of
+// conv0's recompute, conv1^T, conv0^T and the skip adjoint. fp32 reads w0,
+// w1t, w0t and wskipt and a plan of 16 ints: (tn, stages, splits, per) of
+// the same four GEMMs (resblock_bwd_f32_plan). Both take gn1_stats, (N, g1)
+// float2 scratch for GN1's (mean, rstd). Returns cudaGetLastError() of the
+// first failing launch, or cudaErrorInvalidValue for a shape or plan the
+// chain does not take.
 int diffpure_resblock_bwd(int dtype, const void* x1, const void* x2, int c1, int c2, int N,
                           int H, int W, int resample, const void* temb, const void* g,
                           const float* gn1s, const float* gn1b, int g1, const void* w0,
@@ -463,9 +258,13 @@ int diffpure_resblock_bwd(int dtype, const void* x1, const void* x2, int c1, int
         static_cast<const bf16*>(w0ts), static_cast<const bf16*>(wskipts), cout, eps, oscale,
         static_cast<bf16*>(act1), h1, da2, static_cast<bf16*>(dc1), dh, dskip, ws, ws_elems,
         dx1, dx2, dtemb, static_cast<float2*>(gn1_stats), plan, st);
-  return resblock_bwd_f32<float>(x1, x2, c1, c2, N, H, W, resample, temb, g, gn1s, gn1b, g1, w0,
-                                 b0, gn2s, gn2b, g2, w1t, w0t, wskipt, cout, eps, oscale, act1,
-                                 h1, da2, dc1, dh, dskip, ws, ws_elems, dx1, dx2, dtemb, st);
+  return resblock_bwd_f32(
+      static_cast<const float*>(x1), static_cast<const float*>(x2), c1, c2, N, H, W, resample,
+      static_cast<const float*>(temb), static_cast<const float*>(g), gn1s, gn1b, g1,
+      static_cast<const float*>(w0), b0, gn2s, gn2b, g2, static_cast<const float*>(w1t),
+      static_cast<const float*>(w0t), static_cast<const float*>(wskipt), cout, eps, oscale,
+      static_cast<float*>(act1), h1, da2, static_cast<float*>(dc1), dh, dskip, ws, ws_elems, dx1,
+      dx2, dtemb, static_cast<float2*>(gn1_stats), plan, st);
 }
 
 // Encodings of the wgmma GEMM's tensor maps since the library was loaded

@@ -1,11 +1,12 @@
-// The bf16 fused BigGAN block's GroupNorm passes for Hopper, forward
+// The fused BigGAN block's GroupNorm passes for Hopper, forward
 // (rb_gn_kernel: act = resample(SiLU(GN(x))), and optionally the groups'
 // statistics; with no_silu, act = GN(x), the NCSN++ attention block's
 // GroupNorm, fused_attnblock.cu) and backward
 // (rb_gn_bwd_kernel: the input gradient of that through the resample), one
-// thread-block cluster per example. Shared by the block's forward chain
-// (fused_resblock.cu, kernels #1 / #2) and its backward chain
-// (fused_resblock_bwd.cu, kernels #4 / #5, which recomputes h1 with the
+// thread-block cluster per example. Shared by the block's forward chains
+// (fused_resblock.cu's bf16 and resblock_f32.cu's fp32, kernels #1 / #2)
+// and its backward chains (fused_resblock_bwd.cu's bf16 and
+// resblock_f32.cu's fp32, kernels #4 / #5, which recompute h1 with the
 // forward's pass).
 #pragma once
 
@@ -25,7 +26,7 @@ namespace cg = cooperative_groups;
 // GroupNorm + SiLU (+ naive 2x resample) pass: act = resample(SiLU(GN(x)))
 // in TO and, with raw != nullptr, raw = resample(x) in TO, for x = x1 | x2
 // (TI) or h1 (fp32): TI = bf16 or fp32 with TO = bf16 in the bf16 chains,
-// TI = TO = fp32 in the fp32 forward chain (resblock_f32.cu). One cluster
+// TI = TO = fp32 in the fp32 chains (resblock_f32.cu). One cluster
 // of CL <= GN_CLUSTER blocks per example
 // (blockIdx.y; CL from the map's size, launch_rb_gn); block b of it takes
 // input pixels [b HW / CL, (b + 1) HW / CL).
@@ -381,13 +382,14 @@ cudaError_t launch_rb_gn(RbGnArgs a, int N, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 chain's GroupNorm + SiLU backward pass, in rb_gn_kernel's layout:
+// The GroupNorm + SiLU backward pass, in rb_gn_kernel's layout:
 // the input gradient of act = SiLU(GN(x)) through the block's resample,
 //   xhat = (x - mean) rstd, y = xhat gamma + beta,
 //   dxhat = d silu'(y) gamma,
 //   dx = rstd (dxhat - mean_g(dxhat) - xhat mean_g(dxhat xhat)),
 // (JAX _gn_silu_bwd_inkernel, diffpure_tpu/ops/fused_resblock.py:140), for
-// x = x1 | x2 (bf16) or h1 (fp32) on the input grid H x W, and d the
+// x = x1 | x2 (bf16 in the bf16 chain) or h1 (fp32; in the fp32 chain x1 |
+// x2 too) on the input grid H x W, and d the
 // cotangent of act on the output grid, read through the resample's
 // transpose (1/4 of the one output pixel of a down block's 2x2 mean, the
 // sum of the four copies of an up block's nearest 2x, in JAX's order). The

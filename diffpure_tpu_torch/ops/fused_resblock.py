@@ -28,8 +28,11 @@ of its input gradient:
   64 and maps their TMA boxes tile (``check_resblock_shape``), and raise
   on others. The fp32 forward (``csrc/resblock_f32.cu``) runs its convs on
   the FMA units in 128 x 128 tiles of 8 x 16 or 8 x 8 outputs a thread,
-  as ``resblock_f32_plan`` says, on the pack's ``w0`` / ``w1``, and takes
-  channel counts that are multiples of 4.
+  as ``resblock_f32_plan`` says, on the pack's ``w0`` / ``w1``; the fp32
+  backward (the same file) runs its four products on that GEMM, tiled as
+  ``resblock_bwd_f32_plan`` says, on the pack's ``w0`` and the transposed
+  ``w1t`` / ``w0t`` / ``wskipt``, and its GroupNorm passes on the cluster
+  kernels. Both take channel counts that are multiples of 4.
 
 The block: GN1 (fp32 stats, eps 1e-6) + SiLU -> optional naive 2x
 down/up-sample of h and of the skip input -> conv3x3 + b0 + temb row ->
@@ -437,6 +440,23 @@ def _f32_conv(k: int, tiles: int, M: int, nout: int, sms: int, ws_elems: int) ->
             return F32ConvPlan(tn, F32_STAGES[tn], k, splits, per, f32_smem(F32_STAGES[tn]))
 
 
+@dataclasses.dataclass(frozen=True)
+class ResblockBwdF32Plan:
+    """The fp32 backward's four GEMMs (conv0's recompute, conv1^T, conv0^T,
+    the skip adjoint: None for an identity skip), each an F32ConvPlan on
+    ``mtiles`` x ``ntiles[i]`` tiles of F32_BM x F32_BN."""
+    mtiles: int
+    ntiles: Tuple[int, ...]
+    convs: Tuple[Optional[F32ConvPlan], ...]
+
+    @property
+    def ints(self) -> Tuple[int, ...]:
+        """The 16 ints the C side reads: (tn, stages, splits, per) of each
+        GEMM, zeros for a missing skip adjoint."""
+        return tuple(v for c in self.convs
+                     for v in ((0,) * 4 if c is None else (c.tn, c.stages, c.splits, c.per)))
+
+
 @functools.lru_cache(maxsize=None)
 def resblock_f32_plan(N: int, Ho: int, Wo: int, cin: int, cr: int, cout: int,
                       sms: int = SMS, ws_elems: int = _cuda.SPLITK_WORKSPACE
@@ -452,21 +472,40 @@ def resblock_f32_plan(N: int, Ho: int, Wo: int, cin: int, cr: int, cout: int,
         _f32_conv(k, mtiles * ntiles, M, cout, sms, ws_elems) for k in steps))
 
 
+@functools.lru_cache(maxsize=None)
+def resblock_bwd_f32_plan(N: int, Ho: int, Wo: int, cin: int, cout: int, proj: bool,
+                          sms: int = SMS, ws_elems: int = _cuda.SPLITK_WORKSPACE
+                          ) -> ResblockBwdF32Plan:
+    """The fp32 backward's plan: each of its four GEMMs on its own tiles,
+    with its thread tile, ring and K split (_f32_conv): conv0's recompute
+    (cout wide, K 9 cin: the forward's conv0), conv1^T (cout, 9 cout),
+    conv0^T (cin, 9 cout; the concat block's cin crosses the seam) and the
+    skip adjoint (cin, K cout of projection steps; None without a
+    projection). Ho x Wo: the output grid."""
+    M = N * Ho * Wo
+    mtiles = -(-M // F32_BM)
+    gemms = ((cout, 9 * cin), (cout, 9 * cout), (cin, 9 * cout), (cin, cout) if proj else None)
+    ntiles = tuple(0 if g is None else -(-g[0] // F32_BN) for g in gemms)
+    return ResblockBwdF32Plan(mtiles, ntiles, tuple(
+        None if g is None else _f32_conv(-(-g[1] // F32_BK), mtiles * nt, M, g[0], sms, ws_elems)
+        for g, nt in zip(gemms, ntiles)))
+
+
 def check_resblock_shape(dtype: torch.dtype, N: int, H: int, W: int, c1: int,
                          c2: int, cout: int, resample: str, has_proj: bool,
                          g1: int, g2: int, sms: int = SMS, backward: bool = False):
     """Raise on what the kernel for ``dtype`` does not take, forward or
     (``backward``) input gradient; its plan: bf16 ResblockPlan or
-    ResblockBwdPlan, fp32 ResblockF32Plan for the forward (None for the
-    fp32 backward, whose chain takes any channel counts that are multiples
-    of 4, as the fp32 forward does)."""
+    ResblockBwdPlan, fp32 ResblockF32Plan or ResblockBwdF32Plan (the fp32
+    chains take any channel counts that are multiples of 4, the concat
+    seam at one too)."""
     if dtype != torch.bfloat16:
         if c1 % 4 or c2 % 4 or cout % 4:
             raise ValueError(f"the fp32 resblock kernel takes channel counts that are "
                              f"multiples of 4; got {c1} + {c2} -> {cout}")
-        if backward:
-            return None
         Ho, Wo = {"none": (H, W), "down": (H // 2, W // 2), "up": (H * 2, W * 2)}[resample]
+        if backward:
+            return resblock_bwd_f32_plan(N, Ho, Wo, c1 + c2, cout, has_proj, sms)
         return resblock_f32_plan(N, Ho, Wo, c1 + c2, c1 + c2 if has_proj else 0, cout, sms)
     if c1 % KC or c2 % KC:
         raise ValueError(f"the bf16 resblock kernel takes inputs of channel counts that "
@@ -612,8 +651,8 @@ def _launch(x1: Tensor, x2: Optional[Tensor], temb_row: Tensor,
 @functools.lru_cache(maxsize=None)
 def _plan_ints(plan):
     """A plan's ints (ResblockPlan, ResblockF32Plan, ResblockBwdPlan,
-    fused_attnblock's AttnblockPlan) as the C array the launch passes (kept
-    alive here)."""
+    ResblockBwdF32Plan, fused_attnblock's AttnblockPlan) as the C array the
+    launch passes (kept alive here)."""
     return (ctypes.c_int * len(plan.ints))(*plan.ints)
 
 
@@ -629,7 +668,7 @@ def _launch_bwd(x1: Tensor, x2: Optional[Tensor], temb_row: Tensor, g: Tensor,
         raise ValueError("packed backward weights do not match the input")
     plan = check_resblock_shape(dtype, N, H, W, c1, c2, cout, resample, pk.has_proj,
                                 g1, g2, _cuda.num_sms(dev), backward=True)
-    if plan is not None and (pk.w0s is None or pkb.w1ts is None):
+    if dtype == torch.bfloat16 and (pk.w0s is None or pkb.w1ts is None):
         raise ValueError("packed weights lack the bf16 kernel's stages")
     p_x1 = _cuda.check_operand(x1, "x1", dev, dtype)
     p_x2 = None if x2 is None else _cuda.check_operand(
@@ -646,11 +685,10 @@ def _launch_bwd(x1: Tensor, x2: Optional[Tensor], temb_row: Tensor, g: Tensor,
     dtemb = torch.empty((N, cout), **f32)
     esize, pix = gc.element_size(), N * Ho * Wo
     # act1, h1, d_a2, d_c1, d_h, the skip adjoint (projected blocks only),
-    # GN1's (mean, rstd) per example and group (bf16)
+    # GN1's (mean, rstd) per example and group
     buf, (act1, h1, da2, dc1, dh, dskip, stats), ws = _cuda.scratch(
         dev, pix * cin * esize, pix * cout * 4, pix * cout * 4,
-        pix * cout * esize, pix * cin * 4, pix * cin * 4 if pk.has_proj else 0,
-        N * g1 * 8 if plan is not None else 0)
+        pix * cout * esize, pix * cin * 4, pix * cin * 4 if pk.has_proj else 0, N * g1 * 8)
     gn1s, gn1b, w0, b0, gn2s, gn2b, _, _, w0s, _ = pk.ptrs
     w1t, w0t, wskipt, w1ts, w0ts, wskipts = pkb.ptrs
     err = _cuda.lib().diffpure_resblock_bwd(
@@ -659,7 +697,7 @@ def _launch_bwd(x1: Tensor, x2: Optional[Tensor], temb_row: Tensor, g: Tensor,
         w1t, w0t, wskipt, cout, eps, INV_SQRT2 if rescale else 1.0,
         act1, h1, da2, dc1, dh, dskip, ws, _cuda.SPLITK_WORKSPACE,
         dx1.data_ptr(), None if dx2 is None else dx2.data_ptr(), dtemb.data_ptr(),
-        w0s, w1ts, w0ts, wskipts, stats, None if plan is None else _plan_ints(plan),
+        w0s, w1ts, w0ts, wskipts, stats, _plan_ints(plan),
         _cuda.stream(dev))
     _cuda.check(err, "fused_resblock backward kernel")
     return dx1, dx2, dtemb

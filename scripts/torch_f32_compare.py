@@ -13,14 +13,22 @@ A turn reads, in fp32 (every CIFAR run script's precision):
   - kernels #1 and #2 against their plain versions at every NCSN++ census
     shape, batch 8 (chip_smoke.phase_kernels: device ms by chain step) and
     batch 64 (phase_f32_blocks), with cuDNN's convs as a yardstick;
+  - kernels #4 and #5 (the backward) against autograd of the plain block
+    at every census shape, batch 8, 16 and 64 (phase_bwd_kernels, each
+    batch's device ms by chain step from one profiler session), with
+    cuDNN's four products as a yardstick;
   - the whole NCSN++ evaluation at batch 8 and 64 under the profiler
     (device ms, idle share, the block chains' steps);
   - the defended call at batch 64 (phase 3c) and at batch 8, cold and warm;
-  - the checkpoint input gradient at batch 16 (phase 5's fp32 leg);
-  - the host microseconds per block call.
+  - the checkpoint input gradient at batch 16 (phase 5's fp32 leg), and a
+    warm gradient of GRAD_PROFILE_T steps at batch 16 and 64 (wall and
+    device ms per step, idle share: grad_step_profile);
+  - the host microseconds per block call and per backward call;
+and in bf16, beside them: #4 / #5 at batch 8 and 16 and the gradient step
+at batch 16 (grad_step_profile).
 Each turn prints its lines and writes OUT/f32_compare_<turn>.json. The
-parent's turns accept the old chain's kernels (OLD_F32_FWD_KERNELS is
-emptied for them).
+parent's turns accept the old chains' kernels (OLD_F32_FWD_KERNELS and
+OLD_F32_BWD_KERNELS are emptied for them).
 """
 from __future__ import annotations
 
@@ -53,7 +61,7 @@ def one_turn(tag: str, out: Path) -> None:
     sys.path.insert(0, str(Path.cwd()))
     cs = load_chip_smoke()
     if tag.startswith("parent"):
-        cs.OLD_F32_FWD_KERNELS = ()
+        cs.OLD_F32_FWD_KERNELS = cs.OLD_F32_BWD_KERNELS = ()
     import numpy as np
     import torch
     from diffpure_tpu_torch.eval import DefendedModel, get_accuracy
@@ -71,7 +79,8 @@ def one_turn(tag: str, out: Path) -> None:
     print(tag, smi, flush=True)
     res = dict(tag=tag, card=smi, tree=str(Path.cwd()))
     res["host_us"] = cs.host_us_per_call(torch, dev, torch.float32)
-    for k, v in res["host_us"].items():
+    res["host_us_bwd"] = cs.host_us_bwd(torch, dev, torch.float32)
+    for k, v in {**res["host_us"], **res["host_us_bwd"]}.items():
         print(tag, "fp32 host", k, f"{v['host_us']:.1f} us per call (CUDA events "
               f"{v['cuda_event_ms'] * 1e3:.1f} us)", flush=True)
 
@@ -93,6 +102,18 @@ def one_turn(tag: str, out: Path) -> None:
                                   for r in rs if r["kernel"] == k)
             res["per_eval"][f"{k} batch {n}"] = v
             print(tag, k, "batch", n, {f: round(x, 3) for f, x in v.items()}, flush=True)
+    bwd = {}
+    for n, dtype in ((cs.N, "float32"), (cs.GRAD_N, "float32"), (cs.F32_BIG_N, "float32"),
+                     (cs.N, "bfloat16"), (cs.GRAD_N, "bfloat16")):
+        rs = bwd[f"{dtype} batch {n}"] = cs.phase_bwd_kernels(
+            torch, dev, blocks, n=n, dtypes=(dtype,), plain_timing=False, one_session=True)
+        for k in ("fused_resblock_bwd", "fused_resblock_cat_bwd"):
+            v = per_eval(rs, k, ("device_ms", "ms", "bound_ms", "conv_library_ms"))
+            for step in cs.BWD_GEMMS + cs.BWD_GNS + ("GN1 recompute", "split-K passes"):
+                v[step] = sum(r["device_steps"].get(step, 0.0) * r["calls_per_eval"]
+                              for r in rs if r["kernel"] == k)
+            res["per_eval"][f"{k} {dtype} batch {n}"] = v
+            print(tag, k, dtype, "batch", n, {f: round(x, 3) for f, x in v.items()}, flush=True)
 
     score.dtype = torch.float32
     res["profile"] = {}
@@ -127,7 +148,20 @@ def one_turn(tag: str, out: Path) -> None:
     xg = torch.from_numpy(rng.uniform(size=(cs.GRAD_N, 32, 32, 3)).astype(np.float32)).to(dev)
     yg = torch.from_numpy(rng.integers(0, 10, cs.GRAD_N)).to(dev)
     res["grad_16"] = cs.phase_f32_grad(torch, score, clf, xg, yg, smi)
-    res["records"] = dict(batch_8=r8, batch_64=r64)
+    res["grad_steps"] = {}
+    for dtype, n in ((torch.float32, cs.GRAD_N), (torch.float32, cs.F32_BIG_N),
+                     (torch.bfloat16, cs.GRAD_N)):
+        score.dtype = dtype
+        x = torch.from_numpy(rng.uniform(size=(n, 32, 32, 3)).astype(np.float32)).to(dev)
+        y = torch.from_numpy(rng.integers(0, 10, n)).to(dev)
+        step = cs.grad_step_profile(torch, dev, score, clf, x, y)
+        key = f"{str(dtype)[6:]} batch {n}"
+        res["grad_steps"][key] = {k: v for k, v in step.items() if k != "top_kernels"}
+        print(tag, f"{cs.GRAD_PROFILE_T}-step checkpoint gradient, {key}:",
+              {k: v if v is None else round(v, 3) for k, v in res["grad_steps"][key].items()},
+              flush=True)
+    score.dtype = torch.bfloat16
+    res["records"] = dict(batch_8=r8, batch_64=r64, bwd=bwd)
     (out / f"f32_compare_{tag}.json").write_text(json.dumps(res, indent=1))
 
 

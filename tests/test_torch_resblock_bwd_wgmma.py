@@ -184,9 +184,14 @@ def test_bwd_gate_takes_identity_skip_resampling(rs, H):
 
 
 def test_bwd_gate_leaves_fp32_alone(census):  # noqa: F811
+    """The fp32 backward gets the fp32 chain's plan (resblock_bwd_f32_plan,
+    tests/test_torch_resblock_bwd_f32.py), never the bf16 GEMM's."""
     for (name, rs, H, c1, c2, cout), _ in census.items():
-        assert frb.check_resblock_shape(torch.float32, 8, H, H, c1, c2, cout, rs, True, 32, 32,
-                                        backward=True) is None
+        plan = frb.check_resblock_shape(torch.float32, 8, H, H, c1, c2, cout, rs, True, 32, 32,
+                                        backward=True)
+        Ho = {"none": H, "down": H // 2, "up": 2 * H}[rs]
+        assert isinstance(plan, frb.ResblockBwdF32Plan)
+        assert plan == frb.resblock_bwd_f32_plan(8, Ho, Ho, c1 + c2, cout, True)
 
 
 def test_resblock_bwd_has_no_route_off_the_cpu_but_the_kernel():
