@@ -189,12 +189,37 @@ Phases, each fatal on failure:
      exactly 30 an evaluation and every other kernel 0; one evaluation and
      the t=2 purification, card against CPU, the attribute net
      card against CPU (phase_celebahq); then the CLI on the StAdv and the
-     two CelebA-HQ BPDA scripts' flags, at once (phase_new_cli).
+     two CelebA-HQ BPDA scripts' flags, at once (phase_new_cli);
+  25. training on the card (item 19): (a) the --large defence demo's
+     score-matching step (get_step_fn, Adam with its warmup and clip, EMA
+     0.999) on the full-width fp32 NCSN++ (106,632,579 parameters) at batch
+     128: steps/s, wall and device ms a step, idle share, device ms by part
+     (#1 / #2, #3, #4 / #5, the weight cotangents, #3's backward, the
+     optimizer), peak memory, launches exactly 40 / 36 / 10 / 40 / 36 a
+     step; the loss and every gradient at batch 128 through the kernels
+     against the same on the blocks' plain versions on the card
+     (plain_blocks); one step at batch 2 with injected draws against the
+     CPU's plain step (loss, every gradient, Adam's moments, the weights
+     and EMA unchanged by the warmup's lr-0 first update), then two Adam
+     updates at lr 1e-3 (one clipped, one not) and the EMA on the same
+     gradients, the weights and EMA card against CPU; a forward after two
+     steps and an EMA copy_to / restore against the plain forward on the
+     weights as they then stand (stale kernel packs); (b) TrainLoop on the
+     full-width score_sde DDPM at batch 8 (#10 44 and #3 4 a step), and
+     save / resume / one more step, bit for bit; (c) the demo's default
+     score model (nf 32, 16x16) against its plain blocks on the card: a
+     step at batch 128, the forward and input gradient at batch 8
+     (phase_demo_shapes); then the defence demo through python -m
+     diffpure_tpu_torch.experiments.defense_demo --device cuda, its
+     budgets cut (DEMO_ARGS), #1-#5 launched while the score model trains
+     and #1-#3 while it purifies (phase_train_step, phase_train_loop,
+     phase_demo).
 
 The CPU's side of the card-against-CPU checks of phases 6, 9, 13, 15,
-20(b), 23 and 24 runs in a thread of its own (CpuSide), on CPU copies of
-the models, while the main thread goes on driving the card. The sides
-run beside phases 7, 11-14, 17-19 and 21-22 and beside 24's CLI runs, so
+20(b), 23, 24 and 25(a) runs in a thread of its own (CpuSide), on CPU
+copies of the models, while the main thread goes on driving the card. The
+sides run beside phases 7, 11-14, 17-19 and 21-22 and beside 24's CLI runs
+and 25(c)'s demo, so
 the timed runs of phases 3-5, 8, 10, 16, 20(a, c) and 24(a) have the
 host to themselves (23(a) too, once 23's side has ended). Each check
 runs where its side is joined (phase 6's at the end of phase 7, 9's and
@@ -222,6 +247,7 @@ gradient step at t*=10 by part and by kernel family (profile_grad.json).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import ctypes
 import functools
@@ -616,6 +642,64 @@ NEW_CLI_RUNS = {
                           "--adv_steps", "1"]),
 }
 CELEBAHQ_FIXTURE = 12  # images; every third in the val partition
+
+
+# phase 25: training on the card. (a) the --large demo's score-matching
+# step at its batch; launches a step: the forward's and the backward's
+# blocks once each (the weight cotangents and #3's backward are autograd of
+# the plain versions, which count nothing)
+TRAIN_N = 128
+TRAIN_WARM_STEPS = 3
+TRAIN_STEP_COUNTS = {"fused_resblock": 40, "fused_resblock_cat": 36, "fused_attnblock": 10,
+                     "fused_resblock_bwd": 40, "fused_resblock_cat_bwd": 36}
+# one step at batch 2, card against the CPU's plain step: gradients at the
+# fp32 gradient bound of PERF.md section 2; a gradient that is zero but for
+# rounding (the attention's key bias: the softmax cancels it) must stay
+# under ZERO_GRAD of the largest gradient on both sides
+TRAIN_PARITY_N = 2
+TRAIN_GRAD_REL = 5e-4
+ZERO_GRAD = 1e-6
+# the forward after the weights move (stale packs): the fp32 forward bound
+TRAIN_FWD_REL = 1e-4
+# the optimizer on the same gradients, card against CPU: the weights and the
+# EMA within TRAIN_GRAD_REL of the largest change of each tensor, plus two
+# float32 ulps of its largest value (each side rounds w + u once)
+F32_ULP = 2.0 ** -23
+# the demo's default score model (nf 32, 16x16) held against its plain
+# blocks on the card: a training step at its score batch, and the forward
+# and input gradient at the batch it purifies and is attacked at (DEMO_ARGS'
+# --n_eval)
+DEMO_SCORE_N = 128
+DEMO_EVAL_N = 8
+# (b) TrainLoop on the score_sde DDPM: #10 and #3 per forward
+DDPM_TRAIN_N = 8
+DDPM_TRAIN_WARM = 3
+DDPM_TRAIN_COUNTS = {"group_norm_silu_fused": 44, "fused_attnblock": 4}
+# (c) the demo at its default distribution (nf 32, 16x16), cut to a budget
+DEMO_ARGS = ["--score_steps", "100", "--n_eval", "8", "--apgd_iter", "1", "--eot_iter", "1",
+             "--attacks", "apgd-eot"]
+DEMO_TIMEOUT_S = 300
+# the demo in a process of its own, with the launch counts read before and
+# after its score model trains and at its end
+DEMO_CODE = """import json, sys
+from diffpure_tpu_torch.ops import launch_counts
+from diffpure_tpu_torch.experiments import defense_demo as demo
+marks = {}
+train = demo.train_demo_score
+def counted(*a, **k):
+    marks["before_score_training"] = launch_counts()
+    out = train(*a, **k)
+    marks["after_score_training"] = launch_counts()
+    return out
+demo.train_demo_score = counted
+demo.main(sys.argv[1:])
+marks["end"] = launch_counts()
+print("launches: " + json.dumps(marks))
+"""
+OWN_KERNELS = ("f32conv_kernel", "rb_gn_kernel", "rb_gn_bwd_kernel", "splitk_epilogue_kernel",
+               "gn_apply_kernel", "gn_silu_bwd_kernel", "gn_regs_kernel", "attn_qkv_f32_kernel",
+               "attn_qkv_sum_kernel", "attn_f32_kernel", "gnsilu_regs_kernel", "gnsilu_l2_kernel",
+               "gn_l2_kernel")
 
 
 def log(*a):
@@ -4444,6 +4528,671 @@ def phase_new_cli(torch, dev, rng, smi):
     return runs
 
 
+def train_recipe(torch):
+    """The --large defence demo's configuration and its score model (the
+    full-width configs/cifar10.yml NCSN++ at dropout 0), fp32, with seeded
+    random-normal weights."""
+    import numpy as np
+    from diffpure_tpu_torch.experiments import defense_demo as demo
+    from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
+
+    cfg = demo.config_from_args(demo.build_parser().parse_args(["--large"]))
+    model = demo.demo_score_model(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != CIFAR_PARAMS:
+        raise AssertionError(f"the --large score model has {n_params} params, expected "
+                             f"{CIFAR_PARAMS}")
+    sd = seeded_normal_state_dict(model, SEED + 40)
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()})
+    return cfg, model
+
+
+def train_state(torch, model, cfg, warmup=None):
+    """The recipe's optimizer (Adam, lr cfg.score_lr, its warmup, clip 1)
+    and a fresh step state with its EMA."""
+    from diffpure_tpu_torch.models.ema import ExponentialMovingAverage
+    from diffpure_tpu_torch.training import get_optimizer
+
+    opt = get_optimizer(lr=cfg.score_lr, warmup=cfg.score_warmup if warmup is None else warmup)
+    params = list(model.parameters())
+    return opt, dict(params=model, opt_state=opt.init(params), step=0,
+                     ema=ExponentialMovingAverage(params, cfg.ema_rate, use_num_updates=False))
+
+
+def train_parity_step(torch, model, cfg, x, draws):
+    """One step of the recipe with the given draws, on x's device: the loss,
+    every gradient by name, Adam's moments after the step, and whether the
+    weights and the EMA still equal the weights before it (the warmup's
+    first update has a learning rate of 0), all on the CPU."""
+    from diffpure_tpu_torch.diffusion import VPSDE
+    from diffpure_tpu_torch.training import get_sde_loss_fn, get_step_fn
+
+    opt, state = train_state(torch, model, cfg)
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    before = [p.detach().clone() for p in params]
+    loss = get_sde_loss_fn(VPSDE(), True)(None, model, x, draws)
+    grads = torch.autograd.grad(loss, params)
+    state, step_loss = get_step_fn(VPSDE(), train=True, optimizer=opt)(state, x, draws=draws)
+    return dict(
+        loss=float(loss.detach()), step_loss=float(step_loss),
+        grads={n: g.detach().cpu() for n, g in zip(names, grads)},
+        mu={n: m.cpu() for n, m in zip(names, state["opt_state"]["mu"])},
+        nu={n: v.cpu() for n, v in zip(names, state["opt_state"]["nu"])},
+        weights_unchanged=all(torch.equal(p, b) for p, b in zip(params, before)),
+        ema_unchanged=all(torch.equal(s, b) for s, b in zip(state["ema"].shadow_params, before)))
+
+
+def optimizer_updates(torch, model, cfg, grads):
+    """The recipe's optimizer without its warmup (lr cfg.score_lr from the
+    first update) and its EMA, from a fresh state, fed the given gradients
+    (one list, on the CPU, per update) in the order of the model's
+    parameters: the weights before and after, and the EMA after, by name,
+    on the CPU. Each update is get_step_fn's after its gradient: Adam's
+    update (the clip included), apply_updates, the EMA."""
+    from diffpure_tpu_torch.training.losses import apply_updates
+
+    opt, state = train_state(torch, model, cfg, warmup=0)
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    before = {n: p.detach().cpu().clone() for n, p in zip(names, params)}
+    for g in grads:
+        updates, state["opt_state"] = opt.update([t.to(params[0].device) for t in g],
+                                                 state["opt_state"], params)
+        apply_updates(params, updates)
+        state["ema"].update(params)
+    return dict(before=before,
+                weights={n: p.detach().cpu().clone() for n, p in zip(names, params)},
+                ema={n: s.cpu().clone() for n, s in zip(names, state["ema"].shadow_params)})
+
+
+def update_grads(torch, grads):
+    """Two updates' gradients from one gradient (by name): scaled to a global
+    norm of 2 (the clip at 1 scales it) and of 0.5 (the clip leaves it)."""
+    g = list(grads.values())
+    norm = float(sum(float(t.double().square().sum()) for t in g)) ** 0.5
+    return [[t * (2.0 / norm) for t in g], [t * (0.5 / norm) for t in g]]
+
+
+def check_optimizer_parity(torch, card, cpu, zero):
+    """The weights and the EMA after two updates on the same gradients, card
+    against CPU, per tensor: within TRAIN_GRAD_REL of the largest change
+    the CPU's update made to the tensor plus two float32 ulps of the
+    tensor's largest value. A tensor must have moved on both sides (the
+    EMA too) unless its gradient is zero but for rounding (named in
+    ``zero``): Adam moves those by far less than its learning rate, and
+    the EMA by less than an ulp."""
+    worst = {}
+    for what in ("weights", "ema"):
+        worst[what] = (0.0, None)
+        for name, want in cpu[what].items():
+            got, start = card[what][name], cpu["before"][name]
+            moved = float((want - start).abs().max())
+            if name not in zero and not (
+                    moved > 0 and float((got - start).abs().max()) > 0):
+                raise AssertionError(f"optimizer: {what} {name} did not move")
+            err = float((got - want).abs().max())
+            bound = TRAIN_GRAD_REL * moved + 2 * F32_ULP * float(want.abs().max())
+            if not err <= bound:
+                raise AssertionError(f"optimizer: {what} {name} card against CPU {err:.3e} > "
+                                     f"{bound:.3e} (the update moved it by {moved:.3e})")
+            if moved > 0:
+                worst[what] = max(worst[what], (err / moved, name), key=lambda r: r[0])
+    log("  (iii) two Adam updates (lr 1e-3; clipped, then not) and the EMA on the same "
+        "gradients, card against CPU, worst err / the update's largest change per tensor: "
+        + ", ".join(f"{k} {v[0]:.2e} ({v[1]})" for k, v in worst.items()))
+    return worst
+
+
+def hold_grads(got, want, rel, what, zero=None, skip=()):
+    """Each tensor of got within ``rel`` of the max of want's tensor of the
+    same name, but those named in ``skip``. ``zero``: a list that collects
+    the names of gradients that are zero but for rounding (under ZERO_GRAD
+    of want's largest): those must stay under that bound on got's side and
+    are left out of the relative check. Returns the worst (rel err,
+    name)."""
+    top = max(float(g.abs().max()) for g in want.values())
+    worst = (0.0, None)
+    for name, w in want.items():
+        g = got[name]
+        scale = float(w.abs().max())
+        if name in skip:
+            continue
+        if zero is not None and scale < ZERO_GRAD * top:
+            zero.append(name)
+            if float(g.abs().max()) >= ZERO_GRAD * top:
+                raise AssertionError(f"{what} {name}: {float(g.abs().max()):.3e} where the "
+                                     f"yardstick's is zero but for rounding")
+            continue
+        rel_err = float((g - w).abs().max()) / scale
+        if not rel_err <= rel:
+            raise AssertionError(f"{what} {name}: rel {rel_err:.3e} > {rel}")
+        worst = max(worst, (rel_err, name), key=lambda r: r[0])
+    return worst
+
+
+def check_train_parity(torch, card, cpu):
+    """Card against CPU: the loss, each gradient (and Adam's first moment)
+    within TRAIN_GRAD_REL of the CPU's max per tensor, the second moment
+    within twice that (it squares the gradient); a gradient that is zero
+    but for rounding stays under ZERO_GRAD of the largest on both sides."""
+    out = dict(loss=(card["loss"], cpu["loss"]), weights_unchanged=card["weights_unchanged"],
+               ema_unchanged=card["ema_unchanged"])
+    zero = []
+    worst = dict(grads=hold_grads(card["grads"], cpu["grads"], TRAIN_GRAD_REL,
+                                  "grads, card against CPU", zero=zero))
+    for what, rel in (("mu", TRAIN_GRAD_REL), ("nu", 2 * TRAIN_GRAD_REL)):
+        worst[what] = hold_grads(card[what], cpu[what], rel, f"{what}, card against CPU",
+                                 skip=zero)
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    log(f"  loss card {card['loss']:.6f} / CPU {cpu['loss']:.6f} (rel {loss_rel:.2e}); worst "
+        f"rel err per tensor: " + ", ".join(f"{k} {v[0]:.2e} ({v[1]})" for k, v in worst.items())
+        + f"; {len(zero)} gradients zero but for rounding ({', '.join(zero[:3])} ...)")
+    if not (loss_rel <= TRAIN_FWD_REL
+            and abs(card["step_loss"] - card["loss"]) <= 1e-6 * abs(card["loss"])
+            and card["weights_unchanged"] and cpu["weights_unchanged"]
+            and card["ema_unchanged"] and cpu["ema_unchanged"]):
+        raise AssertionError(f"the training step: card {dict((k, card[k]) for k in ('loss', 'step_loss', 'weights_unchanged', 'ema_unchanged'))}, CPU loss {cpu['loss']}")
+    out.update(loss_rel=loss_rel, worst=worst, zero_grads=zero)
+    return out
+
+
+def plain_blocks(torch):
+    """A context in which the NCSN++'s residual and attention blocks take
+    their plain PyTorch versions (autograd of plain ops, weight and input
+    gradients alike) on CUDA tensors: the yardstick the kernels' path is
+    held against on the card. CPU tensors keep the wrappers, so a CPU side
+    running meanwhile is unaffected."""
+    from diffpure_tpu_torch.models import layers
+    from diffpure_tpu_torch.ops import fused_attnblock as fab
+    from diffpure_tpu_torch.ops import fused_resblock as frb
+
+    wrappers = dict(fused_resblock=layers.fused_resblock,
+                    fused_resblock_cat=layers.fused_resblock_cat,
+                    fused_attnblock=layers.fused_attnblock)
+
+    def block(x, temb, params, *, packed=None, packed_bwd=None, **kw):
+        if x.device.type != "cuda":
+            return wrappers["fused_resblock"](x, temb, params, **kw)
+        return frb.fused_resblock_reference(x, temb, params, **kw)
+
+    def block_cat(x1, x2, temb, params, *, packed=None, packed_bwd=None, **kw):
+        if x1.device.type != "cuda":
+            return wrappers["fused_resblock_cat"](x1, x2, temb, params, **kw)
+        return frb.fused_resblock_reference(torch.cat([x1, x2], dim=-1), temb, params, **kw)
+
+    def attn(x, params, *, packed=None, **kw):
+        if x.device.type != "cuda":
+            return wrappers["fused_attnblock"](x, params, **kw)
+        return fab.fused_attnblock_reference(x, params, **kw)
+
+    return mock.patch.multiple(layers, fused_resblock=block, fused_resblock_cat=block_cat,
+                               fused_attnblock=attn)
+
+
+def kernels_against_plain(torch, model, what, fn, counts=None):
+    """``fn() -> (value, {name: gradient})`` on the card twice: through the
+    kernels, then with the blocks on their plain versions. The value at
+    TRAIN_FWD_REL, each gradient at TRAIN_GRAD_REL of the plain one's max
+    (a gradient zero but for rounding under ZERO_GRAD of the largest on
+    both routes). The kernels' route must launch ``counts`` (or, without
+    them, each of #1-#5 at least once, every backward kernel as often as
+    its forward, nothing else); the plain route launches nothing."""
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    runs = {}
+    for route in ("kernels", "plain"):
+        reset_launch_counts()
+        with plain_blocks(torch) if route == "plain" else contextlib.nullcontext():
+            value, grads = fn()
+        torch.cuda.synchronize()
+        runs[route] = dict(value=value.detach().cpu(), launches=launch_counts(),
+                           grads={n: g.detach().cpu() for n, g in grads.items()})
+        del value, grads
+    got, want = runs["kernels"], runs["plain"]
+    c = got["launches"]
+    if counts is None:
+        counts = {k: 0 for k in c}
+        for f, b in (("fused_resblock", "fused_resblock_bwd"),
+                     ("fused_resblock_cat", "fused_resblock_cat_bwd")):
+            counts[f] = counts[b] = max(c[f], 1)
+        counts["fused_attnblock"] = max(c["fused_attnblock"], 1)
+    if c != counts or any(want["launches"].values()):
+        raise AssertionError(f"{what}: launches on the kernels' route {c} (want {counts}), "
+                             f"on the plain route {want['launches']}")
+    scale = float(want["value"].abs().max())
+    value_rel = float((got["value"] - want["value"]).abs().max()) / scale
+    if not value_rel <= TRAIN_FWD_REL:
+        raise AssertionError(f"{what}: kernels against plain rel {value_rel:.3e} > "
+                             f"{TRAIN_FWD_REL}")
+    zero = []
+    worst = hold_grads(got["grads"], want["grads"], TRAIN_GRAD_REL,
+                       f"{what}, kernels against plain", zero=zero)
+    log(f"  {what}: kernels against the plain blocks on the card: value rel {value_rel:.2e} "
+        f"(<= {TRAIN_FWD_REL:.0e}), worst gradient rel {worst[0]:.2e} ({worst[1]}; <= "
+        f"{TRAIN_GRAD_REL:.0e}), {len(zero)} zero but for rounding; launches {c}")
+    return dict(value_rel=value_rel, worst_grad=worst, zero_grads=zero, launches=c)
+
+
+def step_grads(torch, model, x, draws):
+    """The recipe's loss at x with the given draws, and its gradient with
+    respect to every parameter, by name."""
+    from diffpure_tpu_torch.diffusion import VPSDE
+    from diffpure_tpu_torch.training import get_sde_loss_fn
+
+    names = [n for n, _ in model.named_parameters()]
+    loss = get_sde_loss_fn(VPSDE(), True)(None, model, x, draws)
+    return loss, dict(zip(names, torch.autograd.grad(loss, list(model.parameters()))))
+
+
+def seeded_draws(torch, rng, x):
+    """t in [1e-5, 1) and z like x, from numpy's rng, on x's device."""
+    import numpy as np
+
+    n = x.shape[0]
+    return dict(t=torch.from_numpy(rng.uniform(1e-5, 1.0, n).astype(np.float32)).to(x.device),
+                z=torch.from_numpy(rng.standard_normal(tuple(x.shape)).astype(np.float32)
+                                   ).to(x.device))
+
+
+def phase_demo_shapes(torch, dev, rng):
+    """Phase 25(c)'s shapes before the demo runs: its default score model
+    (nf 32, 16x16, seeded weights) on the card, kernels against the plain
+    blocks: one step's loss and every gradient at its score batch, and the
+    forward and the input gradient of the frozen model at the batch it is
+    purified and attacked at."""
+    import numpy as np
+    from diffpure_tpu_torch.data.synthetic import sample_batch
+    from diffpure_tpu_torch.experiments import defense_demo as demo
+    from diffpure_tpu_torch.utils.prng import generator
+    from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
+
+    cfg = demo.DemoConfig()
+    model = demo.demo_score_model(cfg)
+    sd = seeded_normal_state_dict(model, SEED + 46)
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()})
+    model.to(dev)
+    xb, _ = sample_batch(generator(SEED + 47, device=dev), DEMO_SCORE_N, demo.demo_spec(cfg))
+    draws = seeded_draws(torch, rng, xb)
+    out = dict(step=kernels_against_plain(
+        torch, model, f"the demo's score model, one step at batch {DEMO_SCORE_N}",
+        lambda: step_grads(torch, model, xb, draws)))
+    model.requires_grad_(False)
+    xe = torch.from_numpy(rng.uniform(-1, 1, (DEMO_EVAL_N, cfg.size, cfg.size, 3))
+                          .astype(np.float32)).to(dev)
+    te = torch.from_numpy(rng.uniform(0, 999, DEMO_EVAL_N).astype(np.float32)).to(dev)
+    cot = torch.from_numpy(rng.standard_normal(tuple(xe.shape)).astype(np.float32)).to(dev)
+
+    def fwd_input_grad():
+        x = xe.clone().requires_grad_(True)
+        y = model(x, te)
+        return y, dict(x=torch.autograd.grad(y, x, cot)[0])
+
+    out["eval"] = kernels_against_plain(
+        torch, model, f"the demo's score model, forward and input gradient at batch "
+        f"{DEMO_EVAL_N}", fwd_input_grad)
+    return out
+
+
+def train_step_parts(prof, steps):
+    """Device ms a step by part from a profiled training step: the custom
+    kernels outside the backward (#1 / #2; #3), within the blocks'
+    backward node (#4 / #5), the other kernels there (the weight
+    cotangents: the plain block recomputed and differentiated by a nested
+    autograd call), #3's backward node (its plain autograd), the foreach
+    kernels (optimizer, EMA, global norm), and the rest (the model's plain
+    ops and their backward, the loss). "Within" a node is by time on its
+    thread: the nested autograd call's nodes are not its children in the
+    profiler's tree."""
+    attn = ("attn_", "gn_regs_kernel")
+    spans = {"blocks_bwd": [], "attn_bwd": []}
+    events = [e for e in prof.events() if not str(e.device_type).endswith("CUDA")]
+    for e in events:
+        for place, node in (("blocks_bwd", "_FusedResblockBackward"),
+                            ("attn_bwd", "KernelFunctionBackward")):
+            if "evaluate_function" in e.name and node in e.name:
+                spans[place].append((e.thread, e.time_range.start, e.time_range.end))
+    parts, rest = {}, {}
+
+    def where(e):
+        for place, ivs in spans.items():
+            if any(th == e.thread and a <= e.time_range.start <= b for th, a, b in ivs):
+                return place
+        p = e
+        while p is not None:
+            if "evaluate_function" in p.name:
+                return "bwd"
+            p = p.cpu_parent
+        return "fwd"
+
+    def where_name(e):
+        p = e
+        while p is not None and "evaluate_function" not in p.name:
+            p = p.cpu_parent
+        return p.name.split(": ")[-1] if p is not None else e.name
+
+    for e in events:
+        if not e.kernels:
+            continue
+        place = where(e)
+        for k in e.kernels:
+            own = any(f in k.name for f in OWN_KERNELS)
+            if place == "blocks_bwd":
+                label = "#4 / #5 (block backward kernels)" if own else \
+                    "weight cotangents (plain block recomputed and differentiated)"
+            elif place == "attn_bwd":
+                label = "#3 backward (plain autograd, recomputed)"
+            elif own:
+                label = "#3 forward" if any(f in k.name for f in attn) else "#1 / #2 forward"
+            elif "multi_tensor" in k.name or "foreach" in k.name.lower():
+                label = "optimizer, EMA, global norm (foreach kernels)"
+            else:
+                label = ("rest, backward (the plain ops' autograd)" if place == "bwd" else
+                         "rest, forward (plain ops: temb rows, stem, head, loss; packs)")
+                top = rest.setdefault(label, {})
+                key = (k.name[:70], e.name if place == "fwd" else where_name(e))
+                top[key] = top.get(key, 0.0) + k.duration / 1e3 / steps
+            parts[label] = parts.get(label, 0.0) + k.duration / 1e3 / steps
+    for label, top in rest.items():
+        for (kname, op), ms in sorted(top.items(), key=lambda kv: -kv[1])[:6]:
+            parts[f"  {label[:14]}: {op[:40]} / {kname}"] = ms
+    return parts
+
+
+def profile_train_step(torch, run):
+    """One training step ``run() -> (state, loss)`` under the profiler:
+    (state, (wall ms, device ms, device ms by part)); the part "device
+    kernels launched" is a count, not ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        state, _ = run()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    busy = sum((getattr(e, "self_device_time_total", 0) or 0) for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / 1e3
+    if busy <= 0:
+        raise AssertionError("the profiler recorded no device time for the training step")
+    parts = train_step_parts(prof, 1)
+    parts["sum of the parts"] = sum(v for k, v in parts.items() if not k.startswith("  "))
+    parts["device kernels launched"] = sum(len(e.kernels) for e in prof.events())
+    return state, (wall, busy, parts)
+
+
+def phase_train_step(torch, dev, rng, smi, cpu):
+    """Phase 25(a): the --large demo's score-matching step on the card; its
+    loss and gradients at batch TRAIN_N against the plain blocks' on the
+    card. Returns (records, finish): finish joins the CPU's side (submitted
+    to ``cpu``) and checks the batch-2 step, the two optimizer updates on
+    its gradients and the forwards after the weights moved against it."""
+    import numpy as np
+    from diffpure_tpu_torch.data.synthetic import sample_batch
+    from diffpure_tpu_torch.diffusion import VPSDE
+    from diffpure_tpu_torch.experiments.defense_demo import demo_spec
+    from diffpure_tpu_torch.models.ema import ExponentialMovingAverage
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.training import get_step_fn
+    from diffpure_tpu_torch.utils.prng import generator
+
+    cfg, model = train_recipe(torch)
+    model_cpu = cpu.copy("train score model", model)
+    model.to(dev)
+    spec = demo_spec(cfg)
+    want = {**{k: 0 for k in launch_counts()}, **TRAIN_STEP_COUNTS}
+    # (iii) the loss and every gradient at batch TRAIN_N, kernels against
+    # the plain blocks on the card
+    xk, _ = sample_batch(generator(SEED + 48, device=dev), TRAIN_N, spec)
+    draws_k = seeded_draws(torch, rng, xk)
+    full = kernels_against_plain(torch, model, f"the full-width step at batch {TRAIN_N}",
+                                 lambda: step_grads(torch, model, xk, draws_k), counts=want)
+    del xk, draws_k
+    # (iii) one step at batch 2 with seeded draws, then two optimizer
+    # updates on its gradients; the CPU's side later
+    x2 = torch.from_numpy(rng.uniform(-1, 1, (TRAIN_PARITY_N, 32, 32, 3)).astype(np.float32))
+    draws = dict(t=torch.from_numpy(rng.uniform(1e-5, 1.0, TRAIN_PARITY_N).astype(np.float32)),
+                 z=torch.from_numpy(rng.standard_normal(x2.shape).astype(np.float32)))
+    t0 = time.time()
+    card_parity = train_parity_step(torch, model, cfg, x2.to(dev),
+                                    {k: v.to(dev) for k, v in draws.items()})
+    upd = update_grads(torch, card_parity["grads"])
+    card_opt = optimizer_updates(torch, model, cfg, upd)
+    log(f"  (iii) one step at batch {TRAIN_PARITY_N} and two optimizer updates on the card: "
+        f"{time.time() - t0:.1f} s; the CPU's side runs beside (c)")
+    job_parity = cpu.submit("phase 25(a) step", lambda: dict(
+        train_parity_step(torch, model_cpu, cfg, x2, draws),
+        optimizer=optimizer_updates(torch, model_cpu, cfg, upd)))
+
+    # (i) / (ii) warm steps of the recipe at batch TRAIN_N
+    opt, state = train_state(torch, model, cfg)
+    step_fn = get_step_fn(VPSDE(), train=True, optimizer=opt)
+
+    def step(i):
+        xb, _ = sample_batch(generator(SEED + 41, i, device=dev), TRAIN_N, spec)
+        return step_fn(state, xb, generator(SEED + 42, i, device=dev))
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state, loss = step(0)
+    torch.cuda.synchronize()
+    cold_s = time.time() - t0
+    counts = launch_counts()
+    log(f"  (i) cold step at batch {TRAIN_N}: {cold_s:.3f} s, loss {float(loss):.4f}; "
+        f"launches {counts}")
+    if counts != want:
+        raise AssertionError(f"launches a training step {counts} != {want}")
+    t0 = time.time()
+    losses = []
+    for i in range(1, 1 + TRAIN_WARM_STEPS):
+        state, loss = step(i)
+        losses.append(loss)
+    issue_ms = (time.time() - t0) * 1e3 / TRAIN_WARM_STEPS
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3 / TRAIN_WARM_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(bool(torch.isfinite(v)) for v in losses):
+        raise AssertionError(f"non-finite training loss {[float(v) for v in losses]}")
+    state, (prof_wall, busy, parts) = profile_train_step(torch, lambda: step(1 + TRAIN_WARM_STEPS))
+    n_kernels = parts.pop("device kernels launched")
+    rec = dict(batch=TRAIN_N, cold_s=cold_s, wall_ms_per_step=wall_ms,
+               host_issue_ms_per_step=issue_ms, device_kernels_per_step=n_kernels,
+               steps_per_s=1e3 / wall_ms, peak_gib=peak, launches=counts,
+               losses=[float(v) for v in losses], profiled_wall_ms=prof_wall,
+               device_ms_per_step=busy, idle_share=max(0.0, 1.0 - busy / prof_wall),
+               parts_ms=parts, adam_state_gib=sum(
+                   t.numel() * 4 for t in state["opt_state"]["mu"] + state["opt_state"]["nu"])
+               / 2 ** 30)
+    rec["idle_share_unprofiled"] = max(0.0, 1.0 - busy / wall_ms)
+    rec["kernels_against_plain"] = full
+    log(f"  (i) warm: {wall_ms:.1f} ms a step, {rec['steps_per_s']:.3f} steps/s at batch "
+        f"{TRAIN_N} on {smi}; under the profiler {prof_wall:.1f} ms of wall, {busy:.1f} of "
+        f"device, idle share {rec['idle_share']:.3f} ({rec['idle_share_unprofiled']:.3f} "
+        f"against the unprofiled wall); peak device memory {peak:.2f} GiB (Adam's moments "
+        f"{rec['adam_state_gib']:.2f}); the host issues a step in {issue_ms:.1f} ms "
+        f"({n_kernels} device kernels)")
+    for label, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+        log(f"    {label:66s} {ms:9.2f} ms")
+
+    # (iv) the weights move; the kernels must follow
+    xv = torch.from_numpy(rng.uniform(-1, 1, (TRAIN_PARITY_N, 32, 32, 3)).astype(np.float32))
+    tv = torch.tensor([99.9, 700.0])
+
+    def card_fwd():
+        with torch.no_grad():
+            return model(xv.to(dev), tv.to(dev)).cpu()
+
+    out_before = card_fwd()
+    opt2, state2 = train_state(torch, model, cfg, warmup=0)  # lr 1e-3 from the first step
+    step2 = get_step_fn(VPSDE(), train=True, optimizer=opt2)
+    ema = ExponentialMovingAverage(model, 0.999, use_num_updates=False)
+    for i in range(2):
+        xb, _ = sample_batch(generator(SEED + 43, i, device=dev), TRAIN_PARITY_N, spec)
+        state2, _ = step2(state2, xb, generator(SEED + 44, i, device=dev))
+    moved = {"after two steps": card_fwd()}
+    w2 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    ema.store(model)
+    ema.copy_to(model)
+    moved["after EMA copy_to"] = card_fwd()
+    shadow = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    ema.restore(model)
+    moved["after restore"] = card_fwd()
+    model.requires_grad_(False).cpu()
+
+    def plain_forwards():
+        out = {}
+        for what, sd in (("after two steps", w2), ("after EMA copy_to", shadow)):
+            model_cpu.load_state_dict(sd)
+            with torch.no_grad():
+                out[what] = model_cpu(xv, tv)
+        return out
+
+    job_fwd = cpu.submit("phase 25(a) forwards", plain_forwards)
+    def finish():
+        log("== phase 25(a)'s checks: the batch-2 step, card against the CPU's plain step")
+        cpu_parity = cpu.result(job_parity)
+        parity = check_train_parity(torch, card_parity, cpu_parity)
+        parity["optimizer"] = check_optimizer_parity(torch, card_opt, cpu_parity["optimizer"],
+                                                     parity["zero_grads"])
+        plain = cpu.result(job_fwd)
+        plain["after restore"] = plain["after two steps"]
+        checks = {}
+        for what, got in moved.items():
+            want = plain[what]
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            checks[what] = dict(rel_err=err / scale, ok=err <= TRAIN_FWD_REL * scale)
+        shift = float((plain["after two steps"] - out_before).abs().max()) / float(
+            plain["after two steps"].abs().max())
+        log(f"  (iv) forwards, card against the plain forward on the weights as they stand: "
+            + ", ".join(f"{k} rel {v['rel_err']:.2e}" for k, v in checks.items())
+            + f" (<= {TRAIN_FWD_REL:.0e}); the two steps moved the output by rel {shift:.2e}")
+        if not all(v["ok"] for v in checks.values()) or shift <= 100 * TRAIN_FWD_REL \
+                or not torch.equal(moved["after restore"], moved["after two steps"]):
+            raise AssertionError(f"forwards after the weights moved: {checks}, shift {shift}")
+        return dict(parity=parity, forwards=checks, forward_shift=shift)
+
+    return rec, finish
+
+
+def phase_train_loop(torch, dev, smi):
+    """Phase 25(b): TrainLoop on the full-width score_sde DDPM (fp32, linear
+    betas 1e-4 -> 2e-2 over 1000 steps, eps objective) at batch
+    DDPM_TRAIN_N: a cold step with its launch counts, warm steps timed, then
+    save, one more step, and the same step from a loop resumed from the
+    checkpoint: the loss, weights, Adam's moments and EMA bit for bit
+    (cuDNN held to deterministic algorithms for the phase)."""
+    import shutil
+    from diffpure_tpu_torch.data.synthetic import SyntheticSpec, dataset_iterator
+    from diffpure_tpu_torch.diffusion import GaussianDiffusion, linear_beta_schedule
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.training.train_loop import TrainLoop
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ckpt_dir = OUT / "train_loop"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        diffusion = GaussianDiffusion(linear_beta_schedule(1000, 1e-4, 2e-2))
+        data = dataset_iterator(SEED + 50, DDPM_TRAIN_N, SyntheticSpec(size=32), device=dev)
+        batches = [next(data)[0] for _ in range(DDPM_TRAIN_WARM + 3)]
+
+        def loop_for(model, **kw):
+            return TrainLoop(model=model, diffusion=diffusion, data=data,
+                             batch_size=DDPM_TRAIN_N, lr=1e-4, ema_rate=(0.9999,),
+                             log_interval=10 ** 9, save_interval=10 ** 9,
+                             checkpoint_dir=str(ckpt_dir), seed=SEED + 51, **kw)
+
+        loop = loop_for(build_ddpm(torch, dev).requires_grad_(True))
+        want = {**{k: 0 for k in launch_counts()}, **DDPM_TRAIN_COUNTS}
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loop.run_step(batches[0])
+        torch.cuda.synchronize()
+        cold_s = time.time() - t0
+        counts = launch_counts()
+        if counts != want:
+            raise AssertionError(f"TrainLoop launches a step {counts} != {want}")
+        t0 = time.time()
+        losses = [loop.run_step(b) for b in batches[1:1 + DDPM_TRAIN_WARM]]
+        issue_ms = (time.time() - t0) * 1e3 / DDPM_TRAIN_WARM
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3 / DDPM_TRAIN_WARM
+        losses = [float(v) for v in losses]
+        _, (prof_wall, busy, parts) = profile_train_step(
+            torch, lambda: (None, loop.run_step(batches[1 + DDPM_TRAIN_WARM])))
+        path = loop.save()
+        loss_on = loop.run_step(batches[-1])
+        resumed = loop_for(build_ddpm(torch, dev).requires_grad_(True), resume_checkpoint=path)
+        loss_re = resumed.run_step(batches[-1])
+        same = dict(
+            step=resumed.step == loop.step, loss=torch.equal(loss_re, loss_on),
+            weights=all(torch.equal(a, b) for a, b in zip(loop.params, resumed.params)),
+            adam=all(torch.equal(a, b) for k in ("mu", "nu")
+                     for a, b in zip(loop.opt_state[k], resumed.opt_state[k])),
+            ema=all(torch.equal(a, b) for a, b in zip(loop.emas[0].shadow_params,
+                                                       resumed.emas[0].shadow_params)))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(ckpt_dir, ignore_errors=True)  # 0.5 GB of checkpoint
+    n_kernels = parts.pop("device kernels launched")
+    rec = dict(batch=DDPM_TRAIN_N, cold_s=cold_s, wall_ms_per_step=wall_ms,
+               steps_per_s=1e3 / wall_ms, launches=counts, losses=losses,
+               resume_bit_exact=same, profiled_wall_ms=prof_wall, device_ms_per_step=busy,
+               idle_share=max(0.0, 1.0 - busy / wall_ms), parts_ms=parts,
+               host_issue_ms_per_step=issue_ms, device_kernels_per_step=n_kernels)
+    log(f"  cold step {cold_s:.3f} s; warm {wall_ms:.1f} ms a step, {rec['steps_per_s']:.3f} "
+        f"steps/s at batch {DDPM_TRAIN_N} on {smi}; {busy:.1f} ms of device a step (idle "
+        f"share {rec['idle_share']:.3f} against the unprofiled wall); the host issues a step "
+        f"in {issue_ms:.1f} ms ({n_kernels} device kernels, "
+        f"{issue_ms * 1e3 / n_kernels:.1f} us each); losses "
+        f"{[round(v, 4) for v in losses]}; launches {counts}; resumed against uninterrupted: "
+        f"{same}")
+    if not all(same.values()) or not all(map(lambda v: v == v, losses)):
+        raise AssertionError(f"TrainLoop resume is not bit for bit: {same}")
+    return rec
+
+
+def phase_demo(torch, smi):
+    """Phase 25(c): the defence demo through its entry point on the card, in
+    a process of its own, at its default distribution with DEMO_ARGS'
+    budgets: it must end with 0, launch #1-#5 while its score model trains
+    and #1-#3 while it purifies, and report its accuracies (not a gate:
+    the budgets are cut)."""
+    import shutil
+
+    out = OUT / "demo"
+    shutil.rmtree(out, ignore_errors=True)  # no cached weights: the run trains
+    argv = ["-c", DEMO_CODE, "--device", "cuda", "--out", str(out), *DEMO_ARGS]
+    rc, stdout, stderr, secs = run_children([("demo", str(REPO), argv)], DEMO_TIMEOUT_S)["demo"]
+    (OUT / "demo.log").write_text(stdout + "\n--- stderr ---\n" + stderr)
+    if rc != 0:
+        raise AssertionError(f"the defence demo exited with {rc}: {stderr[-2000:]}")
+    marks = json.loads([ln for ln in stdout.splitlines() if ln.startswith("launches: ")][-1]
+                       [len("launches: "):])
+    a, b, c = (marks[k] for k in ("before_score_training", "after_score_training", "end"))
+    training = {k: b[k] - a[k] for k in a}
+    purifying = {k: c[k] - b[k] for k in a}
+    results = json.loads((out / "results.json").read_text())
+    (out / "trained_weights.pt").unlink()
+    accs = dict(clean_undefended=results["clean_acc_undefended"],
+                robust_undefended=results["robust_acc_undefended"],
+                **{f"{k}_defended": v for k, v in results["sde"].items()
+                   if not isinstance(v, (list, dict))})
+    log(f"  {secs:.1f} s (process start to end) on {smi}; launches while the score model "
+        f"trained {training}, while purifying and attacking {purifying}")
+    log("  accuracies (budgets cut, not a gate): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in accs.items()))
+    bad = [k for k in TRAIN_STEP_COUNTS if training[k] == 0] + \
+        [k for k in ("fused_resblock", "fused_resblock_cat", "fused_attnblock") if purifying[k] == 0]
+    if bad:
+        raise AssertionError(f"the demo on the card never launched {bad}")
+    return dict(seconds=secs, launches_training=training, launches_purifying=purifying,
+                accuracies=accs, args=DEMO_ARGS)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-after", choices=("2b", "2c", "2d"), default=None,
@@ -5107,8 +5856,27 @@ def main() -> int:
     new_cli = phase_new_cli(torch, dev, rng, smi)
     log("== phase 24's checks: the CelebA-HQ UNet and attribute net, card against CPU")
     celebahq = finish_celebahq()
-    cpu.close()
     phase_done("24")
+
+    # ---- phase 25 -----------------------------------------------------------
+    log(f"== phase 25(a): the --large demo's score-matching step, full-width fp32 NCSN++, "
+        f"batch {TRAIN_N}; batch {TRAIN_PARITY_N} card against CPU; the forward after the "
+        f"weights move")
+    train_step, finish_train = phase_train_step(torch, dev, rng, smi, cpu)
+    torch.cuda.empty_cache()
+    log(f"== phase 25(c)'s shapes: the demo's score model on the card, kernels against its "
+        f"plain blocks at batch {DEMO_SCORE_N} (a step) and {DEMO_EVAL_N} (forward, input "
+        f"gradient)")
+    demo_shapes = phase_demo_shapes(torch, dev, rng)
+    log(f"== phase 25(c): the defence demo, python -m diffpure_tpu_torch.experiments."
+        f"defense_demo --device cuda {' '.join(DEMO_ARGS)}")
+    demo_run = phase_demo(torch, smi)
+    train_checks = finish_train()
+    cpu.close()
+    log(f"== phase 25(b): TrainLoop on the score_sde DDPM (fp32), batch {DDPM_TRAIN_N}; save, "
+        f"resume, one more step")
+    train_loop = phase_train_loop(torch, dev, smi)
+    phase_done("25")
 
     # ---- report -------------------------------------------------------------
     kernels = []
@@ -5200,6 +5968,8 @@ def main() -> int:
         adm_grad_runs=adm_grad_runs, adm_attack=adm_attack, gn_grad_checks=gn_grad_checks,
         classifier_zoo=zoo, purifiers=purifiers, standard=standard, stadv=stadv_run,
         guided_ddpm=guided, celebahq=celebahq, new_cli_runs=new_cli,
+        training=dict(step=train_step, checks=train_checks, train_loop=train_loop,
+                      demo=demo_run, demo_shapes=demo_shapes),
         phase_s=phase_s, cpu_side_s=cpu.seconds, kernels=kernels),
         indent=1))
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")

@@ -1,7 +1,7 @@
 """flax params -> PyTorch state dict for the classifiers: the inverse of
 diffpure_tpu/classifiers/convert.py (``_classifier_leaf`` :35,
 ``translate_classifier`` :54, ``translate_attribute_d`` :92,
-``translate_vit`` :103); and ``attribute_state_dict``, the CelebA-HQ
+``translate_vit`` :103), the demo's ``SmallCNN`` / ``SmallMLP``; and ``attribute_state_dict``, the CelebA-HQ
 attribute net's ``net_best.pth`` keys as the port's model takes them."""
 from __future__ import annotations
 
@@ -126,3 +126,26 @@ def attribute_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unhandled attribute-net leaf {'/'.join(path)}")
         sd[".".join(parts + [name])] = to_tensor(arr)
     return sd
+
+
+def small_cnn_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ``SmallCNN`` (diffpure_tpu/classifiers/small_cnn.py:22) -> the
+    port's, its top-level modules kept by name (``Conv_0/kernel`` ->
+    ``Conv_0.weight``): conv kernels HWIO -> OIHW, Dense kernels
+    transposed. The first Dense takes the NHWC flatten on both sides, so its
+    rows keep their order."""
+    sd = {}
+    for path, v in flatten_params(params):
+        *mods, leaf = path
+        if leaf == "kernel":
+            name, arr = "weight", (v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.transpose(1, 0))
+        elif leaf == "bias":
+            name, arr = "bias", v
+        else:
+            raise ValueError(f"unhandled leaf {'/'.join(path)}")
+        sd[".".join(mods + [name])] = to_tensor(arr)
+    return sd
+
+
+# flax ``SmallMLP`` (small_cnn.py:47): Dense_0 .. Dense_2, the same mapping
+small_mlp_state_dict_from_flax = small_cnn_state_dict_from_flax

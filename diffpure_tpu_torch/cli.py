@@ -151,6 +151,10 @@ def main(argv=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
                            f"available (pass --device cpu to run on the CPU)")
+    # fp32 stays fp32: no TF32 in cuBLAS's or cuDNN's products (cuDNN's
+    # default allows it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     config = load_config(args.config if os.path.exists(args.config)
                          else os.path.join("configs", args.config))
 

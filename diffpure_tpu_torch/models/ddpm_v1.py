@@ -7,7 +7,9 @@ flax model, so the two load the same weights (models/convert.py
 ``ddpm_state_dict_from_flax``). Input and output are NHWC and fp32, as the
 JAX model has no compute dtype. The CIFAR-10 widths are the defaults
 (score_sde's configs/vp/ddpm/cifar10_continuous.py): 35,218,947 parameters.
-Eval mode only: dropout is the identity (ROADMAP item 19).
+Eval mode only: dropout is the identity. JAX's ``train=True`` (dropout in
+the blocks, which ``ResnetBlockDDPMpp`` has) is not wired through: no
+trainer of either package calls it (ROADMAP item 5).
 """
 from __future__ import annotations
 

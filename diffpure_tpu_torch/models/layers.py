@@ -5,13 +5,18 @@ Parameter names are the reference PyTorch names (``GroupNorm_0``,
 ``Conv_0``, ``Dense_0``, ``NIN_0`` ...; ref score_sde/models/layerspp.py),
 so a ``checkpoint_8.pth`` state dict loads as it is. Activations are NHWC.
 
-The BigGAN and attention blocks are eval-only and always go through the
-fused-block wrappers, which run the plain version on CPU tensors and the
-CUDA kernels on CUDA tensors. That is the JAX gate of layers.py:516-539
-with every condition fixed true by what the port builds (eval mode, swish,
-naive resampling, a temb row); the TPU's 128-lane condition does not apply
-on the GPU. They are differentiable with respect to their inputs (the
-attack path): the wrappers are autograd Functions whose backward is the
+The BigGAN and attention blocks go through the fused-block wrappers,
+which run the plain version on CPU tensors and the CUDA kernels on CUDA
+tensors. That is the JAX gate of layers.py:516-539 with every condition
+fixed true by what the port builds (swish, naive resampling, a temb row)
+but one: in training mode (``train=True``) with a dropout rate above 0 a
+residual block takes the plain version, with dropout drawn from the
+caller's generator, as JAX's gate ``deterministic`` sends it to its unfused
+path (the kernels have no dropout). At rate 0 dropout is the identity and
+the kernels compute the same function, so training mode keeps them. The
+TPU's 128-lane condition does not apply on the GPU. They are
+differentiable with respect to their inputs (the attack path): the
+wrappers are autograd Functions whose backward is the
 CUDA backward kernel for the residual blocks and autograd of the plain
 version for the attention block, as in JAX. Weight gradients, when asked
 for, come from autograd of the plain version.
@@ -19,8 +24,8 @@ for, come from autograd of the plain version.
 The DDPM++ residual block (``ResnetBlockDDPMpp``) and the standalone
 ``UpsampleLayer`` / ``DownsampleLayer`` are plain tensor code around
 ``GNSiLU``, whose CUDA kernel (``ops/groupnorm.group_norm_silu_fused``)
-takes its gradient from autograd of the plain chain, as JAX does. FIR resampling waits for ROADMAP Slice 1 item 5, training mode
-(dropout) for item 19.
+takes its gradient from autograd of the plain chain, as JAX does. FIR
+resampling waits for ROADMAP Slice 1 item 5.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ from diffpure_tpu_torch.ops.conv import conv2d_nhwc
 from diffpure_tpu_torch.ops.fused_attnblock import fused_attnblock, \
     pack_attnblock_params
 from diffpure_tpu_torch.ops.fused_resblock import fused_resblock, \
-    fused_resblock_cat, pack_resblock_bwd_params, pack_resblock_params
+    fused_resblock_cat, fused_resblock_reference, pack_resblock_bwd_params, \
+    pack_resblock_params
 from diffpure_tpu_torch.ops.groupnorm import group_norm, group_norm_silu, \
     group_norm_silu_fused, ncsn_num_groups
 from diffpure_tpu_torch.ops.upfirdn2d import naive_downsample_2d, \
@@ -45,6 +51,18 @@ Tensor = torch.Tensor
 
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _FIR = "FIR resampling is not ported yet: ROADMAP Slice 1 item 5"
+
+
+def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator]) -> Tensor:
+    """flax ``nn.Dropout``: the identity at rate 0, else x / keep where a
+    uniform draw falls below keep = 1 - rate, 0 elsewhere. The draw is
+    made on the generator's device."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    dev = generator.device if generator is not None else x.device
+    mask = torch.rand(x.shape, generator=generator, device=dev).to(x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def get_timestep_embedding(timesteps: Tensor, embedding_dim: int,
@@ -192,9 +210,10 @@ class ResnetBlockBigGANpp(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None,
                  temb_dim: int = 512, up: bool = False, down: bool = False,
-                 skip_rescale: bool = True):
+                 skip_rescale: bool = True, dropout: float = 0.1):
         super().__init__()
         out_ch = out_ch or in_ch
+        self.dropout = dropout
         self.GroupNorm_0 = nn.GroupNorm(ncsn_num_groups(in_ch), in_ch, eps=1e-6)
         self.Conv_0 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
         self.Dense_0 = nn.Linear(temb_dim, out_ch)
@@ -219,15 +238,25 @@ class ResnetBlockBigGANpp(nn.Module):
                 proj.bias if proj is not None else None)
 
     def forward(self, x: Union[Tensor, Tuple[Tensor, Tensor]],
-                temb: Tensor) -> Tensor:
+                temb: Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tensor:
         """x: an NHWC map, or the up path's (h, skip) pair, which is
         concatenated along channels (inside the kernel when the block
-        projects and does not resample)."""
+        projects and does not resample). ``train`` with a dropout rate
+        above 0: the plain version with dropout from ``generator``."""
         # the temb row stays a plain op, in the torso's dtype (DenseP)
         w, b = _cast_cached(self._dense, (self.Dense_0.weight, self.Dense_0.bias),
                             temb.dtype, temb.device)
         temb_row = F.linear(F.silu(temb), w, b)
         params = self._params()
+        if train and self.dropout > 0:
+            if isinstance(x, tuple):
+                x = torch.cat(x, dim=-1)
+            return fused_resblock_reference(
+                x, temb_row, params, num_groups1=self.GroupNorm_0.num_groups,
+                num_groups2=self.GroupNorm_1.num_groups, eps=1e-6,
+                rescale=self.skip_rescale, resample=self.resample,
+                dropout=lambda h: dropout(h, self.dropout, generator))
         anchor = x[0] if isinstance(x, tuple) else x
         on_card = anchor.device.type == "cuda"
         kw = dict(num_groups1=self.GroupNorm_0.num_groups,
@@ -245,8 +274,8 @@ class ResnetBlockBigGANpp(nn.Module):
 
 
 class ResnetBlockDDPMpp(nn.Module):
-    """DDPM-style residual block (layers.py:423-462; ref layerspp.py:166-209),
-    eval mode: dropout is the identity (training waits for ROADMAP item 19).
+    """DDPM-style residual block (layers.py:423-462; ref layerspp.py:166-209);
+    dropout acts in training mode only (``train``, drawn from ``generator``).
 
     The convs and ``Dense_0`` compute in the torso's dtype, which is temb's:
     NCSN++ casts temb to its ``dtype`` as JAX does, and without one flax
@@ -256,9 +285,10 @@ class ResnetBlockDDPMpp(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None,
                  temb_dim: Optional[int] = None, conv_shortcut: bool = False,
-                 skip_rescale: bool = False):
+                 skip_rescale: bool = False, dropout: float = 0.1):
         super().__init__()
         out_ch = out_ch or in_ch
+        self.dropout = dropout
         self.GroupNorm_0 = GNSiLU(ncsn_num_groups(in_ch), in_ch, eps=1e-6)
         self.Conv_0 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
         if temb_dim is not None:
@@ -275,7 +305,8 @@ class ResnetBlockDDPMpp(nn.Module):
         self._weights = _Derived(_cast)
 
     def forward(self, x: Union[Tensor, Tuple[Tensor, Tensor]],
-                temb: Optional[Tensor] = None) -> Tensor:
+                temb: Optional[Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tensor:
         """x: an NHWC map, or the up path's (h, skip) pair, concatenated."""
         if isinstance(x, tuple):
             x = torch.cat(x, dim=-1)
@@ -288,7 +319,10 @@ class ResnetBlockDDPMpp(nn.Module):
         h = conv2d_nhwc(self.GroupNorm_0(x).to(cdt), *w[0:2])
         if temb is not None:
             h = h + F.linear(F.silu(temb), *w[-2:])[:, None, None, :]
-        h = conv2d_nhwc(self.GroupNorm_1(h).to(cdt), *w[2:4])
+        h = self.GroupNorm_1(h)
+        if train:
+            h = dropout(h, self.dropout, generator)
+        h = conv2d_nhwc(h.to(cdt), *w[2:4])
         if self.skip == "conv":
             x = conv2d_nhwc(x.to(cdt), *w[4:6])
         elif self.skip == "nin":

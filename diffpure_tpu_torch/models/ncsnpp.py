@@ -7,7 +7,11 @@ same weights (models/convert.py). Input, output and activations are NHWC.
 Ported: ``resblock_type='biggan'`` and ``'ddpm'`` (DDPM++ blocks with the
 standalone up/down layers), ``progressive='none'``,
 ``progressive_input='none'``, positional embedding, conditional, naive
-resampling, centered data, no sigma scaling, eval mode. With
+resampling, centered data, no sigma scaling; eval mode and, with
+``forward(..., train=True)``, training mode (at a dropout rate above 0
+the residual blocks on their plain version with dropout, as JAX's
+``train=True``; at rate 0 the same function as eval mode, on the kernels). ``init_`` draws fresh
+weights as JAX's initialisers do (``ddpm_init``, models/init.py). With
 ``dtype=torch.bfloat16`` the torso runs in bf16 (parameters stay fp32;
 GroupNorm statistics and softmax stay fp32 inside the ops) and the output
 head in fp32, as ``NCSNpp(dtype=jnp.bfloat16)`` does. In the ``'ddpm'``
@@ -24,7 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffpure_tpu_torch.models.layers import AttnBlockpp, DownsampleLayer, \
+from diffpure_tpu_torch.models.init import ddpm_init_
+from diffpure_tpu_torch.models.layers import NIN, AttnBlockpp, DownsampleLayer, \
     ResnetBlockBigGANpp, ResnetBlockDDPMpp, UpsampleLayer, get_timestep_embedding
 from diffpure_tpu_torch.models.registry import register_model
 from diffpure_tpu_torch.ops.conv import conv2d_nhwc
@@ -62,9 +67,8 @@ class NCSNpp(nn.Module):
                  num_scales: int = 1000,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        # dropout (training only), fir_kernel, progressive_combine,
-        # fourier_scale and init_scale do not change this configuration's
-        # eval forward.
+        # fir_kernel, progressive_combine and fourier_scale do not change
+        # this configuration's forward.
         if resblock_type not in ("biggan", "ddpm"):
             raise ValueError(f"resblock_type {resblock_type!r}")
         for name, value, want in (
@@ -83,6 +87,7 @@ class NCSNpp(nn.Module):
         self.ch_mult = tuple(ch_mult)
         self.dtype = dtype
         self.resblock_type = resblock_type
+        self.init_scale = init_scale
         self.register_buffer("sigmas", torch.tensor(
             get_sigmas(sigma_min, sigma_max, num_scales), dtype=torch.float32))
 
@@ -91,14 +96,15 @@ class NCSNpp(nn.Module):
 
         def block(i, o=None):
             cls = ResnetBlockDDPMpp if ddpm else ResnetBlockBigGANpp
-            return cls(i, o, temb_dim=temb_dim, skip_rescale=skip_rescale)
+            return cls(i, o, temb_dim=temb_dim, skip_rescale=skip_rescale,
+                       dropout=dropout)
 
         def resample(ch, up):
             if ddpm:
                 layer = UpsampleLayer if up else DownsampleLayer
                 return layer(ch, with_conv=resamp_with_conv)
             return ResnetBlockBigGANpp(ch, temb_dim=temb_dim, up=up, down=not up,
-                                       skip_rescale=skip_rescale)
+                                       skip_rescale=skip_rescale, dropout=dropout)
 
         modules = [nn.Linear(nf, temb_dim), nn.Linear(temb_dim, temb_dim),
                    nn.Conv2d(num_channels, nf, 3, padding=1)]
@@ -130,8 +136,38 @@ class NCSNpp(nn.Module):
                     nn.Conv2d(in_ch, num_channels, 3, padding=1)]
         self.all_modules = nn.ModuleList(modules)
 
-    def forward(self, x: Tensor, time_cond: Tensor) -> Tensor:
-        """x: (N, H, W, C) images in [-1, 1]; time_cond: (N,) labels t*999."""
+    def init_(self, generator: torch.Generator) -> "NCSNpp":
+        """Fresh weights as the flax model's initialisers draw them:
+        ``ddpm_init`` (variance scaling over fan_avg, uniform) of scale 1
+        for every conv and dense kernel, 0.1 for the NIN kernels, and
+        ``init_scale`` (0 taken as 1e-10) for each residual block's
+        ``Conv_1``, each attention block's ``NIN_3`` and the output conv;
+        zero biases, unit GroupNorm scales."""
+        s = self.init_scale
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, nn.GroupNorm):
+                    m.weight.fill_(1.0)
+                    m.bias.zero_()
+                elif isinstance(m, (nn.Conv2d, nn.Linear)):
+                    ddpm_init_(m.weight, generator)
+                    m.bias.zero_()
+                elif isinstance(m, NIN):
+                    ddpm_init_(m.W, generator, 0.1, w_in_out=True)
+                    m.b.zero_()
+            for m in self.modules():
+                if isinstance(m, (ResnetBlockBigGANpp, ResnetBlockDDPMpp)):
+                    ddpm_init_(m.Conv_1.weight, generator, s)
+                elif isinstance(m, AttnBlockpp):
+                    ddpm_init_(m.NIN_3.W, generator, s, w_in_out=True)
+            ddpm_init_(self.all_modules[-1].weight, generator, s)
+        return self
+
+    def forward(self, x: Tensor, time_cond: Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        """x: (N, H, W, C) images in [-1, 1]; time_cond: (N,) labels t*999.
+        ``train``: the residual blocks' dropout, drawn from ``generator``."""
+        kw = dict(train=True, generator=generator) if train else {}
         modules = iter(self.all_modules)
         temb = get_timestep_embedding(time_cond, self.nf)
         temb = next(modules)(temb)
@@ -144,25 +180,25 @@ class NCSNpp(nn.Module):
         cdt = x.dtype
         # the DDPM++ variant's up/down layers take no temb
         resample = (lambda m, h: m(h)) if self.resblock_type == "ddpm" \
-            else (lambda m, h: m(h, temb))
+            else (lambda m, h: m(h, temb, **kw))
         stem = next(modules)
         hs = [conv2d_nhwc(x, stem.weight.to(cdt), stem.bias.to(cdt))]
         for i_level, res in enumerate(self.all_resolutions):
             for _ in range(self.num_res_blocks):
-                h = next(modules)(hs[-1], temb)
+                h = next(modules)(hs[-1], temb, **kw)
                 if res in self.attn_resolutions:
                     h = next(modules)(h)
                 hs.append(h)
             if i_level != len(self.all_resolutions) - 1:
                 hs.append(resample(next(modules), hs[-1]))
 
-        h = next(modules)(hs[-1], temb)
+        h = next(modules)(hs[-1], temb, **kw)
         h = next(modules)(h)
-        h = next(modules)(h, temb)
+        h = next(modules)(h, temb, **kw)
 
         for i_level in reversed(range(len(self.all_resolutions))):
             for _ in range(self.num_res_blocks + 1):
-                h = next(modules)((h, hs.pop()), temb)
+                h = next(modules)((h, hs.pop()), temb, **kw)
             if self.all_resolutions[i_level] in self.attn_resolutions:
                 h = next(modules)(h)
             if i_level != 0:
