@@ -213,10 +213,30 @@ Phases, each fatal on failure:
      diffpure_tpu_torch.experiments.defense_demo --device cuda, its
      budgets cut (DEMO_ARGS), #1-#5 launched while the score model trains
      and #1-#3 while it purifies (phase_train_step, phase_train_loop,
-     phase_demo).
+     phase_demo);
+  26. the score_sde samplers and legacy score models (ROADMAP items 4, 5,
+     18): (a) score_sde's VE NCSN++ (configs/cifar10_ve.yml, 62,758,915
+     parameters: FIR resampling, the residual input pyramid, Fourier
+     features, sigma scaling) in fp32: one evaluation at batch 2 card
+     against CPU (fp32 1e-4; bf16 against the CPU's bf16 1e-2, through the
+     kernels and with every block plain, beside the VP model's bf16
+     evaluation as a yardstick) and two PC
+     steps (reverse_diffusion + langevin) card against CPU with the same
+     draws; the PC sampler at batch 8 on the VE SDE cut to N = 10, kernels
+     against the plain blocks on the card (1e-4, each evaluation and the
+     sample), launches exactly 18 / 20 / 6 an evaluation and 6 FIR blocks
+     (3 down, 3 up) on JAX's unfused graph; the wall and device ms per
+     evaluation at batch 64 by part (#1 / #2, #3, the plain FIR blocks,
+     the rest); (b) the VP NCSN++ of configs/cifar10.yml in fp32 under the
+     PC sampler (euler_maruyama) and the probability-flow ODE sampler, N =
+     10, batch 8, kernels against the plain blocks, 40 / 36 / 10 an
+     evaluation; (c) NCSNv2 (ncsnv2_64, 32 px, nf 128, 232 scales from 50
+     to 0.01): one evaluation card against CPU, then annealed Langevin
+     dynamics (5 steps a level, snr 0.176) over the first 3 noise levels at
+     batch 8, cold and warm, no kernel launched (phase_samplers).
 
 The CPU's side of the card-against-CPU checks of phases 6, 9, 13, 15,
-20(b), 23, 24 and 25(a) runs in a thread of its own (CpuSide), on CPU
+20(b), 23, 24, 25(a) and 26 runs in a thread of its own (CpuSide), on CPU
 copies of the models, while the main thread goes on driving the card. The
 sides run beside phases 7, 11-14, 17-19 and 21-22 and beside 24's CLI runs
 and 25(c)'s demo, so
@@ -242,7 +262,8 @@ call in each dtype (profile_cifar.json);
 part, idle share, tensor-map cache misses), one evaluation's backward at
 batch 8 and 16 by chain step, the same in fp32 (the run scripts'
 precision) at batch 16 and 64 (profile_grad_f32), and phase 16's ImageNet
-gradient step at t*=10 by part and by kernel family (profile_grad.json).
+gradient step at t*=10 by part and by kernel family (profile_grad.json);
+``--phase-26`` runs phase 26 alone after phase 1 and ends (phase26.json).
 """
 from __future__ import annotations
 
@@ -696,6 +717,42 @@ demo.main(sys.argv[1:])
 marks["end"] = launch_counts()
 print("launches: " + json.dumps(marks))
 """
+# Phase 26: the score_sde samplers and legacy score models. (a) score_sde's
+# VE NCSN++ (configs/cifar10_ve.yml, 62,758,915 parameters): one evaluation
+# launches #1 18 times, #2 20 and #3 6, and runs 6 BigGAN blocks that
+# resample with the FIR filter (3 down, 3 up) on JAX's unfused graph
+VE_PARAMS = 62_758_915
+VE_COUNTS = {"fused_resblock": 18, "fused_resblock_cat": 20, "fused_attnblock": 6}
+VE_PLAIN_BLOCKS = 6
+VE_FOURIER_SCALE = 16.0   # the Fourier projection's W ~ N(0, 16^2), as initialised
+VE_PARITY_N = 2           # card against CPU: fp32 at SLICE_REL; bf16 below
+# bf16: two bf16 routes that round in different places (card and CPU, the
+# kernels and the plain blocks) decorrelate within a few layers, so a whole
+# evaluation's bf16 routes sit apart about as far as bf16 sits from fp32.
+# Each bf16 distance of one evaluation is therefore held against that of
+# the CPU's own bf16 from its fp32 on the same inputs: within a factor
+# BF16_SPREAD, either way for the card's distance from its fp32 (a bf16
+# route, no worse than the CPU's). One module at a time, fed the CPU's own
+# bf16 inputs, the card holds REL["bfloat16"], the blocks' bound (phase 2).
+BF16_SPREAD = 2.0
+# the PC / ODE schedules cut to 20 steps (score_sde's: 1000)
+SAMPLER_N = 20
+SAMPLER_BATCH = 8
+SAMPLER_REL = 1e-4        # kernels against the plain blocks, per evaluation and at the end
+VE_PROFILE_N = 64         # the run scripts' batch: wall and device ms per evaluation by part
+VE_PROFILE_EVALS = 3
+VE_PARTS = ("#1 / #2", "#3", "plain FIR blocks")
+# (c) NCSNv2 (ncsnv2_64) at 32 px, nf 128, under the VE SDE with 232 discrete
+# scales from sigma 50 to 0.01, sampled by annealed Langevin dynamics
+# (predictor none, corrector ald, 5 steps a level, snr 0.176): score_sde's
+# configs/ncsnv2/cifar10.py and NCSNv2's own CIFAR-10 setting (L = 232,
+# sigma_1 = 50); the JAX package has no NCSNv2 config loader
+NCSNV2_CFG = dict(image_size=32, nf=128, num_scales=232, sigma_min=0.01, sigma_max=50.0)
+NCSNV2_PARAMS = 29_694_083
+NCSNV2_ALD = dict(snr=0.176, n_steps_each=5)
+NCSNV2_LEVELS = 3         # the ALD run: the first 3 of the 232 noise levels
+NCSNV2_N = 8
+
 OWN_KERNELS = ("f32conv_kernel", "rb_gn_kernel", "rb_gn_bwd_kernel", "splitk_epilogue_kernel",
                "gn_apply_kernel", "gn_silu_bwd_kernel", "gn_regs_kernel", "attn_qkv_f32_kernel",
                "attn_qkv_sum_kernel", "attn_f32_kernel", "gnsilu_regs_kernel", "gnsilu_l2_kernel",
@@ -5193,6 +5250,488 @@ def phase_demo(torch, smi):
                 accuracies=accs, args=DEMO_ARGS)
 
 
+def build_ve(torch, dev):
+    """score_sde's VE NCSN++ (configs/cifar10_ve.yml), fp32, seeded weights
+    (the Fourier projection at its initial scale), on ``dev``."""
+    import numpy as np
+    from diffpure_tpu_torch.config import load_config
+    from diffpure_tpu_torch.models import ncsnpp_from_config
+    from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
+
+    model = ncsnpp_from_config(load_config(str(REPO / "configs" / "cifar10_ve.yml"))).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != VE_PARAMS:
+        raise AssertionError(f"the VE NCSN++ has {n_params} params, expected {VE_PARAMS}")
+    sd = seeded_normal_state_dict(model, SEED + 60)
+    sd["all_modules.0.W"] = VE_FOURIER_SCALE * np.random.default_rng(SEED + 61).standard_normal(
+        sd["all_modules.0.W"].shape).astype(np.float32)
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()})
+    return model.requires_grad_(False).to(dev)
+
+
+def build_ncsnv2(torch, dev):
+    """NCSNv2 (ncsnv2_64) at NCSNV2_CFG, seeded weights, on ``dev``."""
+    import numpy as np
+    from diffpure_tpu_torch.models.registry import create_model
+    from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
+
+    model = create_model("ncsnv2_64", **NCSNV2_CFG).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != NCSNV2_PARAMS:
+        raise AssertionError(f"NCSNv2 has {n_params} params, expected {NCSNV2_PARAMS}")
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in
+                           seeded_normal_state_dict(model, SEED + 62).items()})
+    return model.requires_grad_(False).to(dev)
+
+
+def ve_score(model):
+    """The VE SDE (N = 1000) and the continuous VE score of ``model``:
+    its output at the noise scale sigma(t) as the label."""
+    from diffpure_tpu_torch.diffusion import VESDE, get_score_fn
+
+    sde = VESDE(sigma_min=0.01, sigma_max=50.0, N=1000)
+    return sde, get_score_fn(sde, model, continuous=True)
+
+
+def ncsnv2_score(model):
+    """The VE SDE with NCSNv2's 232 scales and its discrete score: the
+    model at the label round((T - t)(N - 1))."""
+    from diffpure_tpu_torch.diffusion import VESDE, get_score_fn
+
+    sde = VESDE(sigma_min=NCSNV2_CFG["sigma_min"], sigma_max=NCSNV2_CFG["sigma_max"],
+                N=NCSNV2_CFG["num_scales"])
+    return sde, get_score_fn(sde, model, continuous=False)
+
+
+def ve_outputs(torch, model, x, t, seed):
+    """Phase 26(a)'s card-against-CPU values on ``model``'s device: one
+    evaluation in fp32 and in bf16, and two PC steps (reverse_diffusion +
+    langevin, snr 0.16, the VE SDE cut to N = 2) in fp32 with the draws of
+    a CPU generator seeded ``seed``. On the CPU the bf16 evaluation also
+    records every top-level module's inputs and output (module_io); on the
+    card it is made again with every block plain."""
+    from diffpure_tpu_torch.diffusion import VESDE, get_pc_sampler
+
+    dev = next(model.parameters()).device
+    _, score_fn = ve_score(model)
+    out = {}
+    with torch.inference_mode():
+        model.dtype = None
+        out["float32"] = score_fn(x.to(dev), t.to(dev)).float().cpu()
+        model.dtype = torch.bfloat16
+        bf16 = lambda: score_fn(x.to(dev), t.to(dev)).float().cpu()  # noqa: E731
+        if dev.type == "cuda":
+            out["bfloat16"] = bf16()
+            # on the card only: the CPU's wrappers take the plain blocks
+            # anyway, and a CPU side patches nothing
+            with plain_blocks(torch):
+                out["bfloat16_plain"] = bf16()
+        else:
+            out["bfloat16"], out["modules"] = module_io(torch, model, bf16)
+        model.dtype = None
+        sampler = get_pc_sampler(VESDE(N=2), tuple(x.shape), predictor="reverse_diffusion",
+                                 corrector="langevin", snr=0.16, n_steps_each=1, device=dev)
+        out["pc_2_steps"] = sampler(score_fn, torch.Generator().manual_seed(seed))[0].cpu()
+    return out
+
+
+def ncsnv2_output(torch, model, x, t):
+    _, score_fn = ncsnv2_score(model)
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        return score_fn(x.to(dev), t.to(dev)).cpu()
+
+
+def moved(torch, obj, dev):
+    """``obj`` with every tensor in it (tuples, lists, dicts) on ``dev``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to(dev)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(moved(torch, o, dev) for o in obj)
+    if isinstance(obj, dict):
+        return {k: moved(torch, v, dev) for k, v in obj.items()}
+    return obj
+
+
+def module_io(torch, model, fn):
+    """fn()'s value, and [(index, args, kwargs, output)] of each call of
+    one of ``model.all_modules`` while it ran, on the CPU."""
+    calls = []
+
+    def hook(i):
+        return lambda mod, args, kwargs, out: calls.append(
+            (i, moved(torch, args, "cpu"), moved(torch, kwargs, "cpu"), out.detach().cpu()))
+
+    handles = [m.register_forward_hook(hook(i), with_kwargs=True)
+               for i, m in enumerate(model.all_modules)]
+    try:
+        return fn(), calls
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def module_gaps(torch, model, calls):
+    """Each recorded module call made again on the card's ``model`` with
+    the recorded (CPU) inputs, through the kernels and with the blocks
+    plain: max |card - CPU| over max |CPU output|, per call."""
+    dev = next(model.parameters()).device
+    rows = []
+    with torch.inference_mode():
+        for i, args, kwargs, want in calls:
+            m = model.all_modules[i]
+            row = dict(index=i, module=type(m).__name__)
+            for route in ("kernels", "plain"):
+                with plain_blocks(torch) if route == "plain" else contextlib.nullcontext():
+                    got = m(*moved(torch, args, dev), **moved(torch, kwargs, dev)).float().cpu()
+                err = float((got - want.float()).abs().max())
+                row[route] = err / max(float(want.float().abs().max()), 1e-30)
+            rows.append(row)
+    return rows
+
+
+def rel_gap(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def bf16_checks(torch, model, card_a, cpu_a):
+    """Phase 26(a)'s bf16 readings on one evaluation (max |a - b| over max
+    |b|), held against the CPU's own bf16 distance from its fp32 (see
+    BF16_SPREAD), and the per-module card-against-CPU gaps at REL."""
+    noise = rel_gap(cpu_a["bfloat16"], cpu_a["float32"])
+    r = dict(cpu_bf16_vs_cpu_fp32=noise,
+             card_bf16_vs_card_fp32=rel_gap(card_a["bfloat16"], card_a["float32"]),
+             card_bf16_plain_vs_card_fp32=rel_gap(card_a["bfloat16_plain"], card_a["float32"]),
+             card_bf16_kernels_vs_card_bf16_plain=rel_gap(card_a["bfloat16"],
+                                                          card_a["bfloat16_plain"]),
+             card_bf16_vs_cpu_bf16=rel_gap(card_a["bfloat16"], cpu_a["bfloat16"]),
+             card_bf16_plain_vs_cpu_bf16=rel_gap(card_a["bfloat16_plain"], cpu_a["bfloat16"]),
+             card_bf16_vs_cpu_fp32=rel_gap(card_a["bfloat16"], cpu_a["float32"]))
+    gates = dict(
+        card_bf16_vs_card_fp32=(noise / BF16_SPREAD, noise * BF16_SPREAD),
+        card_bf16_kernels_vs_card_bf16_plain=(0.0, noise * BF16_SPREAD),
+        card_bf16_vs_cpu_bf16=(0.0, noise * BF16_SPREAD))
+    finite = all(bool(torch.isfinite(card_a[k]).all()) for k in ("bfloat16", "bfloat16_plain"))
+    for k, v in r.items():
+        lo, hi = gates.get(k, (None, None))
+        verdict = "" if lo is None else (
+            f" (in [{lo:.2e}, {hi:.2e}]) " + ("ok" if lo <= v <= hi else "FAIL"))
+        log(f"  (a) bf16 reading, {k.replace('_', ' ')}: rel {v:.3e}{verdict}")
+    rows = module_gaps(torch, model, cpu_a["modules"])
+    worst = {}
+    for row in rows:
+        for route in ("kernels", "plain"):
+            key = (row["module"], route)
+            worst[key] = max(worst.get(key, 0.0), row[route])
+    log(f"  (a) bf16, each of {len(rows)} module calls on the card with the CPU's inputs, "
+        f"worst max |card - CPU| / max |CPU| by module (kernels / plain blocks; <= "
+        f"{REL['bfloat16']:.0e}): " + ", ".join(
+            f"{m} {worst[(m, 'kernels')]:.2e} / {worst[(m, 'plain')]:.2e}"
+            for m in sorted({m for m, _ in worst})))
+    bad = [k for k, (lo, hi) in gates.items() if not lo <= r[k] <= hi]
+    bad += [f"module {row['index']} ({row['module']})" for row in rows
+            if max(row["kernels"], row["plain"]) > REL["bfloat16"]]
+    if not finite:
+        bad.append("non-finite bf16 output")
+    return dict(readings=r, gates=gates, modules=rows, bad=bad)
+
+
+class CountedScore:
+    """A score function that counts evaluations and, with ``keep``, keeps
+    each one's output on its device (moved to the CPU after the timed
+    run: ``outputs_cpu``), so a timed run never waits on a copy."""
+
+    def __init__(self, score_fn, keep=True):
+        self.score_fn, self.keep, self.outputs, self.calls = score_fn, keep, [], 0
+
+    def __call__(self, x, t):
+        s = self.score_fn(x, t)
+        self.calls += 1
+        if self.keep:
+            self.outputs.append(s.detach().clone())
+        return s
+
+    def outputs_cpu(self):
+        return [o.float().cpu() for o in self.outputs]
+
+
+def plain_block_counter(model):
+    """Forward hooks counting the BigGAN blocks that run JAX's unfused
+    graph (``plain``); returns (counter, handles)."""
+    from collections import Counter
+    from diffpure_tpu_torch.models.layers import ResnetBlockBigGANpp
+
+    seen = Counter()
+    handles = [m.register_forward_hook(lambda mod, a, o: seen.update(["plain"]))
+               for m in model.modules() if isinstance(m, ResnetBlockBigGANpp) and m.plain]
+    return seen, handles
+
+
+def sampler_against_plain(torch, what, run, score_fn, per_eval, plain_per_eval=0, model=None):
+    """``run(score) -> (x, nfe)`` on the card twice with the same seeded
+    draws: through the kernels, then with the blocks on their plain
+    versions (plain_blocks). Every evaluation's output and the sample at
+    SAMPLER_REL of the plain one's largest value; the kernels' route must
+    launch ``per_eval`` per evaluation (every other kernel 0) and run
+    ``plain_per_eval`` FIR blocks plain, the plain route launch nothing.
+    The wall is timed with the outputs kept on the card."""
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    runs = {}
+    for route in ("kernels", "plain"):
+        score = CountedScore(score_fn)
+        fir, handles = plain_block_counter(model) if model is not None else ({}, [])
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        try:
+            with plain_blocks(torch) if route == "plain" else contextlib.nullcontext(), \
+                    torch.inference_mode():
+                x, nfe = run(score)
+            torch.cuda.synchronize()
+        finally:
+            for h in handles:
+                h.remove()
+        wall_s = time.time() - t0
+        runs[route] = dict(x=x.float().cpu(), nfe=nfe, evals=score.outputs_cpu(),
+                           launches=launch_counts(), plain_blocks=fir.get("plain", 0),
+                           wall_s=wall_s)
+    got, want = runs["kernels"], runs["plain"]
+    n = len(got["evals"])
+    counts = {k: per_eval.get(k, 0) * n for k in got["launches"]}
+    if len(want["evals"]) != n or got["launches"] != counts or any(want["launches"].values()) \
+            or got["plain_blocks"] != plain_per_eval * n:
+        raise AssertionError(
+            f"{what}: {n} evaluations (plain route {len(want['evals'])}), launches "
+            f"{got['launches']} (want {counts}), plain route {want['launches']}, plain FIR "
+            f"blocks {got['plain_blocks']} (want {plain_per_eval * n})")
+    rels = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got["evals"], want["evals"])]
+    final = float((got["x"] - want["x"]).abs().max() / want["x"].abs().max())
+    ok = bool(torch.isfinite(got["x"]).all()) and max(rels) <= SAMPLER_REL \
+        and final <= SAMPLER_REL
+    log(f"  {what}: {n} evaluations (the sampler's nfe {got['nfe']}), kernels against the "
+        f"plain blocks on the card: worst evaluation rel {max(rels):.2e}, sample rel "
+        f"{final:.2e} (<= {SAMPLER_REL:.0e}) {'ok' if ok else 'FAIL'}; launches "
+        f"{ {k: v for k, v in got['launches'].items() if v} }, plain FIR blocks "
+        f"{got['plain_blocks']}; {got['wall_s']:.2f} s / {want['wall_s']:.2f} s of wall")
+    if not ok:
+        raise AssertionError(f"{what}: kernels and plain blocks disagree")
+    return dict(evaluations=n, nfe=got["nfe"], worst_eval_rel=max(rels), sample_rel=final,
+                launches=got["launches"], plain_fir_blocks=got["plain_blocks"],
+                wall_s=got["wall_s"], plain_wall_s=want["wall_s"])
+
+
+def ve_parts(torch, model, x, t):
+    """Phase 26(a)'s cost at batch VE_PROFILE_N: the wall per evaluation
+    (CUDA-synchronised, VE_PROFILE_EVALS warm evaluations), and under the
+    profiler the device ms per evaluation by part (the kernels launched
+    inside each wrapper's call, or inside a plain FIR block's) and the
+    device's idle share."""
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+    from diffpure_tpu_torch.models import layers
+
+    _, score_fn = ve_score(model)
+    with torch.inference_mode():
+        for _ in range(2):
+            score_fn(x, t)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(VE_PROFILE_EVALS):
+            score_fn(x, t)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3 / VE_PROFILE_EVALS
+
+    def ranged(fn, name):
+        def call(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return call
+
+    patches = dict(fused_resblock=ranged(layers.fused_resblock, "part:#1 / #2"),
+                   fused_resblock_cat=ranged(layers.fused_resblock_cat, "part:#1 / #2"),
+                   fused_attnblock=ranged(layers.fused_attnblock, "part:#3"))
+    plain = layers.ResnetBlockBigGANpp._forward_plain
+    with mock.patch.multiple(layers, **patches), \
+            mock.patch.object(layers.ResnetBlockBigGANpp, "_forward_plain",
+                              ranged(plain, "part:plain FIR blocks")), torch.inference_mode():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            for _ in range(VE_PROFILE_EVALS):
+                score_fn(x, t)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.time() - t0) * 1e3 / VE_PROFILE_EVALS
+    by = {}
+    for e in prof.key_averages():
+        # the kernels' own events; the ranges' device-side annotations
+        # ("part:...") span kernels counted already
+        dev_us = getattr(e, "self_device_time_total", 0) or 0
+        if str(e.device_type).endswith("CUDA") and dev_us > 0 and not e.key.startswith("part:"):
+            by[family(e.key)] = by.get(family(e.key), 0.0) + dev_us / 1e3 / VE_PROFILE_EVALS
+    total = sum(by.values())
+    if total <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    parts = {p: range_device_ms(prof, f"part:{p}") / VE_PROFILE_EVALS for p in VE_PARTS}
+    parts["the rest"] = total - sum(parts.values())
+    return dict(batch=int(x.shape[0]), wall_ms_per_eval=wall_ms, device_ms_per_eval=total,
+                idle_share=max(0.0, 1.0 - total / prof_wall_ms), device_ms_by_part=parts,
+                device_ms_by_family=by)
+
+
+def phase_samplers(torch, dev, score, smi):
+    """Phase 26: the score_sde samplers and the legacy score models on the
+    card. (a) the VE NCSN++ (configs/cifar10_ve.yml) in fp32: one
+    evaluation at batch VE_PARITY_N card against CPU (fp32; bf16 by
+    bf16_checks), two PC steps card against CPU with the same draws; the PC sampler (reverse_diffusion + langevin) at batch
+    SAMPLER_BATCH on the VE SDE cut to SAMPLER_N steps, kernels against the
+    plain blocks, launches VE_COUNTS and VE_PLAIN_BLOCKS plain FIR blocks
+    an evaluation; the wall and device ms per evaluation by part at batch
+    VE_PROFILE_N. (b) ``score`` (configs/cifar10.yml's NCSN++) in fp32 under
+    the VP SDE cut to SAMPLER_N: the PC sampler with the euler_maruyama
+    predictor and the probability-flow ODE sampler, kernels against the
+    plain blocks, 40 / 36 / 10 a evaluation. (c) NCSNv2 at full width: one
+    evaluation card against CPU, then annealed Langevin dynamics over the
+    first NCSNV2_LEVELS noise levels at batch NCSNV2_N (cold, warm, and
+    profiled for device time and idle share), no kernel launched."""
+    import numpy as np
+    from diffpure_tpu_torch.diffusion import PCNoise, VESDE, VPSDE, get_corrector, \
+        get_ode_sampler, get_pc_sampler, get_predictor, get_score_fn
+    from diffpure_tpu_torch.diffusion.sampling import pc_timesteps
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cpu = CpuSide(torch)
+    rng = np.random.default_rng(SEED + 63)
+    rec = {}
+    # ---- (a) and (c): the card's side of the card-against-CPU checks ------
+    ve = build_ve(torch, dev)
+    ve_cpu = cpu.copy("VE NCSN++", ve)
+    xa = torch.from_numpy(rng.uniform(size=(VE_PARITY_N, 32, 32, 3)).astype(np.float32))
+    ta = torch.tensor([0.3, 0.9])
+    sde_a, _ = ve_score(ve)
+    xa = xa + sde_a.marginal_prob(xa, ta)[1][:, None, None, None] * torch.from_numpy(
+        rng.standard_normal(xa.shape).astype(np.float32))
+    t0 = time.time()
+    card_a = ve_outputs(torch, ve, xa, ta, SEED + 64)
+    v2 = build_ncsnv2(torch, dev)
+    v2_cpu = cpu.copy("NCSNv2", v2)
+    xc = torch.from_numpy(rng.uniform(size=(VE_PARITY_N, 32, 32, 3)).astype(np.float32))
+    tc = torch.tensor([1.0, 0.6])
+    card_c = ncsnv2_output(torch, v2, xc, tc)
+    log(f"  (a), (c): the card's side {time.time() - t0:.1f} s; the CPU's runs beside the "
+        f"samplers' kernel checks")
+    job = cpu.submit("phase 26", lambda: (ve_outputs(torch, ve_cpu, xa, ta, SEED + 64),
+                                          ncsnv2_output(torch, v2_cpu, xc, tc)))
+    # ---- (a) the PC sampler on the VE SDE, kernels against plain ----------
+    shape = (SAMPLER_BATCH, 32, 32, 3)
+    sde_n = VESDE(N=SAMPLER_N)
+    _, ve_fn = ve_score(ve)
+    pc = get_pc_sampler(sde_n, shape, predictor="reverse_diffusion", corrector="langevin",
+                        snr=0.16, n_steps_each=1, device=dev)
+    rec["ve_pc"] = sampler_against_plain(
+        torch, f"(a) VE PC sampler (reverse_diffusion + langevin, N = {SAMPLER_N}, batch "
+        f"{SAMPLER_BATCH})", lambda s: pc(s, torch.Generator().manual_seed(SEED + 65)), ve_fn,
+        VE_COUNTS, VE_PLAIN_BLOCKS, model=ve)
+    # ---- (b) the VP DDPM++ under the PC and ODE samplers -------------------
+    score.dtype = None
+    vp = VPSDE(N=SAMPLER_N)
+    vp_fn = get_score_fn(vp, score, continuous=True)
+    per_eval_vp = {k: v[2] for k, v in KERNELS.items()}
+    pc_vp = get_pc_sampler(vp, shape, predictor="euler_maruyama", corrector="none", device=dev)
+    rec["vp_pc"] = sampler_against_plain(
+        torch, f"(b) VP PC sampler (euler_maruyama, N = {SAMPLER_N}, batch {SAMPLER_BATCH})",
+        lambda s: pc_vp(s, torch.Generator().manual_seed(SEED + 66)), vp_fn, per_eval_vp)
+    ode_vp = get_ode_sampler(vp, shape, device=dev)
+    rec["vp_ode"] = sampler_against_plain(
+        torch, f"(b) VP probability-flow ODE sampler ({SAMPLER_N} Euler steps, batch "
+        f"{SAMPLER_BATCH})", lambda s: ode_vp(s, torch.Generator().manual_seed(SEED + 67)),
+        vp_fn, per_eval_vp)
+    score.dtype = torch.bfloat16
+    # ---- the CPU's side, then its checks -----------------------------------
+    cpu_a, cpu_c = cpu.result(job)
+    cpu.close()
+    checks = {}
+    for what, got, want in (
+            ("(a) VE evaluation fp32", card_a["float32"], cpu_a["float32"]),
+            ("(a) VE two PC steps fp32", card_a["pc_2_steps"], cpu_a["pc_2_steps"]),
+            ("(c) NCSNv2 evaluation fp32", card_c, cpu_c)):
+        c = checks[what] = rel_check(torch, got, want, SLICE_REL["float32"])
+        log(f"  {what}: card against CPU, max abs err {c['max_abs_err']:.3e} (rel "
+            f"{c['rel_err']:.2e} <= {SLICE_REL['float32']:.0e}) {'ok' if c['ok'] else 'FAIL'}")
+    rec["bf16"] = bf16 = bf16_checks(torch, ve, card_a, cpu_a)
+    del cpu_a["modules"]
+    rec["checks"] = checks
+    bad = [k for k, v in checks.items() if not v["ok"]] + bf16["bad"]
+    if bad:
+        raise AssertionError(f"phase 26 card against CPU: {bad} disagree")
+    # ---- (a) timed: the wall and device ms by part at batch 64 -------------
+    x64 = torch.from_numpy(rng.uniform(size=(VE_PROFILE_N, 32, 32, 3)).astype(np.float32)).to(dev)
+    t64 = torch.full((VE_PROFILE_N,), 0.5, device=dev)
+    x64 = x64 + sde_a.marginal_prob(x64, t64)[1][:, None, None, None] * torch.randn_like(x64)
+    rec["ve_parts"] = parts = ve_parts(torch, ve, x64, t64)
+    log(f"  (a) VE NCSN++ fp32 at batch {VE_PROFILE_N}: {parts['wall_ms_per_eval']:.2f} ms of "
+        f"wall, {parts['device_ms_per_eval']:.2f} ms of device per evaluation (idle share "
+        f"{parts['idle_share']:.3f}) on {smi}; by part: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in parts["device_ms_by_part"].items()) + "; by kernel "
+        "family: " + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+            parts["device_ms_by_family"].items(), key=lambda kv: -kv[1])))
+    del x64, ve
+    torch.cuda.empty_cache()
+    # ---- (c) timed: annealed Langevin over the first noise levels ----------
+    # cold, warm, then once under the profiler: the score only counts its
+    # evaluations, so nothing waits on the device inside the run
+    from torch.profiler import ProfilerActivity, profile
+
+    sde_c, v2_fn = ncsnv2_score(v2)
+    corr, pred = get_corrector("ald"), get_predictor("none")
+    ald = []
+    for run in ("cold", "warm", "profiled"):
+        noise = PCNoise(torch.Generator().manual_seed(SEED + 68))
+        score_c = CountedScore(v2_fn, keep=False)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+                if run == "profiled" else contextlib.nullcontext() as prof:
+            t0 = time.time()
+            with torch.inference_mode():
+                x = noise.prior(sde_c, (NCSNV2_N, 32, 32, 3), dev)
+                for i, t in enumerate(pc_timesteps(sde_c)[:NCSNV2_LEVELS]):
+                    vec_t = torch.full((NCSNV2_N,), float(t), device=dev)
+                    js = iter(range(NCSNV2_ALD["n_steps_each"]))
+                    x, x_mean = corr(lambda: noise.corrector(i, next(js), x), sde_c, score_c,
+                                     x, vec_t, NCSNV2_ALD["snr"], NCSNV2_ALD["n_steps_each"])
+                    x, x_mean = pred(lambda: noise.predictor(i, x), sde_c, score_c, x, vec_t)
+                torch.cuda.synchronize()
+            wall = time.time() - t0
+        counts = launch_counts()
+        n = score_c.calls
+        row = dict(run=run, wall_s=wall, evaluations=n, ms_per_eval=wall * 1e3 / n,
+                   launches=counts)
+        note = ""
+        if prof is not None:
+            device_ms = sum((getattr(e, "self_device_time_total", 0) or 0) / 1e3
+                            for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+            row.update(device_ms_per_eval=device_ms / n,
+                       idle_share=max(0.0, 1.0 - device_ms / (wall * 1e3)))
+            note = (f" ({row['device_ms_per_eval']:.2f} ms of device each, idle share "
+                    f"{row['idle_share']:.3f})")
+        ald.append(row)
+        log(f"  (c) NCSNv2 ALD, {NCSNV2_LEVELS} of {sde_c.N} levels x "
+            f"{NCSNV2_ALD['n_steps_each']} steps, batch {NCSNV2_N}, {run}: {wall:.3f} s, "
+            f"{n} evaluations, {wall * 1e3 / n:.2f} ms each{note} on {smi}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if n != NCSNV2_LEVELS * NCSNV2_ALD["n_steps_each"] or any(counts.values()) \
+                or not bool(torch.isfinite(x_mean).all()) or tuple(x_mean.shape) != (
+                    NCSNV2_N, 32, 32, 3):
+            raise AssertionError(f"(c) NCSNv2 ALD: {n} evaluations, launches {counts}, "
+                                 f"finite {bool(torch.isfinite(x_mean).all())}")
+        if prof is not None and row["device_ms_per_eval"] <= 0:
+            raise AssertionError("(c) NCSNv2 ALD: the profiler recorded no device time")
+    rec["ncsnv2_ald"] = ald
+    del v2
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-after", choices=("2b", "2c", "2d"), default=None,
@@ -5207,6 +5746,9 @@ def main() -> int:
                     help="after phase 1, profile warm CIFAR NCSN++ evaluations (batch 8 "
                          "and 128 bf16, 8 and 64 fp32; the block chains' steps) and the host "
                          "time per block call, and end (no result line)")
+    ap.add_argument("--phase-26", action="store_true",
+                    help="after phase 1, run phase 26 alone (the score_sde samplers and the "
+                         "legacy score models) and end (no result line)")
     ap.add_argument("--profile-grad", action="store_true",
                     help="after phase 1, profile warm steps of phase 5's gradient and one "
                          "evaluation's backward at batch 8 and 16 (the chain's steps), and "
@@ -5280,6 +5822,14 @@ def main() -> int:
         raise AssertionError(f"fp32 kernels: missing {missing}, tensor-core instructions "
                              f"{tensor}, spills {spills}")
     phase_done("1")
+    if args.phase_26:
+        score, _ = build_models(torch, dev, torch.bfloat16)
+        log("== phase 26 alone: the score_sde samplers and the legacy score models")
+        rec = phase_samplers(torch, dev, score, smi)
+        phase_done("26")
+        (OUT / "phase26.json").write_text(json.dumps(dict(card=smi, phase_s=phase_s, **rec),
+                                                     indent=1))
+        return 3
     if args.profile_cifar:
         profile_cifar(torch, dev, smi)
         return 3
@@ -5878,6 +6428,13 @@ def main() -> int:
     train_loop = phase_train_loop(torch, dev, smi)
     phase_done("25")
 
+    # ---- phase 26 -----------------------------------------------------------
+    log(f"== phase 26: the score_sde samplers and legacy score models: (a) the VE NCSN++ "
+        f"(configs/cifar10_ve.yml), (b) the VP PC and ODE samplers (configs/cifar10.yml), "
+        f"N = {SAMPLER_N}, batch {SAMPLER_BATCH}, (c) NCSNv2 with annealed Langevin dynamics")
+    samplers = phase_samplers(torch, dev, score, smi)
+    phase_done("26")
+
     # ---- report -------------------------------------------------------------
     kernels = []
     for name, (source, replaces, *_) in {**KERNELS, **BWD_KERNELS}.items():
@@ -5970,7 +6527,7 @@ def main() -> int:
         guided_ddpm=guided, celebahq=celebahq, new_cli_runs=new_cli,
         training=dict(step=train_step, checks=train_checks, train_loop=train_loop,
                       demo=demo_run, demo_shapes=demo_shapes),
-        phase_s=phase_s, cpu_side_s=cpu.seconds, kernels=kernels),
+        samplers=samplers, phase_s=phase_s, cpu_side_s=cpu.seconds, kernels=kernels),
         indent=1))
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(json.dumps({"kernels": kernels}))

@@ -1,9 +1,13 @@
 """flax params -> PyTorch state dict: the inverse of
 diffpure_tpu/models/convert.py (``_leaf`` :73, ``ncsnpp_key`` :107,
-``translate_ncsnpp`` :182, ``translate_adm`` :195), so weights held by the
-JAX package load into the port with ``load_state_dict(strict=True)``. The
-score_sde DDPM's tree has NCSN++'s ``m{i}`` walk (``translate_ncsnpp``
-carries it too).
+``translate_ncsnpp`` :182, ``translate_adm`` :195, ``translate_ncsnv2``
+:218), so weights held by the JAX package load into the port with
+``load_state_dict(strict=True)``. The score_sde DDPM's tree has NCSN++'s
+``m{i}`` walk (``translate_ncsnpp`` carries it too), and so has NCSN++'s
+with every option: the Fourier projection's ``W``, ``FIRConv2d``'s HWIO
+``kernel``, ``Combine``'s ``Conv_0`` and the pyramids' convs and norms are
+leaves of ``m{i}`` modules (the pyramids' resamplers without a conv hold
+none).
 
 Leaves: conv kernel HWIO -> weight OIHW; Dense kernel (in, out) -> weight
 (out, in); norm ``scale`` -> ``weight``; NIN ``W``/``b`` unchanged.
@@ -18,6 +22,9 @@ The score_sde checkpoint flow (JAX :28-71, :250): a CIFAR-10
 ``checkpoint_8.pth`` holds the model's state dict (``module.``-prefixed
 under DataParallel) and its EMA shadow parameters; the port's NCSN++ keys
 are score_sde's, so the flow ends in a state dict, with no translation.
+NCSNv2's keys are score_sde's too: ``translate_ncsnv2`` takes a score_sde
+state dict to the port's module by a check of its keys and shapes, and
+``ncsnv2_state_dict_from_flax`` is the inverse of JAX's translator.
 """
 from __future__ import annotations
 
@@ -43,13 +50,18 @@ def strip_module_prefix(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tenso
 
 
 def apply_ema(model_sd: Mapping[str, torch.Tensor], ema_state: Mapping,
-              buffer_keys: Tuple[str, ...] = ("sigmas",)) -> Dict[str, torch.Tensor]:
+              buffer_keys: Tuple[str, ...] = ("sigmas",),
+              frozen_keys: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
     """Overwrite the parameters with the EMA shadow parameters, a flat list
     in ``model.parameters()`` order: the state dict's order without its
-    buffers (ref score_sde/models/ema.py:18-105)."""
+    buffers (ref score_sde/models/ema.py:18-105). score_sde's EMA keeps
+    only the parameters that require grad: a shadow list shorter by
+    ``frozen_keys`` skips them (the port's EMA keeps every parameter)."""
     shadow = list(ema_state["shadow_params"])
     param_keys = [k for k in model_sd
                   if not any(k == b or k.endswith("." + b) for b in buffer_keys)]
+    if len(param_keys) != len(shadow):
+        param_keys = [k for k in param_keys if k not in frozen_keys]
     if len(param_keys) != len(shadow):
         raise ValueError(f"{len(shadow)} EMA shadow parameters for "
                          f"{len(param_keys)} model parameters")
@@ -67,7 +79,10 @@ def load_score_sde_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """score_sde checkpoint -> the port's NCSN++ state dict: load, strip the
     prefix, apply the EMA (ref runners/diffpure_sde.py:160-190)."""
     state = load_torch_state_dict(path)
-    return apply_ema(strip_module_prefix(state["model"]), state["ema"])
+    sd = strip_module_prefix(state["model"])
+    # the VE NCSN++'s Fourier projection W is frozen (1-D; NIN's W are 2-D)
+    frozen = tuple(k for k, v in sd.items() if k.rsplit(".", 1)[-1] == "W" and v.ndim == 1)
+    return apply_ema(sd, state["ema"], frozen_keys=frozen)
 
 
 def _check_fits(sd: Mapping, model: torch.nn.Module, path: str, what: str) -> None:
@@ -229,4 +244,38 @@ def ddpm_unet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
                 break
         name, arr = torch_leaf(leaf, v)
         sd[".".join([head, *mods, name])] = to_tensor(arr)
+    return sd
+
+
+def translate_ncsnv2(sd: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A score_sde NCSNv2 / NCSN state dict (``module.``-prefixed or not)
+    -> the port's ``model`` (models/ncsnv2.py), whose keys are score_sde's:
+    the counterpart of JAX's ``translate_ncsnv2`` (:218). Nothing is
+    renamed or transposed; the keys and shapes are checked against
+    ``model`` first."""
+    sd = {k: torch.as_tensor(v) for k, v in strip_module_prefix(sd).items()}
+    _check_fits(sd, model, "the state dict", type(model).__name__)
+    return sd
+
+
+def ncsnv2_state_dict_from_flax(params: Mapping, *, sigma_min: float = 0.01,
+                                sigma_max: float = 50.0,
+                                num_scales: int = 1000) -> Dict[str, torch.Tensor]:
+    """flax NCSNv2 / NCSN params -> the port's state dict: the inverse of
+    JAX's ``translate_ncsnv2``. ``res1_0/normalize1/alpha`` ->
+    ``res1.0.normalize1.alpha``, ``refine1/adapt_convs_0/1_1_conv/kernel``
+    -> ``refine1.adapt_convs.0.1_1_conv.weight``, a conditional norm's
+    ``embed/embedding`` (num_classes, chunks * C) -> ``embed.weight``
+    untransposed; the ``sigmas`` buffer is rebuilt from the noise scales."""
+    sd = {}
+    for path, v in flatten_params(params):
+        *mods, leaf = path
+        if leaf == "embedding":
+            name, arr = "weight", v
+        elif leaf in ("alpha", "gamma", "beta"):
+            name, arr = leaf, v
+        else:
+            name, arr = torch_leaf(leaf, v)
+        sd[".".join([p for m in mods for p in split_module(m)] + [name])] = to_tensor(arr)
+    sd["sigmas"] = _sigmas(sigma_min, sigma_max, num_scales)
     return sd

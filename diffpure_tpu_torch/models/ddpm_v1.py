@@ -9,7 +9,7 @@ JAX model has no compute dtype. The CIFAR-10 widths are the defaults
 (score_sde's configs/vp/ddpm/cifar10_continuous.py): 35,218,947 parameters.
 Eval mode only: dropout is the identity. JAX's ``train=True`` (dropout in
 the blocks, which ``ResnetBlockDDPMpp`` has) is not wired through: no
-trainer of either package calls it (ROADMAP item 5).
+trainer of either package calls it (ROADMAP Queue 1, "Next").
 """
 from __future__ import annotations
 

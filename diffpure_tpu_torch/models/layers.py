@@ -7,14 +7,17 @@ so a ``checkpoint_8.pth`` state dict loads as it is. Activations are NHWC.
 
 The BigGAN and attention blocks go through the fused-block wrappers,
 which run the plain version on CPU tensors and the CUDA kernels on CUDA
-tensors. That is the JAX gate of layers.py:516-539 with every condition
-fixed true by what the port builds (swish, naive resampling, a temb row)
-but one: in training mode (``train=True``) with a dropout rate above 0 a
-residual block takes the plain version, with dropout drawn from the
-caller's generator, as JAX's gate ``deterministic`` sends it to its unfused
-path (the kernels have no dropout). At rate 0 dropout is the identity and
-the kernels compute the same function, so training mode keeps them. The
-TPU's 128-lane condition does not apply on the GPU. They are
+tensors. That is the JAX gate of layers.py:516-539, the activation fixed
+to swish: a BigGAN block that resamples with the FIR filter (``fir`` with
+``up`` or ``down``) or has no temb (an unconditional NCSN++) runs JAX's
+unfused graph in plain PyTorch on either device (``_forward_plain``), as
+JAX runs it outside its kernels (:518-520). In training mode
+(``train=True``) with a dropout rate above 0 a residual block takes the
+same unfused graph, with dropout drawn from the caller's generator, as
+JAX's gate ``deterministic`` sends it to its unfused path (the kernels
+have no dropout). At rate 0 dropout is the identity and the kernels compute the
+same function, so training mode keeps them. The TPU's 128-lane condition
+does not apply on the GPU. They are
 differentiable with respect to their inputs (the attack path): the
 wrappers are autograd Functions whose backward is the
 CUDA backward kernel for the residual blocks and autograd of the plain
@@ -24,8 +27,9 @@ for, come from autograd of the plain version.
 The DDPM++ residual block (``ResnetBlockDDPMpp``) and the standalone
 ``UpsampleLayer`` / ``DownsampleLayer`` are plain tensor code around
 ``GNSiLU``, whose CUDA kernel (``ops/groupnorm.group_norm_silu_fused``)
-takes its gradient from autograd of the plain chain, as JAX does. FIR
-resampling waits for ROADMAP Slice 1 item 5.
+takes its gradient from autograd of the plain chain, as JAX does. So are
+NCSN++'s other options (JAX :249-420): ``GaussianFourierProjection``,
+``Combine``, ``FIRConv2d`` and the FIR resampling of ops/upfirdn2d.py.
 """
 from __future__ import annotations
 
@@ -36,21 +40,21 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from diffpure_tpu_torch.models.init import ddpm_init_
 from diffpure_tpu_torch.ops.conv import conv2d_nhwc
 from diffpure_tpu_torch.ops.fused_attnblock import fused_attnblock, \
     pack_attnblock_params
 from diffpure_tpu_torch.ops.fused_resblock import fused_resblock, \
-    fused_resblock_cat, fused_resblock_reference, pack_resblock_bwd_params, \
-    pack_resblock_params
+    fused_resblock_cat, pack_resblock_bwd_params, pack_resblock_params
 from diffpure_tpu_torch.ops.groupnorm import group_norm, group_norm_silu, \
     group_norm_silu_fused, ncsn_num_groups
-from diffpure_tpu_torch.ops.upfirdn2d import naive_downsample_2d, \
-    naive_upsample_2d
+from diffpure_tpu_torch.ops.upfirdn2d import conv_downsample_2d, downsample_2d, \
+    naive_downsample_2d, naive_upsample_2d, upsample_2d, upsample_conv_2d
 
 Tensor = torch.Tensor
 
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
-_FIR = "FIR resampling is not ported yet: ROADMAP Slice 1 item 5"
+FIR_KERNEL = (1, 3, 3, 1)
 
 
 def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator]) -> Tensor:
@@ -204,25 +208,38 @@ class AttnBlockpp(nn.Module):
             rescale=self.skip_rescale, packed=packed)
 
 
+def _rescale(y: Tensor) -> Tensor:
+    """y / sqrt(2) as JAX's weakly typed constant gives it: the constant
+    rounded to y's dtype first."""
+    return y * torch.tensor(INV_SQRT2, dtype=y.dtype)
+
+
 class ResnetBlockBigGANpp(nn.Module):
-    """BigGAN residual block with optional naive 2x resampling
-    (ref layerspp.py:212-274)."""
+    """BigGAN residual block with optional 2x resampling, naive or FIR
+    (ref layerspp.py:212-274). ``temb_dim=None``: no ``Dense_0`` (an
+    unconditional NCSN++)."""
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None,
-                 temb_dim: int = 512, up: bool = False, down: bool = False,
-                 skip_rescale: bool = True, dropout: float = 0.1):
+                 temb_dim: Optional[int] = 512, up: bool = False, down: bool = False,
+                 skip_rescale: bool = True, dropout: float = 0.1, fir: bool = False,
+                 fir_kernel: Tuple[int, ...] = FIR_KERNEL):
         super().__init__()
         out_ch = out_ch or in_ch
         self.dropout = dropout
         self.GroupNorm_0 = nn.GroupNorm(ncsn_num_groups(in_ch), in_ch, eps=1e-6)
         self.Conv_0 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
-        self.Dense_0 = nn.Linear(temb_dim, out_ch)
+        if temb_dim is not None:
+            self.Dense_0 = nn.Linear(temb_dim, out_ch)
         self.GroupNorm_1 = nn.GroupNorm(ncsn_num_groups(out_ch), out_ch, eps=1e-6)
         self.Conv_1 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
         self.has_proj = in_ch != out_ch or up or down
         if self.has_proj:
             self.Conv_2 = nn.Conv2d(in_ch, out_ch, 1)
         self.resample = "up" if up else ("down" if down else "none")
+        self.fir_kernel = tuple(fir_kernel) if fir else None
+        # JAX's gate (layers.py:518-520): FIR resampling, or no temb, runs
+        # the unfused graph
+        self.plain = (fir and (up or down)) or temb_dim is None
         self.skip_rescale = skip_rescale
         self._kernel = _Derived(pack_resblock_params)
         self._kernel_bwd = _Derived(pack_resblock_bwd_params)
@@ -237,26 +254,58 @@ class ResnetBlockBigGANpp(nn.Module):
                 proj.weight[:, :, 0, 0] if proj is not None else None,
                 proj.bias if proj is not None else None)
 
+    def _forward_plain(self, x: Tensor, temb: Optional[Tensor], train: bool,
+                       generator: Optional[torch.Generator]) -> Tensor:
+        """JAX's unfused block (layers.py:541-568), rounding where it
+        rounds: each GroupNorm's scale and bias in the map's dtype, swish,
+        the resampling, then the convs and the Dense in the torso's dtype
+        (temb's; without a temb, x's), each conv's bias added after it."""
+        cdt = temb.dtype if temb is not None else x.dtype
+
+        def gn_silu(gn, h):
+            return group_norm_silu(h, gn.weight.to(h.dtype), gn.bias.to(h.dtype),
+                                   gn.num_groups, gn.eps)
+
+        def conv(c, h):
+            return conv_then_bias(h.to(cdt), c.weight.to(cdt), c.bias.to(cdt))
+
+        h = gn_silu(self.GroupNorm_0, x)
+        if self.resample != "none":
+            if self.fir_kernel is not None:
+                fn = upsample_2d if self.resample == "up" else downsample_2d
+                h, x = fn(h, self.fir_kernel, factor=2), fn(x, self.fir_kernel, factor=2)
+            else:
+                fn = naive_upsample_2d if self.resample == "up" else naive_downsample_2d
+                h, x = fn(h), fn(x)
+        h = conv(self.Conv_0, h)
+        if temb is not None:
+            d = self.Dense_0
+            h = h + (F.linear(F.silu(temb).to(cdt), d.weight.to(cdt))
+                     + d.bias.to(cdt))[:, None, None, :]
+        h = gn_silu(self.GroupNorm_1, h)
+        if train:
+            h = dropout(h, self.dropout, generator)
+        h = conv(self.Conv_1, h)
+        if self.has_proj:
+            x = conv(self.Conv_2, x)
+        return _rescale(x + h) if self.skip_rescale else x + h
+
     def forward(self, x: Union[Tensor, Tuple[Tensor, Tensor]],
-                temb: Tensor, train: bool = False,
+                temb: Optional[Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Tensor:
         """x: an NHWC map, or the up path's (h, skip) pair, which is
         concatenated along channels (inside the kernel when the block
         projects and does not resample). ``train`` with a dropout rate
-        above 0: the plain version with dropout from ``generator``."""
+        above 0: the unfused graph with dropout from ``generator``."""
+        if self.plain or (train and self.dropout > 0):
+            if isinstance(x, tuple):
+                x = torch.cat(x, dim=-1)
+            return self._forward_plain(x, temb, train, generator)
         # the temb row stays a plain op, in the torso's dtype (DenseP)
         w, b = _cast_cached(self._dense, (self.Dense_0.weight, self.Dense_0.bias),
                             temb.dtype, temb.device)
         temb_row = F.linear(F.silu(temb), w, b)
         params = self._params()
-        if train and self.dropout > 0:
-            if isinstance(x, tuple):
-                x = torch.cat(x, dim=-1)
-            return fused_resblock_reference(
-                x, temb_row, params, num_groups1=self.GroupNorm_0.num_groups,
-                num_groups2=self.GroupNorm_1.num_groups, eps=1e-6,
-                rescale=self.skip_rescale, resample=self.resample,
-                dropout=lambda h: dropout(h, self.dropout, generator))
         anchor = x[0] if isinstance(x, tuple) else x
         on_card = anchor.device.type == "cuda"
         kw = dict(num_groups1=self.GroupNorm_0.num_groups,
@@ -330,21 +379,108 @@ class ResnetBlockDDPMpp(nn.Module):
         return x + h if not self.skip_rescale else (x + h) * INV_SQRT2
 
 
-class UpsampleLayer(nn.Module):
-    """NCSN++ Upsample without FIR (layers.py:369-392): nearest 2x, then
-    ``Conv_0`` with ``with_conv``. The conv has no dtype of its own: it
-    computes in the promotion of x's dtype and its fp32 parameters, as
-    flax's ``nn.Conv(dtype=None)``."""
+class GaussianFourierProjection(nn.Module):
+    """Gaussian Fourier features of the noise level (layers.py:249; ref
+    layerspp.py:32-41): [sin, cos](2 pi x W). ``W`` is a fixed random
+    projection: no gradient, kept in the state dict."""
 
-    def __init__(self, channels: int, with_conv: bool = False, fir: bool = False):
+    def __init__(self, embedding_size: int = 256, scale: float = 1.0):
         super().__init__()
-        if fir:
-            raise NotImplementedError(_FIR)
-        if with_conv:
-            self.Conv_0 = nn.Conv2d(channels, channels, 3, padding=1)
-        self.with_conv = with_conv
+        self.scale = scale
+        self.W = nn.Parameter(torch.randn(embedding_size) * scale, requires_grad=False)
 
     def forward(self, x: Tensor) -> Tensor:
+        x_proj = x[:, None] * self.W[None, :] * 2 * math.pi
+        return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
+
+
+def conv_then_bias(x: Tensor, w: Tensor, b: Tensor, stride: int = 1,
+                   padding: Optional[int] = None) -> Tensor:
+    """flax ``nn.Conv``'s rounding: the conv's output in x's dtype, then the
+    bias. In fp32 the bias rides in the conv's own call (one fp32 add
+    either way, and one launch fewer); in a narrower dtype it is added
+    after the output is rounded, as in JAX."""
+    if x.dtype == torch.float32:
+        return conv2d_nhwc(x, w, b, stride=stride, padding=padding)
+    return conv2d_nhwc(x, w, stride=stride, padding=padding) + b
+
+
+def _conv_promoted(c: nn.Conv2d, x: Tensor, stride: int = 1,
+                   padding: Optional[int] = None) -> Tensor:
+    """flax ``nn.Conv`` without a dtype: the conv in the promotion of x's
+    dtype and the fp32 parameters, then the bias."""
+    cdt = torch.promote_types(x.dtype, c.weight.dtype)
+    return conv_then_bias(x.to(cdt), c.weight.to(cdt), c.bias.to(cdt),
+                          stride=stride, padding=padding)
+
+
+class Combine(nn.Module):
+    """A pyramid input combined with the trunk (layers.py:268; ref
+    layerspp.py:44-59): ``Conv_0`` (1x1, promoted dtype) of x, then
+    concatenated with y (``'cat'``) or added to it (``'sum'``)."""
+
+    def __init__(self, dim1: int, dim2: int, method: str = "cat"):
+        super().__init__()
+        if method not in ("cat", "sum"):
+            raise ValueError(f"combine method {method!r}")
+        self.Conv_0 = nn.Conv2d(dim1, dim2, 1)
+        self.method = method
+
+    def forward(self, x: Tensor, y: Tensor) -> Tensor:
+        h = _conv_promoted(self.Conv_0, x)
+        if self.method == "cat":
+            dt = torch.promote_types(h.dtype, y.dtype)
+            return torch.cat([h.to(dt), y.to(dt)], dim=-1)
+        return h + y
+
+
+class FIRConv2d(nn.Module):
+    """StyleGAN2's conv with fused FIR up- or downsampling (layers.py:334;
+    ref up_or_down_sampling.py:31-64), in x's dtype; ``weight`` OIHW."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, up: bool = False,
+                 down: bool = False, resample_kernel: Tuple[int, ...] = FIR_KERNEL,
+                 use_bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(ddpm_init_(torch.empty(out_ch, in_ch, kernel, kernel),
+                                              None))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
+        self.up, self.down = up, down
+        self.resample_kernel = tuple(resample_kernel)
+
+    def forward(self, x: Tensor) -> Tensor:
+        w = self.weight.to(x.dtype)
+        if self.up:
+            x = upsample_conv_2d(x, w, k=self.resample_kernel)
+        elif self.down:
+            x = conv_downsample_2d(x, w, k=self.resample_kernel)
+        else:
+            x = conv2d_nhwc(x, w)
+        if self.bias is not None:
+            x = x + self.bias.to(x.dtype)
+        return x
+
+
+class UpsampleLayer(nn.Module):
+    """NCSN++ Upsample (layers.py:369-392). Without FIR: nearest 2x, then
+    ``Conv_0`` with ``with_conv``; the conv has no dtype of its own, so it
+    computes in the promotion of x's dtype and its fp32 parameters, as
+    flax's ``nn.Conv(dtype=None)``. With FIR: ``upsample_2d``, or
+    ``Conv2d_0`` (``FIRConv2d``, in x's dtype) with ``with_conv``."""
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None, with_conv: bool = False,
+                 fir: bool = False, fir_kernel: Tuple[int, ...] = FIR_KERNEL):
+        super().__init__()
+        out_ch = out_ch or in_ch
+        if with_conv and fir:
+            self.Conv2d_0 = FIRConv2d(in_ch, out_ch, up=True, resample_kernel=fir_kernel)
+        elif with_conv:
+            self.Conv_0 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.with_conv, self.fir, self.fir_kernel = with_conv, fir, tuple(fir_kernel)
+
+    def forward(self, x: Tensor) -> Tensor:
+        if self.fir:
+            return self.Conv2d_0(x) if self.with_conv else upsample_2d(x, self.fir_kernel)
         h = naive_upsample_2d(x)
         if not self.with_conv:
             return h
@@ -354,19 +490,25 @@ class UpsampleLayer(nn.Module):
 
 
 class DownsampleLayer(nn.Module):
-    """NCSN++ Downsample without FIR (layers.py:395-420): with ``with_conv``
-    the asymmetric pad (bottom and right by one), then ``Conv_0`` stride 2
-    VALID, in the promoted dtype as ``UpsampleLayer``'s; else a 2x2 mean."""
+    """NCSN++ Downsample (layers.py:394-420). Without FIR: with
+    ``with_conv`` the asymmetric pad (bottom and right by one), then
+    ``Conv_0`` stride 2 VALID, in the promoted dtype as
+    ``UpsampleLayer``'s; else a 2x2 mean. With FIR: ``downsample_2d``, or
+    ``Conv2d_0`` (``FIRConv2d``) with ``with_conv``."""
 
-    def __init__(self, channels: int, with_conv: bool = False, fir: bool = False):
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None, with_conv: bool = False,
+                 fir: bool = False, fir_kernel: Tuple[int, ...] = FIR_KERNEL):
         super().__init__()
-        if fir:
-            raise NotImplementedError(_FIR)
-        if with_conv:
-            self.Conv_0 = nn.Conv2d(channels, channels, 3, stride=2)
-        self.with_conv = with_conv
+        out_ch = out_ch or in_ch
+        if with_conv and fir:
+            self.Conv2d_0 = FIRConv2d(in_ch, out_ch, down=True, resample_kernel=fir_kernel)
+        elif with_conv:
+            self.Conv_0 = nn.Conv2d(in_ch, out_ch, 3, stride=2)
+        self.with_conv, self.fir, self.fir_kernel = with_conv, fir, tuple(fir_kernel)
 
     def forward(self, x: Tensor) -> Tensor:
+        if self.fir:
+            return self.Conv2d_0(x) if self.with_conv else downsample_2d(x, self.fir_kernel)
         if not self.with_conv:
             return naive_downsample_2d(x)
         c = self.Conv_0

@@ -45,7 +45,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,15 +66,13 @@ _RESAMPLE = {"none": 0, "down": 1, "up": 2}
 def fused_resblock_reference(x: Tensor, temb_row: Tensor, params: Tuple,
                              *, num_groups1: int, num_groups2: int,
                              eps: float = 1e-6, rescale: bool = True,
-                             resample: str = "none",
-                             dropout: Optional[Callable[[Tensor], Tensor]] = None) -> Tensor:
+                             resample: str = "none") -> Tensor:
     """Plain version. params = (gn1_scale, gn1_bias, w0 (cout, cin, 3, 3),
     b0, gn2_scale, gn2_bias, w1 (cout, cout, 3, 3), b1, wskip (cout, cin) |
     None, bskip | None).
 
     Convs run in x's dtype and their outputs are taken to fp32; GroupNorm
-    and the sums are fp32, as in the JAX reference. ``dropout`` (training
-    mode, which only the plain version has) acts on GN2 + SiLU's output.
+    and the sums are fp32, as in the JAX reference.
     """
     gn1s, gn1b, w0, b0, gn2s, gn2b, w1, b1, wskip, bskip = params
     cdt = x.dtype
@@ -88,8 +86,6 @@ def fused_resblock_reference(x: Tensor, temb_row: Tensor, params: Tuple,
     h = conv2d_nhwc(h.to(cdt), w0.to(cdt)).float()
     h = h + b0.float() + temb_row.float()[:, None, None, :]
     h = F.silu(group_norm(h, gn2s, gn2b, num_groups2, eps))
-    if dropout is not None:
-        h = dropout(h)
     h = conv2d_nhwc(h.to(cdt), w1.to(cdt)).float() + b1.float()
     if wskip is not None:
         xs = torch.matmul(x.to(cdt), wskip.to(cdt).t()).float() + bskip.float()

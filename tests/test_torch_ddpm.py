@@ -90,9 +90,15 @@ def test_resample_layers(up, with_conv):
 
 
 def test_fir_raises():
-    for layer in (layers.UpsampleLayer, layers.DownsampleLayer):
-        with pytest.raises(NotImplementedError, match="ROADMAP Slice 1 item 5"):
-            layer(8, fir=True)
+    """The FIR layers (tests/test_torch_upfirdn2d.py holds their resampling
+    against JAX) build and resample; a FIR kernel that is not square
+    raises."""
+    x = torch.zeros(1, 4, 4, 8)
+    for layer, size in ((layers.UpsampleLayer, 8), (layers.DownsampleLayer, 2)):
+        for with_conv in (False, True):
+            assert layer(8, with_conv=with_conv, fir=True)(x).shape == (1, size, size, 8)
+        with pytest.raises(ValueError, match="square"):
+            layer(8, fir=True, fir_kernel=np.ones((2, 3)))(x)
 
 
 @pytest.mark.parametrize("variant", ["cifar10", "uncentered_sigma_scaled"])

@@ -64,10 +64,19 @@ def test_cifar10_config_builds_the_benched_model():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NCSNpp(fir=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NCSNpp(progressive="output_skip")
+    """Every option value JAX's NCSN++ takes builds (FIR, the pyramids, the
+    Fourier embedding, unconditional, uncentered: tests/test_torch_ncsnpp_ve.py
+    holds them against JAX); a value it does not take raises."""
+    small = dict(nf=16, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
+                 image_size=16)
+    NCSNpp(**small, fir=True, progressive="output_skip", progressive_input="input_skip",
+           progressive_combine="cat", embedding_type="fourier", conditional=False,
+           scale_by_sigma=True, centered=False)
+    for kw in (dict(progressive="bogus"), dict(progressive_input="skip"),
+               dict(progressive_combine="max"), dict(embedding_type="learned"),
+               dict(resblock_type="unet")):
+        with pytest.raises(ValueError):
+            NCSNpp(**small, **kw)
 
 
 def test_block_caches_follow_weight_edits():

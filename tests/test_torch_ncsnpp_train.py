@@ -81,8 +81,8 @@ def test_ncsnpp_train_at_dropout_0_keeps_the_kernel_route(small_ncsnpp, monkeypa
     x = t_(rng.standard_normal((2, 8, 8, 3)))
     t = t_([3.0, 700.0])
     taken = []
-    plain = layers.fused_resblock_reference
-    monkeypatch.setattr(layers, "fused_resblock_reference",
+    plain = layers.ResnetBlockBigGANpp._forward_plain
+    monkeypatch.setattr(layers.ResnetBlockBigGANpp, "_forward_plain",
                         lambda *a, **k: taken.append(1) or plain(*a, **k))
     outs, grads = [], []
     for train in (True, False):
