@@ -233,7 +233,29 @@ Phases, each fatal on failure:
      evaluation; (c) NCSNv2 (ncsnv2_64, 32 px, nf 128, 232 scales from 50
      to 0.01): one evaluation card against CPU, then annealed Langevin
      dynamics (5 steps a level, snr 0.176) over the first 3 noise levels at
-     batch 8, cold and warm, no kernel launched (phase_samplers).
+     batch 8, cold and warm, no kernel launched (phase_samplers);
+  27. the rest of the JAX package: (a) guided-diffusion's
+     noise-conditioned classifier (create_classifier at 256 px, 54,096,360
+     parameters) at batch 2, fp32 and bf16 card against the CPU's fp32,
+     #6 / #7 / #8 launches exactly its 256-px route census (walked on the
+     meta device), ms a forward by events and device; the input gradient
+     of log p(y | x_t), kernels against the plain routes on the card (fp32
+     5e-4; bf16 within BF16_SPREAD of the plain bf16 gradient's distance
+     from the plain fp32 one); one classifier-guided DDIM step (ddim50)
+     with the ImageNet ADM, fp32, kernels against plain; (b) the 64 -> 256
+     upsampler (sr_create_model, 311,027,910, bf16) at batch 1, kernels
+     against plain, its census's launches; (c) perturbation_pgd with
+     DeltaAddition, ReColorAdv (LUT, YPbPr) and ReColorAdv then
+     FullSpatial, pgd_attack Linf, fgsm and carlini_wagner through the fp32
+     CIFAR defence (t*=4, checkpoint, batch 8, 2 iterations), launches
+     exact, the first-iterate gradient of each parameterisation (LUT and
+     grid; x) kernels against the plain blocks (the
+     classifier's cotangent held fixed), the discretized check
+     and SSIM on each result; (d) the bf16 defence served over two shards
+     on the card, bit for bit its per-shard calls; (e) the score_sde DDPM's
+     training mode (rate 0 bit for bit eval mode, rate 0.1 #10 44 and #3 4
+     times), a debug_dir dump read back, flops_estimate of one NCSN++
+     evaluation beside bench.py's 34.70 GFLOP (phase_rest).
 
 The CPU's side of the card-against-CPU checks of phases 6, 9, 13, 15,
 20(b), 23, 24, 25(a) and 26 runs in a thread of its own (CpuSide), on CPU
@@ -263,7 +285,8 @@ part, idle share, tensor-map cache misses), one evaluation's backward at
 batch 8 and 16 by chain step, the same in fp32 (the run scripts'
 precision) at batch 16 and 64 (profile_grad_f32), and phase 16's ImageNet
 gradient step at t*=10 by part and by kernel family (profile_grad.json);
-``--phase-26`` runs phase 26 alone after phase 1 and ends (phase26.json).
+``--phase-26`` runs phase 26 alone after phase 1 and ends (phase26.json);
+``--phase-27`` phase 27 (phase27.json).
 """
 from __future__ import annotations
 
@@ -274,6 +297,7 @@ import ctypes
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -752,6 +776,40 @@ NCSNV2_PARAMS = 29_694_083
 NCSNV2_ALD = dict(snr=0.176, n_steps_each=5)
 NCSNV2_LEVELS = 3         # the ALD run: the first 3 of the 232 noise levels
 NCSNV2_N = 8
+
+# Phase 27: the rest of the JAX package. (a) guided-diffusion's
+# noise-conditioned classifier, create_classifier(**classifier_defaults())
+# at 256 px (width 128, depth 2, attention at 32 / 16 / 8, the attention
+# pool: 54,096,360 parameters by JAX's tree), batch 2; (b) the 64 -> 256
+# upsampler, sr_create_model(256, 64, **SR_FLAGS) (guided-diffusion's
+# 64_256 flags without class conditioning, as JAX's factory builds it:
+# 311,027,910), batch 1, bf16; (c) the mister_ed attacks and PGD through
+# the fp32 CIFAR defence (configs/cifar10.yml's NCSN++ + WRN-28-10), batch
+# 8, t* = ME_T, `checkpoint`, ME_ITERS iterations each; (d) the defence
+# served over two shards of one card; (e) the DDPM's training mode, a
+# debug_dir dump, flops_estimate.
+CLS_PARAMS = 54_096_360
+CLS_N = 2
+SR_PARAMS = 311_027_910
+SR_FLAGS = dict(num_channels=192, num_heads=4, num_res_blocks=2, attention_resolutions="32,16,8",
+                use_scale_shift_norm=True, resblock_updown=True, learn_sigma=True, use_fp16=True)
+# The classifier and the guided step, card against CPU (fp32 reference)
+# and kernels against the plain blocks on the card: the ADM's bounds
+# (ADM_EVAL_REL: the same blocks, fewer of them). The input gradient of
+# log p(y | x_t), kernels against plain: fp32 ADM_GRAD_REL's (phase 15);
+# bf16 has no fixed bound: two bf16 routes' gradients sit as far apart as
+# bf16's from fp32 (a CPU rehearsal at width 32: 5.3e-2), so the kernels'
+# bf16 gradient is held within BF16_SPREAD of the plain bf16 one's
+# distance from the plain fp32 one (phase 26's rule)
+CLS_GRAD_REL = {"float32": ADM_GRAD_REL["float32"], "bfloat16": float("inf")}
+GUIDANCE_SCALE = 1.0
+DDIM_STEP = 30            # the guided DDIM step's respaced index on ddim50 (original step 600)
+# t* cut to 4 (10 made phase 27 a third of the slack the run's time limit
+# leaves the whole script on a slow host)
+ME_N, ME_T, ME_ITERS = 8, 4, 2
+SERVE_N, SERVE_T = 8, 4
+TRAIN_DROPOUT = 0.1       # the score_sde DDPM's own rate (cifar10_continuous.py)
+NCSNPP_XLA_GFLOP = 34.70  # bench.py:46, XLA's cost analysis of one evaluation at batch 1
 
 OWN_KERNELS = ("f32conv_kernel", "rb_gn_kernel", "rb_gn_bwd_kernel", "splitk_epilogue_kernel",
                "gn_apply_kernel", "gn_silu_bwd_kernel", "gn_regs_kernel", "attn_qkv_f32_kernel",
@@ -1756,6 +1814,47 @@ def build_adm(torch, dev):
     if n_params != ADM_PARAMS:
         raise AssertionError(f"ADM has {n_params} params, expected {ADM_PARAMS}")
     return adm.eval().requires_grad_(False).to(dev)
+
+
+def adm_route_census(torch, model, x_shape, **inputs):
+    """The 256-px routes of one evaluation of an ADM-family ``model`` (built
+    on the meta device) at an input of ``x_shape``, walked on the meta
+    device with adm_unet's two route functions replaced by recorders:
+    ("halo", x shape, cout, projected skip) and ("tiled", x shape, FiLM) ->
+    calls. ``inputs``: the model's other tensor arguments by name (meta
+    tensors), timesteps zero unless given. ``census_launches`` turns it
+    into kernel launches."""
+    from collections import Counter
+    from diffpure_tpu_torch.models import adm_unet
+
+    calls = Counter()
+
+    def halo(x, gn_scale, gn_bias, film_scale, film_shift, w, bias, skip, w_proj,
+             pre_shift, num_groups, eps, packed=None):
+        calls[("halo", tuple(x.shape), w.shape[-1], w_proj is not None)] += 1
+        return torch.empty(tuple(x.shape[:3]) + (w.shape[-1],), dtype=x.dtype,
+                           device=x.device)
+
+    def tiled(x, scale, bias, num_groups, eps, film_scale, film_shift, silu):
+        calls[("tiled", tuple(x.shape), film_scale is not None)] += 1
+        return torch.empty_like(x)
+
+    inputs.setdefault("timesteps", torch.zeros(x_shape[0], dtype=torch.int32,
+                                               device="meta"))
+    with mock.patch.object(adm_unet, "gn_silu_conv_block", halo), \
+            mock.patch.object(adm_unet, "group_norm_film_silu", tiled):
+        model(torch.empty(*x_shape, device="meta"), **inputs)
+    return calls
+
+
+def census_launches(census):
+    """Launches per kernel wrapper of an ``adm_route_census``: a halo stage
+    is one #6 (``group_stats``) and one #8 (``gn_silu_conv3x3_halo``), a
+    tiled call one #6 and one #7 (``gn_film_silu_apply``)."""
+    halo = sum(n for k, n in census.items() if k[0] == "halo")
+    tiled = sum(n for k, n in census.items() if k[0] == "tiled")
+    return {"group_stats": halo + tiled, "gn_film_silu_apply": tiled,
+            "gn_silu_conv3x3_halo": halo, "flash_attention": 0}
 
 
 def adm_census(torch, adm, x):
@@ -5732,6 +5831,550 @@ def phase_samplers(torch, dev, score, smi):
     return rec
 
 
+@contextlib.contextmanager
+def plain_adm(torch):
+    """A context in which the ADM family's blocks take their plain routes on
+    the card (no tiled GN, no halo conv, dense attention): the yardstick
+    phase 27 holds the kernels' path against. Global, so no CPU side may
+    run an ADM-family model meanwhile."""
+    from diffpure_tpu_torch.models import adm_unet
+
+    adm_unet.set_tiled_gn_min_bytes(1 << 62)
+    try:
+        with mock.patch.object(adm_unet, "attention_route", lambda *a: "dense"):
+            yield
+    finally:
+        adm_unet.set_tiled_gn_min_bytes(None)
+
+
+def adm_against_plain(torch, what, fn, counts, rel, outputs=None):
+    """``fn() -> {name: tensor}`` on the card through the kernels, then
+    with the ADM family on its plain routes: each tensor within ``rel``
+    (a number or {name: number}) of the plain one's max; the kernels' route
+    launches exactly ``counts``, the plain route nothing. ``outputs``: a
+    dict that receives both routes' tensors (on the CPU)."""
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    runs = {}
+    for route in ("kernels", "plain"):
+        reset_launch_counts()
+        with plain_adm(torch) if route == "plain" else contextlib.nullcontext():
+            out = fn()
+        torch.cuda.synchronize()
+        runs[route] = ({k: v.detach().float().cpu() for k, v in out.items()}, launch_counts())
+        del out
+    (got, c), (want, c_plain) = runs["kernels"], runs["plain"]
+    if outputs is not None:
+        outputs.update(kernels=got, plain=want)
+    if c != counts or any(c_plain.values()):
+        raise AssertionError(f"{what}: launches {c} (want {counts}); plain route {c_plain}")
+    checks = {k: rel_check(torch, got[k], want[k], rel[k] if isinstance(rel, dict) else rel)
+              for k in want}
+    log(f"  {what}: kernels against the plain routes on the card: " + ", ".join(
+        f"{k} rel {v['rel_err']:.2e} (<= {v['rel_tol']:.0e})" for k, v in checks.items())
+        + f"; launches {({k: n for k, n in c.items() if n})}")
+    bad = [k for k, v in checks.items() if not v["ok"]]
+    if bad:
+        raise AssertionError(f"{what}: {bad} disagree with the plain routes")
+    return dict(checks=checks, launches=c)
+
+
+def seeded_on(torch, model, seed, dev):
+    """A model built on the meta device, filled with seeded random-normal
+    weights and moved to ``dev`` (eval mode, no weight gradients)."""
+    from diffpure_tpu_torch.utils.weights import seeded_normal_state_dict
+
+    sd = seeded_normal_state_dict(model, seed)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, assign=True)
+    return model.eval().requires_grad_(False).to(dev)
+
+
+def log_p_grad(torch, cls, x, t, y, scale=1.0):
+    """(sum log p(y | x, t), scale * its gradient with respect to x): the
+    classifier guidance's cond_fn (ref guided-diffusion's
+    classifier_sample.py)."""
+    xi = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        lp = cls(xi, t).float().log_softmax(-1).gather(-1, y[:, None]).sum()
+        (g,) = torch.autograd.grad(lp, xi)
+    return lp.detach(), g * scale
+
+
+def phase_guidance(torch, dev, adm, rng, smi, cpu):
+    """Phase 27(a): the guidance classifier. Its 256-px route census on the
+    meta device; the forward at batch CLS_N in fp32 and bf16, card against
+    the CPU's fp32 (CpuSide), launches exactly the census, CUDA-event and
+    device ms; the input gradient of log p(y | x_t) in both dtypes, kernels
+    against the plain routes; one classifier-guided DDIM step (ddim50,
+    index DDIM_STEP) with the ImageNet ADM, fp32, kernels against plain."""
+    import numpy as np
+    from diffpure_tpu_torch.models import classifier_defaults, create_classifier
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.purify import make_imagenet_diffusion
+
+    with torch.device("meta"):
+        cls = create_classifier(**dict(classifier_defaults(), image_size=256))
+    n_params = sum(p.numel() for p in cls.parameters())
+    if n_params != CLS_PARAMS:
+        raise AssertionError(f"the classifier has {n_params} params, expected {CLS_PARAMS}")
+    zero = {k: 0 for k in launch_counts()}
+    want = {}
+    for dtype_name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        cls.dtype = dtype
+        want[dtype_name] = {**zero, **census_launches(
+            adm_route_census(torch, cls, (CLS_N, 256, 256, 3)))}
+    log(f"  classifier: {n_params} parameters; launches per evaluation at batch {CLS_N} by "
+        f"the census: {want['float32']}")
+    cls = seeded_on(torch, cls, SEED + 30, dev)
+    x = torch.from_numpy(rng.standard_normal((CLS_N, 256, 256, 3)).astype(np.float32) * 0.5)
+    t = torch.tensor([600, 40], dtype=torch.int32)
+    y = torch.from_numpy(rng.integers(0, 1000, CLS_N))
+    cls_cpu = cpu.copy("classifier", cls)
+    cls_cpu.dtype = None
+
+    def cpu_forward():
+        with torch.inference_mode():
+            return cls_cpu(x, t).float()
+
+    job = cpu.submit("phase 27(a)", cpu_forward)
+    xd, td, yd = x.to(dev), t.to(dev), y.to(dev)
+    rec, fwd = {}, {}
+    for dtype_name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        cls.dtype = dtype
+        reset_launch_counts()
+        with torch.inference_mode():
+            out = cls(xd, td)
+        torch.cuda.synchronize()
+        c = launch_counts()
+        if c != want[dtype_name] or tuple(out.shape) != (CLS_N, 1000) \
+                or out.dtype != torch.float32:
+            raise AssertionError(f"classifier {dtype_name}: launches {c} (want "
+                                 f"{want[dtype_name]}), logits {tuple(out.shape)} {out.dtype}")
+        rec[dtype_name] = dict(logits=out.cpu(), launches=c)
+
+        def forward(dtype=dtype):
+            cls.dtype = dtype
+            with torch.inference_mode():
+                return cls(xd, td)
+
+        fwd[dtype_name] = forward
+        rec[dtype_name]["ms"] = cuda_ms(torch, forward, reps=3, warmup=1)
+    for (dtype_name, f), (ms, _) in zip(fwd.items(), device_ms_many(torch, list(fwd.values()),
+                                                                    reps=3)):
+        rec[dtype_name]["device_ms"] = ms
+    ref = cpu.result(job)
+    for dtype_name in fwd:
+        chk = rel_check(torch, rec[dtype_name].pop("logits"), ref, ADM_EVAL_REL[dtype_name])
+        rec[dtype_name]["card_vs_cpu"] = chk
+        log(f"  classifier {dtype_name}, batch {CLS_N}: {rec[dtype_name]['ms']:.2f} ms a forward "
+            f"(events), {rec[dtype_name]['device_ms']:.2f} of device on {smi}; card against the "
+            f"CPU's fp32 rel {chk['rel_err']:.2e} (<= {chk['rel_tol']:.0e})")
+        if not chk["ok"]:
+            raise AssertionError(f"classifier {dtype_name}: card and CPU disagree")
+
+    def grad():
+        lp, g = log_p_grad(torch, cls, xd, td, yd)
+        return {"log p": lp[None], "d/dx": g}
+
+    grads = {}
+    for dtype_name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        cls.dtype = dtype
+        grads[dtype_name] = {}
+        rec[dtype_name]["input_grad"] = adm_against_plain(
+            torch, f"classifier input gradient, {dtype_name}", grad, want[dtype_name],
+            CLS_GRAD_REL[dtype_name], outputs=grads[dtype_name])
+    # bf16: the kernels' gradient no further from the plain fp32 one than
+    # BF16_SPREAD x the plain bf16 one is
+    ref = grads["float32"]["plain"]["d/dx"]
+    spread = {route: rel_check(torch, grads["bfloat16"][route]["d/dx"], ref, 1.0)["rel_err"]
+              for route in ("kernels", "plain")}
+    rec["bfloat16"]["input_grad"]["from_plain_fp32"] = spread
+    log(f"  bf16 input gradient from the plain fp32 one: kernels {spread['kernels']:.2e}, plain "
+        f"{spread['plain']:.2e} (<= {BF16_SPREAD} x)")
+    if not 0 < spread["kernels"] <= BF16_SPREAD * spread["plain"]:
+        raise AssertionError(f"the bf16 input gradient: {spread}")
+
+    # one guided DDIM step: the ImageNet ADM (fp32) as the model, the
+    # classifier (fp32) as cond_fn at the model's timesteps
+    home = next(adm.parameters()).device
+    adm.to(dev)
+    adm.dtype, cls.dtype = torch.float32, None
+    adm_calls = {}
+    for (name, _), n in adm_census(torch, adm, xd).items():
+        adm_calls[name] = adm_calls.get(name, 0) + n
+    step_counts = {k: v + adm_calls.get(k, 0) for k, v in want["float32"].items()}
+    diffusion = make_imagenet_diffusion("ddim50")
+    ts = torch.full((CLS_N,), DDIM_STEP, dtype=torch.int32, device=dev)
+
+    def guided_step():
+        with torch.no_grad():
+            out = diffusion.ddim_sample(
+                adm, xd, ts, clip_denoised=True, noise=torch.zeros_like(xd),
+                cond_fn=lambda xx, tt: log_p_grad(torch, cls, xx, tt, yd, GUIDANCE_SCALE)[1])
+        return {"sample": out["sample"], "pred_xstart": out["pred_xstart"]}
+
+    rec["guided_ddim_step"] = adm_against_plain(
+        torch, f"classifier-guided DDIM step (ddim50 index {DDIM_STEP}, ADM + classifier fp32)",
+        guided_step, step_counts, ADM_EVAL_REL["float32"])
+    adm.dtype = torch.bfloat16
+    adm.to(home)
+    del cls
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_upsampler(torch, dev, rng, smi):
+    """Phase 27(b): the 64 -> 256 upsampler at guided-diffusion's width
+    (bf16 torso), one forward at batch 1, kernels against the plain routes
+    on the card, launches exactly its census (bf16's halo kernel takes
+    cout % 128 == 0: its 192-channel stages take the tiled route)."""
+    import numpy as np
+    from diffpure_tpu_torch.models import sr_create_model
+    from diffpure_tpu_torch.ops import launch_counts
+
+    with torch.device("meta"):
+        sr = sr_create_model(256, 64, **SR_FLAGS)
+    n_params = sum(p.numel() for p in sr.parameters())
+    if n_params != SR_PARAMS or sr.dtype != torch.bfloat16:
+        raise AssertionError(f"the upsampler has {n_params} params ({sr.dtype}), expected "
+                             f"{SR_PARAMS} (bf16)")
+    low_meta = torch.empty(1, 64, 64, 3, device="meta")
+    want = {**{k: 0 for k in launch_counts()},
+            **census_launches(adm_route_census(torch, sr, (1, 256, 256, 3),
+                                               low_res=low_meta))}
+    sr = seeded_on(torch, sr, SEED + 31, dev)
+    x = torch.from_numpy(rng.standard_normal((1, 256, 256, 3)).astype(np.float32) * 0.5).to(dev)
+    low = torch.from_numpy(rng.uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32)).to(dev)
+    t = torch.tensor([500], dtype=torch.int32, device=dev)
+
+    def forward():
+        with torch.inference_mode():
+            return sr(x, t, low_res=low)
+
+    rec = adm_against_plain(torch, f"upsampler ({n_params} parameters, bf16, batch 1)",
+                            lambda: {"output": forward()}, want, ADM_EVAL_REL["bfloat16"])
+    rec["ms"] = cuda_ms(torch, forward, reps=3, warmup=1)
+    rec["device_ms"] = device_ms_many(torch, [forward], reps=3)[0][0]
+    log(f"  upsampler: {rec['ms']:.2f} ms a forward (events), {rec['device_ms']:.2f} of device "
+        f"on {smi}")
+    del sr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def first_iterate_grad(torch, dm, what, leaves, image_of, head, seed):
+    """The first iterate's gradient of an attack through the defence,
+    kernels against the plain blocks: the classifier's part linearised at
+    the purified image (its cotangent w there, one w for both routes, so
+    that WRN-28-10's ReLU kinks do not enter), then d sum(w * purify(
+    image_of(leaves))) / d leaves on both routes (kernels_against_plain)."""
+    with torch.no_grad():
+        p = dm.purify(image_of(leaves), seed)
+    p.requires_grad_(True)
+    with torch.enable_grad():
+        (w,) = torch.autograd.grad(head(dm.classify(p)).sum(), p)
+
+    def fn():  # the purified image, and the gradient of sum(w * it) by leaf
+        ls = [leaf.detach().requires_grad_(True) for leaf in leaves]
+        with torch.enable_grad():
+            purified = dm.purify(image_of(ls), seed)
+            grads = torch.autograd.grad((w * purified).sum(), ls)
+        return purified, {f"leaf {i}": g for i, g in enumerate(grads)}
+
+    return kernels_against_plain(torch, dm.score_model, f"{what}, the first iterate's gradient",
+                                 fn, counts=grad_counts(2 * ME_T, ME_T))
+
+
+def phase_mister_ed(torch, dev, score, clf, rng, smi):
+    """Phase 27(c): the mister_ed attacks and PGD through the fp32 CIFAR
+    defence (t* = ME_T, `checkpoint`, batch ME_N), ME_ITERS iterations
+    each: perturbation_pgd with DeltaAddition, with ReColorAdv (LUT, YPbPr)
+    and with ReColorAdv then FullSpatial; pgd_attack Linf; fgsm;
+    carlini_wagner. Launches exactly the evaluations each makes; x_adv in
+    [0, 1] and its threat model; the first iterate's gradient, kernels
+    against the plain blocks; the discretized check and SSIM on each
+    result."""
+    import numpy as np
+    from diffpure_tpu_torch.attacks import mister_ed as me
+    from diffpure_tpu_torch.attacks.discretization import discretized_adversarial_check
+    from diffpure_tpu_torch.attacks.losses import ce_loss, margin_loss
+    from diffpure_tpu_torch.attacks.perturbations import DeltaAddition, \
+        ParameterizedXformAdv, SequentialPerturbation, leaves, unflatten
+    from diffpure_tpu_torch.attacks.pgd import PGDConfig, pgd_attack
+    from diffpure_tpu_torch.attacks.recoloradv import FullSpatialColorTransform, ReColorAdv, \
+        YPbPrColorSpace
+    from diffpure_tpu_torch.attacks.spatial import FullSpatial
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.utils.prng import fold_in
+    from diffpure_tpu_torch.utils.ssim import ssim
+
+    score.dtype = torch.float32
+    dm = defended(torch, score, clf, ME_T, "checkpoint")
+    x = torch.from_numpy(rng.uniform(size=(ME_N, 32, 32, 3)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 10, ME_N)).to(dev)
+    eps = 8 / 255
+    recolor = ReColorAdv(xform=FullSpatialColorTransform(8), color_space=YPbPrColorSpace(),
+                         lp_bound=0.06)
+    perts = {"DeltaAddition": DeltaAddition(lp_style="inf", lp_bound=eps),
+             "ReColorAdv (LUT, YPbPr)": recolor,
+             "ReColorAdv + FullSpatial": SequentialPerturbation(layers=(
+                 recolor, ParameterizedXformAdv(xform=FullSpatial(), lp_bound=0.05,
+                                                use_stadv=True)))}
+    pgd_cfg = me.MisterEdPGDConfig(num_iterations=ME_ITERS, step_size=2 / 255)
+    T, it = ME_T, ME_ITERS
+    # (name, attack, (forward, backward) score evaluations, Linf bound or None)
+    attacks = [(f"perturbation_pgd {name}",
+                functools.partial(me.perturbation_pgd, dm, pert, x, y, SEED + 40, pgd_cfg),
+                (2 * T * it + T, T * it), eps if name == "DeltaAddition" else None)
+               for name, pert in perts.items()]
+    attacks += [
+        ("pgd_attack Linf", lambda: pgd_attack(dm, x, y, SEED + 41, PGDConfig(
+            n_iter=it, eps=eps, step_size=2 / 255)), (3 * T * it, T * it), eps),
+        ("fgsm", lambda: (me.fgsm(dm, x, y, SEED + 42, eps=eps), None), (2 * T, T), eps),
+        ("carlini_wagner", lambda: me.carlini_wagner(dm, x, y, SEED + 43, me.CarliniWagnerConfig(
+            num_iterations=it, lr=0.01)), (3 * T * it, T * it), None)]
+    runs = {}
+    for name, attack, (fwd, bwd), bound in attacks:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        x_adv, found = attack()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = launch_counts()
+        if counts != grad_counts(fwd, bwd):
+            raise AssertionError(f"{name}: launches {counts} != {grad_counts(fwd, bwd)}")
+        dist = float((x_adv - x).abs().max())
+        if tuple(x_adv.shape) != tuple(x.shape) or not bool(torch.isfinite(x_adv).all()) \
+                or float(x_adv.min()) < 0 or float(x_adv.max()) > 1 \
+                or (bound is not None and dist > bound + 1e-6):
+            raise AssertionError(f"{name}: x_adv off [0, 1] or its ball (max |d| {dist})")
+        with torch.no_grad():
+            found_q = discretized_adversarial_check(dm, x_adv, y, SEED + 44)
+        s = float(ssim(x, x_adv))
+        if not -1.0 <= s <= 1.0:
+            raise AssertionError(f"{name}: SSIM {s}")
+        runs[name] = dict(wall_s=wall, evals=(fwd, bwd), counts=counts, max_abs_dist=dist,
+                          found=None if found is None else int(found.sum()),
+                          found_after_rounding=int(found_q.sum()), ssim=s)
+        log(f"  {name}: {wall:.2f} s ({fwd} forward / {bwd} backward evaluations) on {smi}; "
+            f"max |x_adv - x| {dist:.4f}, found {runs[name]['found']}, after 8-bit rounding "
+            f"{int(found_q.sum())} (random weights), SSIM {s:.4f}; launches exact")
+
+    def cw_f6_head(logits):
+        return me.cw_f6(logits, y)
+
+    # each attack's parameterisation at its first iterate: the three
+    # perturbations' leaves (delta; the LUT; the LUT and the grid), x itself
+    # (pgd_attack and fgsm: CE at x), and CW's w, x through tanh
+    grads = {}
+    for name, pert in perts.items():
+        p0 = pert.init_params(x)
+        grads[f"perturbation_pgd {name}"] = first_iterate_grad(
+            torch, dm, name, [leaf.detach().contiguous() for leaf in leaves(p0)],
+            lambda ls, pert=pert, p0=p0: pert.apply(pert.project(unflatten(p0, ls), x), x),
+            cw_f6_head, fold_in(SEED + 40, 0))
+    grads["pgd_attack / fgsm (CE at x)"] = first_iterate_grad(
+        torch, dm, "CE at x", [x], lambda ls: ls[0], lambda logits: ce_loss(logits, y),
+        fold_in(SEED + 41, 0))
+    w0 = torch.atanh(2 * torch.clamp(x, 1e-6, 1 - 1e-6) - 1)
+    grads["carlini_wagner (w)"] = first_iterate_grad(
+        torch, dm, "carlini_wagner", [w0], lambda ls: (torch.tanh(ls[0]) + 1) / 2,
+        lambda logits: margin_loss(logits, y), fold_in(SEED + 43, 0))
+    score.dtype = torch.bfloat16
+    return dict(attacks=runs, first_iterate_grads=grads)
+
+
+def phase_serving(torch, dev, score, clf, rng):
+    """Phase 27(d): the bf16 defence served over a mesh of two shards on
+    one card, SERVE_T evaluations a shard: ``shard_defended_call`` (JAX's
+    serving.py) bit for bit its two per-shard calls with fold_in(seed, i);
+    the CLI's ``ShardedDefendedModel`` on an uneven batch (SERVE_N - 1 rows,
+    4 + 3) bit for bit its per-shard calls with BatchSlice noise, and
+    within a tenth of a reseeded call's distance of the unsharded call
+    (the noise does not depend on the mesh)."""
+    import dataclasses
+
+    import numpy as np
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.parallel import ShardedDefendedModel, make_mesh, \
+        shard_defended_call
+    from diffpure_tpu_torch.purify import BatchSlice
+    from diffpure_tpu_torch.utils.prng import fold_in
+
+    score.dtype = torch.bfloat16
+    dm = defended(torch, score, clf, SERVE_T, "none")
+    mesh = make_mesh(data=2, devices=[dev, dev])
+    served = shard_defended_call(
+        lambda sc, cl, xs, s: dataclasses.replace(dm, score_model=sc, classifier=cl)(xs, s),
+        mesh, score, clf)
+    sharded = ShardedDefendedModel(dm, mesh)
+    x = torch.from_numpy(rng.uniform(size=(SERVE_N, 32, 32, 3)).astype(np.float32)).to(dev)
+    seed, half, odd = SEED + 50, SERVE_N // 2, SERVE_N - 1
+    counts = {}
+    with torch.inference_mode():
+        reset_launch_counts()
+        got = served(x, seed)
+        torch.cuda.synchronize()
+        counts["shard_defended_call"] = launch_counts()
+        want = torch.cat([dm(x[:half], fold_in(seed, 0)), dm(x[half:], fold_in(seed, 1))])
+        reset_launch_counts()
+        got_cli = sharded(x[:odd], seed)
+        torch.cuda.synchronize()
+        counts["ShardedDefendedModel"] = launch_counts()
+        want_cli = torch.cat([dm(x[a:b], BatchSlice(seed, a, b, odd))
+                              for a, b in ((0, half), (half, odd))])
+        whole, reseeded = dm(x[:odd], seed), dm(x[:odd], seed + 1)
+    bad = {k: c for k, c in counts.items() if c != expected_counts(2 * SERVE_T)}
+    if bad:
+        raise AssertionError(f"served calls: launches {bad} != {expected_counts(2 * SERVE_T)}")
+    same, same_cli = bool(torch.equal(got, want)), bool(torch.equal(got_cli, want_cli))
+    to_whole = float((got_cli - whole).abs().max())
+    noise_scale = float((reseeded - whole).abs().max())
+    log(f"  shard_defended_call over mesh {mesh.shape} on {dev}: logits {tuple(got.shape)}, "
+        f"bit for bit the per-shard calls with fold_in(seed, i): {same}; ShardedDefendedModel "
+        f"on {odd} rows (4 + 3): bit for bit its per-shard calls with BatchSlice: {same_cli}, "
+        f"max |logit - unsharded| {to_whole:.3e} (a reseeded unsharded call: "
+        f"{noise_scale:.3e}); launches exact")
+    if not (same and same_cli) or tuple(got.shape) != (SERVE_N, 10) \
+            or tuple(got_cli.shape) != (odd, 10) or not to_whole <= 0.1 * noise_scale:
+        raise AssertionError("a served call is not its per-shard calls, or the sharded "
+                             "defence's noise depends on the mesh")
+    return dict(shards=mesh.size, bitwise=same, cli_bitwise=same_cli, counts=counts,
+                cli_max_abs_to_unsharded=to_whole, reseeded_max_abs=noise_scale)
+
+
+def ncsnpp_gflop(torch, score_cpu):
+    """flops_estimate of one evaluation of the fp32 NCSN++ at batch 1, on a
+    CPU copy (the counter sees PyTorch's operators: the wrappers' plain
+    versions there), in GFLOP."""
+    from diffpure_tpu_torch.utils.profiling import flops_estimate
+
+    return flops_estimate(score_cpu, torch.zeros(1, 32, 32, 3), torch.tensor([500.0])) / 1e9
+
+
+def phase_aux(torch, dev, score, clf, ddpm, rng, cpu, flops_job):
+    """Phase 27(e): the score_sde DDPM's training mode at full width, batch
+    N: at rate 0 eval mode bit for bit on eval mode's route, at
+    TRAIN_DROPOUT #10 44 and #3 4 times; a DefendedModel debug_dir dump
+    read back; ``flops_job``'s flops_estimate of one NCSN++ evaluation
+    (ncsnpp_gflop, on the CPU side) beside XLA's NCSNPP_XLA_GFLOP."""
+    import numpy as np
+    from diffpure_tpu_torch.eval import DefendedModel
+    from diffpure_tpu_torch.models.layers import ResnetBlockDDPMpp
+    from diffpure_tpu_torch.ops import launch_counts, reset_launch_counts
+    from diffpure_tpu_torch.purify import PurifyConfig
+
+    home = next(ddpm.parameters()).device
+    ddpm.to(dev)
+    blocks = [m for m in ddpm.modules() if isinstance(m, ResnetBlockDDPMpp)]
+    if {b.dropout for b in blocks} != {TRAIN_DROPOUT}:
+        raise AssertionError(f"the DDPM's dropout {({b.dropout for b in blocks})}")
+    x = torch.from_numpy(rng.standard_normal((N, 32, 32, 3)).astype(np.float32)).to(dev)
+    t = torch.full((N,), 499.5, device=dev)
+    want = {**{k: 0 for k in launch_counts()}, **DDPM_TRAIN_COUNTS}  # 44 #10, 4 #3
+    outs, counts = {}, {}
+    with torch.inference_mode():
+        for what, rate, train in (("eval", TRAIN_DROPOUT, False), ("train, rate 0", 0.0, True),
+                                  ("train", TRAIN_DROPOUT, True)):
+            for b in blocks:
+                b.dropout = rate
+            reset_launch_counts()
+            outs[what] = ddpm(x, t, train=train,
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 60))
+            torch.cuda.synchronize()
+            counts[what] = launch_counts()
+    for b in blocks:
+        b.dropout = TRAIN_DROPOUT
+    ddpm.to(home)
+    rate0_same = bool(torch.equal(outs["train, rate 0"], outs["eval"]))
+    moved = float((outs["train"] - outs["eval"]).abs().max())
+    log(f"  DDPM training mode, batch {N}: rate 0 bit for bit eval mode: {rate0_same}; rate "
+        f"{TRAIN_DROPOUT} moves the output by {moved:.3e}; launches {counts['train']}")
+    if not rate0_same or any(c != want for c in counts.values()) or not moved > 0 \
+            or not bool(torch.isfinite(outs["train"]).all()):
+        raise AssertionError(f"DDPM training mode: rate 0 same {rate0_same}, moved {moved}, "
+                             f"launches {counts} (want {want} each)")
+
+    # the debug dumps of the first two purifications
+    from PIL import Image
+
+    dump = OUT / "debug_dump"
+    shutil.rmtree(dump, ignore_errors=True)
+    dm = DefendedModel(score, clf, PurifyConfig(t=2, grad_mode="none"), log_every=0,
+                       tag="p27", debug_dir=str(dump))
+    xd = torch.from_numpy(rng.uniform(size=(10, 32, 32, 3)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        purified = [dm.purify(xd, SEED + 61 + i).float().cpu() for i in range(3)]
+    dirs = sorted(os.listdir(dump))
+    saved = [np.load(dump / f"bs{i}_p27" / "samples_0.npy").astype(np.float32) for i in range(2)]
+    pngs = [np.asarray(Image.open(dump / f"bs{i}_p27" / "samples_0.png")) for i in range(2)]
+    dump_ok = dirs == ["bs0_p27", "bs1_p27"] and all(
+        s.shape == (8, 32, 32, 3) and np.abs(s - (p[:8].numpy() * 2 - 1)).max() <= 1e-5
+        for s, p in zip(saved, purified)) and all(g.shape == (36, 274, 3) for g in pngs)
+    log(f"  debug_dir: {dirs}, samples_0.npy = the purified x[:8], grids {pngs[0].shape}: "
+        f"{dump_ok}")
+    if not dump_ok:
+        raise AssertionError(f"the debug dump: {dirs}, {[s.shape for s in saved]}, "
+                             f"{[g.shape for g in pngs]}")
+
+    gflop = cpu.result(flops_job)
+    log(f"  flops_estimate of one NCSN++ evaluation at batch 1: {gflop:.2f} GFLOP "
+        f"(FlopCounterMode: convolutions and products), XLA's cost analysis "
+        f"{NCSNPP_XLA_GFLOP} (bench.py:46)")
+    if not 0.8 * NCSNPP_XLA_GFLOP <= gflop <= 1.25 * NCSNPP_XLA_GFLOP:
+        raise AssertionError(f"flops_estimate {gflop} GFLOP against XLA's {NCSNPP_XLA_GFLOP}")
+    return dict(ddpm_train=dict(rate0_bitwise=rate0_same, moved=moved, counts=counts["train"]),
+                debug_dump=dict(dirs=dirs, ok=dump_ok), ncsnpp_gflop=gflop)
+
+
+def phase_rest(torch, dev, score, clf, adm, ddpm, smi):
+    """Phase 27: (a)-(e) (phase_guidance, phase_upsampler,
+    phase_mister_ed, phase_serving, phase_aux), with a CPU side and seeded
+    inputs of its own."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 27)
+    cpu = CpuSide(torch)
+    rec, part_s = {}, {}
+    t0 = [time.time()]
+
+    def part_done(name):
+        part_s[name] = time.time() - t0[0]
+        t0[0] = time.time()
+
+    try:
+        log(f"== phase 27(a): the guidance classifier (create_classifier at 256 px), batch "
+            f"{CLS_N}, fp32 and bf16; its input gradient; a guided DDIM step with the ADM")
+        rec["guidance"] = phase_guidance(torch, dev, adm, rng, smi, cpu)
+        part_done("a")
+        # the NCSN++'s FLOP count on the CPU side, beside (b)-(d)
+        dtype, score.dtype = score.dtype, torch.float32
+        score_cpu = copy.deepcopy(score).cpu()
+        score.dtype = dtype
+        flops_job = cpu.submit("phase 27(e)'s flops_estimate", lambda: ncsnpp_gflop(torch,
+                                                                                     score_cpu))
+        log("== phase 27(b): the 64 -> 256 upsampler (sr_create_model), bf16, batch 1")
+        rec["upsampler"] = phase_upsampler(torch, dev, rng, smi)
+        part_done("b")
+        log(f"== phase 27(c): the mister_ed attacks and PGD through the fp32 CIFAR defence, "
+            f"t*={ME_T}, batch {ME_N}, {ME_ITERS} iterations each")
+        rec["mister_ed"] = phase_mister_ed(torch, dev, score, clf, rng, smi)
+        part_done("c")
+        log(f"== phase 27(d): the bf16 defence served over two shards, t*={SERVE_T}, batch "
+            f"{SERVE_N}")
+        rec["serving"] = phase_serving(torch, dev, score, clf, rng)
+        part_done("d")
+        log("== phase 27(e): the DDPM's training mode, a debug_dir dump, flops_estimate")
+        rec["aux"] = phase_aux(torch, dev, score, clf, ddpm, rng, cpu, flops_job)
+        part_done("e")
+        log(f"  phase 27 by part (s): {json.dumps({k: round(v, 1) for k, v in part_s.items()})}")
+        rec.update(part_s=part_s, cpu_side_s=cpu.seconds)
+        return rec
+    finally:
+        cpu.close()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stop-after", choices=("2b", "2c", "2d"), default=None,
@@ -5749,6 +6392,10 @@ def main() -> int:
     ap.add_argument("--phase-26", action="store_true",
                     help="after phase 1, run phase 26 alone (the score_sde samplers and the "
                          "legacy score models) and end (no result line)")
+    ap.add_argument("--phase-27", action="store_true",
+                    help="after phase 1, run phase 27 alone (the guidance classifier, the "
+                         "upsampler, the mister_ed attacks, serving, the DDPM's training "
+                         "mode) and end (no result line)")
     ap.add_argument("--profile-grad", action="store_true",
                     help="after phase 1, profile warm steps of phase 5's gradient and one "
                          "evaluation's backward at batch 8 and 16 (the chain's steps), and "
@@ -5829,6 +6476,15 @@ def main() -> int:
         phase_done("26")
         (OUT / "phase26.json").write_text(json.dumps(dict(card=smi, phase_s=phase_s, **rec),
                                                      indent=1))
+        return 3
+    if args.phase_27:
+        score, clf = build_models(torch, dev, torch.bfloat16)
+        adm, ddpm = build_adm(torch, dev), build_ddpm(torch, dev)
+        log("== phase 27 alone: the rest of the JAX package")
+        rec = phase_rest(torch, dev, score, clf, adm, ddpm, smi)
+        phase_done("27")
+        (OUT / "phase27.json").write_text(json.dumps(dict(card=smi, phase_s=phase_s, **rec),
+                                                     indent=1, default=str))
         return 3
     if args.profile_cifar:
         profile_cifar(torch, dev, smi)
@@ -6435,6 +7091,12 @@ def main() -> int:
     samplers = phase_samplers(torch, dev, score, smi)
     phase_done("26")
 
+    # ---- phase 27 -----------------------------------------------------------
+    log("== phase 27: the rest of the JAX package: guided-diffusion's classifier and "
+        "upsampler, the mister_ed attacks, serving over a mesh, the DDPM's training mode")
+    rest = phase_rest(torch, dev, score, clf, adm, ddpm, smi)
+    phase_done("27")
+
     # ---- report -------------------------------------------------------------
     kernels = []
     for name, (source, replaces, *_) in {**KERNELS, **BWD_KERNELS}.items():
@@ -6527,8 +7189,8 @@ def main() -> int:
         guided_ddpm=guided, celebahq=celebahq, new_cli_runs=new_cli,
         training=dict(step=train_step, checks=train_checks, train_loop=train_loop,
                       demo=demo_run, demo_shapes=demo_shapes),
-        samplers=samplers, phase_s=phase_s, cpu_side_s=cpu.seconds, kernels=kernels),
-        indent=1))
+        samplers=samplers, rest=rest, phase_s=phase_s, cpu_side_s=cpu.seconds,
+        kernels=kernels), indent=1, default=str))
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

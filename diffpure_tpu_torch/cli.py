@@ -188,6 +188,17 @@ def main(argv=None) -> dict:
     print(f"x: {tuple(x.shape)} [{float(x.min()):.3f}, {float(x.max()):.3f}] "
           f"on {device}")
 
+    # several cards: the batch in shards over a (data, eot) mesh of all of
+    # them, one replica of the models each (JAX cli.py:174-185); the attacks'
+    # subsets of any size split too, and each shard takes its rows of the
+    # whole batch's noise, so the results do not depend on the card count
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if n_cards > 1 and x.shape[0] % n_cards == 0:
+        from diffpure_tpu_torch.parallel import ShardedDefendedModel, make_mesh
+        mesh = make_mesh()
+        defended = ShardedDefendedModel(defended, mesh)
+        print(f"sharded over mesh {mesh.shape}")
+
     with count_nfe() as nfe:
         results = robustness_eval(defended, x, y, seed, args.attack_version,
                                   log_dir=log_dir, **_attack_kwargs(args))

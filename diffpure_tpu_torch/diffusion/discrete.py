@@ -430,6 +430,14 @@ class SpacedDiffusion(GaussianDiffusion):
     def p_mean_variance(self, model_fn, *args, **kwargs):
         return super().p_mean_variance(self._wrap_model(model_fn), *args, **kwargs)
 
+    # cond_fn sees the model's timesteps, as guided-diffusion wraps it (ref
+    # respace.py:110-117); JAX's SpacedDiffusion hands it the respaced indices
+    def condition_mean(self, cond_fn, *args, **kwargs):
+        return super().condition_mean(self._wrap_model(cond_fn), *args, **kwargs)
+
+    def condition_score(self, cond_fn, *args, **kwargs):
+        return super().condition_score(self._wrap_model(cond_fn), *args, **kwargs)
+
     def training_losses(self, model_fn, *args, **kwargs):
         return super().training_losses(self._wrap_model(model_fn), *args, **kwargs)
 

@@ -30,8 +30,8 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from diffpure_tpu_torch.diffusion.schedules import linspace_f32
 from diffpure_tpu_torch.diffusion.sde import SDE, VESDE, VPSDE, _timestep, batch_mul
-from diffpure_tpu_torch.solvers.dpm import linspace_f32
 from diffpure_tpu_torch.solvers.ode import odeint_euler
 
 Tensor = torch.Tensor

@@ -13,6 +13,17 @@ from typing import Sequence, Set, Union
 import numpy as np
 
 
+def linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
+    """``jnp.linspace(start, stop, num)`` in float32, as XLA computes it:
+    start (1 - s) + stop s with s = k * (1 / (num - 1)), the last point
+    exactly ``stop`` (equal to JAX's grid or within an ulp)."""
+    start, stop = np.float32(start), np.float32(stop)
+    if num == 1:
+        return np.array([start], np.float32)
+    s = np.arange(num - 1, dtype=np.float32) * (np.float32(1) / np.float32(num - 1))
+    return np.append(start * (np.float32(1) - s) + stop * s, stop).astype(np.float32)
+
+
 def linear_beta_schedule(num_timesteps: int, beta_start: float = 1e-4,
                          beta_end: float = 2e-2) -> np.ndarray:
     """Linear beta schedule (float64).

@@ -1,6 +1,6 @@
 """Defended model: purify, then classify, as one differentiable function
-(port of diffpure_tpu/eval/defended.py:35), and the classifier-only
-``UndefendedModel`` (:114).
+(port of diffpure_tpu/eval/defended.py:35), with its ``debug_dir`` dumps,
+and the classifier-only ``UndefendedModel`` (:114).
 
 [0, 1] NHWC in -> (ImageNet: bilinear resize to ``resize_to``) -> [-1, 1]
 -> forward-diffuse and reverse-integrate -> [0, 1] -> classifier logits.
@@ -17,20 +17,13 @@ import time
 from typing import Callable, Optional
 
 import torch
-import torch.nn.functional as F
 
+from diffpure_tpu_torch.ops.resize import bilinear_resize
 from diffpure_tpu_torch.purify.config import PurifyConfig
 from diffpure_tpu_torch.purify.runners import Noise, purify
+from diffpure_tpu_torch.utils.images import dump_purification_debug
 
 Tensor = torch.Tensor
-
-
-def bilinear_resize(x: Tensor, size: int) -> Tensor:
-    """NHWC images to size x size, as jax.image.resize(..., 'bilinear')
-    upsamples (half-pixel centres; its antialiasing acts only when
-    downsampling)."""
-    return F.interpolate(x.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
-                         align_corners=False, antialias=False).permute(0, 2, 3, 1).contiguous()
 
 
 @dataclasses.dataclass
@@ -43,16 +36,24 @@ class DefendedModel:
     log_every: int = 5
     tag: str = "defended"
     resize_to: Optional[int] = None  # ImageNet: classifier 224, purifier 256
+    debug_dir: Optional[str] = None  # PNG dumps of the first two purifications
 
     def __post_init__(self):
         self.reset_counter()
 
     def purify(self, x01: Tensor, noise: Noise) -> Tensor:
-        """[0, 1] -> purified [0, 1]."""
+        """[0, 1] -> purified [0, 1]. With ``debug_dir``, the first two
+        calls dump their first 8 inputs and purified images in [-1, 1]
+        (``utils.images.dump_purification_debug``; JAX's ``_host_dump``);
+        without it nothing leaves the device."""
         if self.resize_to is not None and x01.shape[1] != self.resize_to:
             x01 = bilinear_resize(x01, self.resize_to)
         x = (x01 - 0.5) * 2.0
         x_pure = purify(self.score_model, x, noise, self.purify_cfg)
+        if self.debug_dir is not None and self._dump_count < 2:
+            dump_purification_debug(self.debug_dir, self._dump_count, self.tag,
+                                    x_input=x[:8], x_purified=x_pure[:8])
+            self._dump_count += 1
         return (x_pure + 1.0) * 0.5
 
     def classify(self, x01: Tensor) -> Tensor:
@@ -71,6 +72,7 @@ class DefendedModel:
 
     def reset_counter(self):
         self._counter = 0
+        self._dump_count = 0
         self._t0 = None
 
 

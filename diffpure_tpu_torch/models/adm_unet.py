@@ -12,25 +12,29 @@ the torso (convs, ``emb_layers``, ``qkv``/``proj_out``) runs in bf16 while
 ``time_embed`` and the head stay fp32; GroupNorm statistics and softmax are
 fp32 inside the ops.
 
-Routing (adm_unet.py:105-111, 183-260, 304-309), eval mode only. A map is
+Routing (adm_unet.py:105-111, 183-260, 304-309), eval mode only (dropout,
+training's alone, is left out). A map is
 "tiled" when it is NHWC with H W C * 4 >= ``set_tiled_gn_min_bytes`` (2 MiB)
 and H even. A residual block whose input and output maps are tiled, with no
 resample, scale-shift norm and no conv skip, runs its two stages as
 ``gn_silu_conv_block`` (GroupNorm stats kernel -> halo conv kernel); the
 up/down blocks run ``group_norm_film_silu`` (stats -> apply kernels) on
-their tiled maps. JAX's two TPU-only conditions of the halo route,
-``lanes_ok`` (128 lanes) and ``weights_fit`` (16 MB of VMEM), are dropped.
-The routes do not depend on the device: on CPU tensors the wrappers run
-their plain versions. Attention takes the flash kernel for ``use_flash``,
+their tiled maps. JAX's TPU-only ``weights_fit`` (16 MB of VMEM) is dropped; its
+``lanes_ok`` (128 lanes on a TPU, every shape in interpret mode) becomes
+``_halo_takes``: on a CUDA tensor the halo route is taken only where the
+kernel for the dtype takes the shape (bf16: cout % 128 == 0), on a CPU
+tensor everywhere, as the wrappers there run their plain versions. Attention takes the flash kernel for ``use_flash``,
 T = H W >= 1024 and a CUDA tensor (JAX: a TPU backend), else the dense
 ``qkv_attention``.
 
-Ported: ``ADMUNet`` with its blocks, class conditioning, both resample
-forms and both attention orders. ``EncoderUNetADM``, ``SuperResADM`` and
-``AttentionPool2d`` wait (ROADMAP).
+Also here: ``EncoderUNetADM``, the noise-conditioned guidance classifier
+(its three pools), with ``AttentionPool2d``; ``SuperResADM``, the
+upsampler, which conditions on a bilinearly upsampled low-resolution
+image.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -43,8 +47,9 @@ from diffpure_tpu_torch.ops.attention import qkv_attention
 from diffpure_tpu_torch.ops.conv import conv2d_nhwc
 from diffpure_tpu_torch.ops.flash_attention import qkv_flash_attention
 from diffpure_tpu_torch.ops.groupnorm import group_norm
-from diffpure_tpu_torch.ops.halo_conv import gn_silu_conv_block, \
+from diffpure_tpu_torch.ops.halo_conv import check_halo_shape, gn_silu_conv_block, \
     pack_halo_weights
+from diffpure_tpu_torch.ops.resize import bilinear_resize
 from diffpure_tpu_torch.ops.tiled_groupnorm import group_norm_film_silu
 from diffpure_tpu_torch.ops.upfirdn2d import naive_downsample_2d, \
     naive_upsample_2d
@@ -71,6 +76,28 @@ def use_tiled_gn(shape) -> bool:
         return False
     H, W, C = shape[1], shape[2], shape[3]
     return H * W * C * 4 >= _TILED_GN_MIN_BYTES and H % 2 == 0
+
+
+def _halo_takes(x: Tensor, cout: int) -> bool:
+    """JAX's ``lanes_ok`` (adm_unet.py:165-166: on a TPU, 128-lane channel
+    counts; in interpret mode every shape): on a CPU tensor, whose wrappers
+    run their plain versions, every shape; on any other (CUDA, and the meta
+    device of a route census) only where the halo kernel for x's dtype
+    takes both stages; elsewhere the block takes the tiled route."""
+    return x.device.type == "cpu" or _halo_shape_ok(x.dtype, tuple(x.shape), cout)
+
+
+@functools.lru_cache(maxsize=None)
+def _halo_shape_ok(dtype: torch.dtype, x_shape: tuple, cout: int) -> bool:
+    """Whether the halo kernel for ``dtype`` takes x (cin) -> cout and
+    cout -> cout with x as the skip (``check_halo_shape``)."""
+    N, H, W, cin = x_shape
+    try:
+        check_halo_shape(dtype, x_shape, (3, 3, cin, cout), 0, False)
+        check_halo_shape(dtype, (N, H, W, cout), (3, 3, cout, cout), cin, cin != cout)
+    except ValueError:
+        return False
+    return True
 
 
 def _gn(channels: int) -> nn.GroupNorm:
@@ -139,7 +166,8 @@ class ResBlockADM(nn.Module):
 
         if (tiled and not (self.up or self.down) and self.use_scale_shift_norm
                 and not self.use_conv_skip
-                and use_tiled_gn(x.shape[:3] + (self.out_channels,))):
+                and use_tiled_gn(x.shape[:3] + (self.out_channels,))
+                and _halo_takes(x, self.out_channels)):
             # two streamed stages: [GN+SiLU+conv] and [GN+FiLM+SiLU+conv+skip]
             scale, shift = emb_out.chunk(2, dim=-1)
             proj = None if in_ch == self.out_channels else self.skip_connection
@@ -366,6 +394,137 @@ class ADMUNet(nn.Module):
         gn, head = self.out[0], self.out[2]
         h = F.silu(group_norm(h, gn.weight, gn.bias, GN_GROUPS, GN_EPS))
         return conv2d_nhwc(h, head.weight, head.bias)
+
+
+class AttentionPool2d(nn.Module):
+    """CLIP-style attention pooling (adm_unet.py:473; ref unet.py:30-60):
+    the mean token prepended to the H W tokens, a learned position
+    embedding, ``qkv_proj`` / ``c_proj`` conv1d weights (out, in, 1) and
+    "new"-order attention in heads of ``num_heads_channels``; the first
+    token's output. ``positional_embedding`` is guided-diffusion's (C, T)
+    (JAX holds it (T, C))."""
+
+    def __init__(self, spacial_dim: int, embed_dim: int, num_heads_channels: int,
+                 output_dim: Optional[int] = None):
+        super().__init__()
+        self.positional_embedding = nn.Parameter(
+            torch.randn(embed_dim, spacial_dim ** 2 + 1) / embed_dim ** 0.5)
+        self.qkv_proj = nn.Conv1d(embed_dim, 3 * embed_dim, 1)
+        self.c_proj = nn.Conv1d(embed_dim, output_dim or embed_dim, 1)
+        self.num_heads = embed_dim // num_heads_channels
+
+    def forward(self, x: Tensor) -> Tensor:
+        N, H, W, C = x.shape
+        h = x.reshape(N, H * W, C)
+        h = torch.cat([h.mean(dim=1, keepdim=True), h], dim=1)
+        h = h + self.positional_embedding.t()[None].to(h.dtype)
+        qkv = F.linear(h, self.qkv_proj.weight[:, :, 0], self.qkv_proj.bias)
+        a = qkv_attention(qkv, self.num_heads, order="new")
+        return F.linear(a, self.c_proj.weight[:, :, 0], self.c_proj.bias)[:, 0]
+
+
+class SuperResADM(ADMUNet):
+    """The upsampler (adm_unet.py:496; ref unet.py:674-690): ``low_res``
+    upsampled bilinearly to x's size and concatenated to x on the channels,
+    so ``in_channels`` counts both."""
+
+    def forward(self, x: Tensor, timesteps: Tensor, low_res: Optional[Tensor] = None,
+                y: Optional[Tensor] = None) -> Tensor:
+        up = bilinear_resize(low_res, x.shape[1])
+        return super().forward(torch.cat([x, up], dim=-1), timesteps, y)
+
+
+class EncoderUNetADM(nn.Module):
+    """The half-UNet encoder with a pooled head: the guidance classifier
+    (adm_unet.py:511; ref unet.py:691-880). forward(x NHWC, timesteps (N,))
+    -> (N, out_channels) logits in x's dtype. Its attention blocks stay
+    dense, as JAX passes them no ``use_flash``. With ``dtype`` the torso
+    runs in it and the pool in x's dtype.
+
+    Pools: ``adaptive`` (GN, SiLU, mean, 1x1 conv: guided-diffusion's
+    ``out.3``, JAX's ``out_2``), ``attention`` (GN, SiLU,
+    ``AttentionPool2d``) and ``spatial`` (the mean of each residual stage's
+    output and of the middle block's, then two Linear layers). The spatial
+    pool's inputs are JAX's: guided-diffusion also pools the stem conv and
+    the downsampling blocks."""
+
+    def __init__(self, image_size: int = 256, in_channels: int = 3,
+                 model_channels: int = 128, out_channels: int = 1000,
+                 num_res_blocks: int = 2,
+                 attention_resolutions: Tuple[int, ...] = (8, 16, 32),
+                 dropout: float = 0.0,
+                 channel_mult: Tuple[float, ...] = (1, 1, 2, 2, 4, 4),
+                 conv_resample: bool = True, num_heads: int = 1,
+                 num_head_channels: int = 64, use_scale_shift_norm: bool = True,
+                 resblock_updown: bool = True, use_new_attention_order: bool = False,
+                 pool: str = "attention", dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if pool not in ("adaptive", "attention", "spatial"):
+            raise NotImplementedError(pool)
+        self.model_channels = model_channels
+        self.pool = pool
+        self.dtype = dtype
+        temb = model_channels * 4
+        self.time_embed = nn.Sequential(nn.Linear(model_channels, temb), nn.SiLU(),
+                                        nn.Linear(temb, temb))
+        ch = int(channel_mult[0] * model_channels)
+        self.input_blocks = nn.ModuleList([nn.ModuleList([
+            nn.Conv2d(in_channels, ch, 3, padding=1)])])
+        self._pooled = [False]  # the input blocks whose output the spatial pool takes
+        pooled_ch = 0
+        ds = 1
+        for level, mult in enumerate(channel_mult):
+            for _ in range(num_res_blocks):
+                layers = [ResBlockADM(ch, temb, int(mult * model_channels),
+                                      use_scale_shift_norm=use_scale_shift_norm)]
+                ch = int(mult * model_channels)
+                if ds in attention_resolutions:
+                    layers.append(AttentionBlockADM(ch, num_heads, num_head_channels,
+                                                    use_new_attention_order))
+                self.input_blocks.append(nn.ModuleList(layers))
+                self._pooled.append(True)
+                pooled_ch += ch
+            if level != len(channel_mult) - 1:
+                self.input_blocks.append(nn.ModuleList([
+                    ResBlockADM(ch, temb, ch, use_scale_shift_norm=use_scale_shift_norm,
+                                down=True) if resblock_updown
+                    else DownsampleADM(ch, ch, conv_resample)]))
+                self._pooled.append(False)
+                ds *= 2
+        self.middle_block = nn.ModuleList([
+            ResBlockADM(ch, temb, ch, use_scale_shift_norm=use_scale_shift_norm),
+            AttentionBlockADM(ch, num_heads, num_head_channels, use_new_attention_order),
+            ResBlockADM(ch, temb, ch, use_scale_shift_norm=use_scale_shift_norm)])
+        if pool == "adaptive":
+            self.out = nn.Sequential(_gn(ch), nn.SiLU(), nn.AdaptiveAvgPool2d((1, 1)),
+                                     nn.Conv2d(ch, out_channels, 1), nn.Flatten())
+        elif pool == "attention":
+            self.out = nn.Sequential(_gn(ch), nn.SiLU(), AttentionPool2d(
+                image_size // ds, ch, num_head_channels, out_channels))
+        else:
+            self.out = nn.Sequential(nn.Linear(pooled_ch + ch, 2048), nn.ReLU(),
+                                     nn.Linear(2048, out_channels))
+
+    def forward(self, x: Tensor, timesteps: Tensor) -> Tensor:
+        emb = adm_timestep_embedding(timesteps, self.model_channels)
+        emb = self.time_embed[2](F.silu(self.time_embed[0](emb)))
+        input_dtype = x.dtype
+        h = _conv(self.input_blocks[0][0], x.to(self.dtype or x.dtype))
+        results = []
+        for layers, pooled in zip(self.input_blocks[1:], self._pooled[1:]):
+            h = ADMUNet._run(layers, h, emb)
+            if pooled and self.pool == "spatial":
+                results.append(h.to(input_dtype).mean(dim=(1, 2)))
+        h = ADMUNet._run(self.middle_block, h, emb).to(input_dtype)
+        if self.pool == "spatial":
+            h = torch.cat(results + [h.mean(dim=(1, 2))], dim=-1)
+            return self.out[2](F.relu(self.out[0](h)))
+        gn = self.out[0]
+        h = F.silu(group_norm(h, gn.weight, gn.bias, GN_GROUPS, GN_EPS))
+        if self.pool == "attention":
+            return self.out[2](h)
+        head = self.out[3]
+        return F.linear(h.mean(dim=(1, 2)), head.weight[:, :, 0, 0], head.bias)
 
 
 def imagenet256_config(use_bf16: bool = True) -> dict:

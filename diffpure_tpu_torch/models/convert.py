@@ -200,21 +200,36 @@ def split_module(name: str):
     return [m.group(1)] + m.group(2).lstrip("_").split("_")
 
 
-# ADM modules that are conv1d in guided-diffusion and Dense in flax
-_CONV1D = ("qkv", "proj_out")
+# ADM modules that are conv1d in guided-diffusion and Dense in flax (the
+# attention blocks' and the classifier's AttentionPool2d's)
+_CONV1D = ("qkv", "proj_out", "qkv_proj", "c_proj")
 
 
 def adm_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax ADM params -> the port's (guided-diffusion's) state dict; the
-    inverse of ``translate_adm`` (diffpure_tpu/models/convert.py:195).
-    ``qkv``/``proj_out`` Dense kernels (in, out) become conv1d (out, in, 1),
-    ``label_emb/embedding`` becomes ``label_emb.weight``."""
+    """flax ADM params -> the port's (guided-diffusion's) state dict: the
+    UNet, the upsampler (the UNet's tree with 6 input channels) and the
+    guidance classifier. The inverse of ``translate_adm``
+    (diffpure_tpu/models/convert.py:195) on the UNet. Dense kernels (in,
+    out) of ``_CONV1D`` become conv1d (out, in, 1), ``label_emb/embedding``
+    becomes ``label_emb.weight``, the attention pool's
+    ``positional_embedding`` (T, C) becomes guided-diffusion's (C, T), and
+    the adaptive pool's 1x1 conv, flax's ``out_2``, guided-diffusion's
+    ``out.3`` (its ``out.2`` is the parameterless AdaptiveAvgPool2d)."""
+    flat = list(flatten_params(params))
+    # a classifier (no output blocks) whose out_2 is a conv: the adaptive pool
+    adaptive = not any(path[0].startswith("output_blocks") for path, _ in flat) and any(
+        path[-2:] == ("out_2", "kernel") and v.ndim == 4 for path, v in flat)
     sd = {}
-    for path, v in flatten_params(params):
+    for path, v in flat:
         *mods, leaf = path
-        key = ".".join(p for m in mods for p in split_module(m))
+        parts = [p for m in mods for p in split_module(m)]
+        if adaptive and parts == ["out", "2"]:
+            parts = ["out", "3"]
+        key = ".".join(parts)
         if leaf == "embedding":
             name, arr = "weight", v
+        elif leaf == "positional_embedding":
+            name, arr = leaf, v.transpose(1, 0)
         elif leaf == "kernel" and v.ndim == 2 and mods[-1] in _CONV1D:
             name, arr = "weight", v.transpose(1, 0)[:, :, None]
         else:

@@ -7,13 +7,15 @@ flax model, so the two load the same weights (models/convert.py
 ``ddpm_state_dict_from_flax``). Input and output are NHWC and fp32, as the
 JAX model has no compute dtype. The CIFAR-10 widths are the defaults
 (score_sde's configs/vp/ddpm/cifar10_continuous.py): 35,218,947 parameters.
-Eval mode only: dropout is the identity. JAX's ``train=True`` (dropout in
-the blocks, which ``ResnetBlockDDPMpp`` has) is not wired through: no
-trainer of either package calls it (ROADMAP Queue 1, "Next").
+``forward(..., train=True)`` is JAX's training mode: the residual blocks'
+dropout after their second GroupNorm+SiLU, drawn from the caller's
+generator (``layers.dropout``), as NCSN++'s training mode; at rate 0 it is
+eval mode's function on eval mode's route (#10 and #3 on the card either
+way).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -40,7 +42,6 @@ class DDPM(nn.Module):
                  sigma_min: float = 0.01, sigma_max: float = 50.0,
                  num_scales: int = 1000):
         super().__init__()
-        del dropout  # training only
         self.nf = nf
         self.num_res_blocks = num_res_blocks
         self.all_resolutions = [image_size // (2 ** i) for i in range(len(ch_mult))]
@@ -53,7 +54,8 @@ class DDPM(nn.Module):
                 get_sigmas(sigma_min, sigma_max, num_scales), dtype=torch.float32))
 
         temb_dim = nf * 4 if conditional else None
-        block = lambda i, o=None: ResnetBlockDDPMpp(i, o, temb_dim=temb_dim)  # noqa: E731
+        block = lambda i, o=None: ResnetBlockDDPMpp(i, o, temb_dim=temb_dim,  # noqa: E731
+                                                    dropout=dropout)
         modules = [nn.Linear(nf, temb_dim), nn.Linear(temb_dim, temb_dim)] \
             if conditional else []
         modules.append(nn.Conv2d(num_channels, nf, 3, padding=1))
@@ -85,9 +87,12 @@ class DDPM(nn.Module):
                     nn.Conv2d(in_ch, num_channels, 3, padding=1)]
         self.all_modules = nn.ModuleList(modules)
 
-    def forward(self, x: Tensor, labels: Tensor) -> Tensor:
+    def forward(self, x: Tensor, labels: Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Tensor:
         """x: (N, H, W, C) images ([-1, 1] when centered, else [0, 1]);
-        labels: (N,) t*999."""
+        labels: (N,) t*999. ``train``: the residual blocks' dropout, drawn
+        from ``generator``."""
+        kw = dict(train=True, generator=generator) if train else {}
         modules = iter(self.all_modules)
         temb = None
         if self.conditional:
@@ -98,20 +103,20 @@ class DDPM(nn.Module):
         hs = [conv2d_nhwc(h, stem.weight, stem.bias)]
         for i_level, res in enumerate(self.all_resolutions):
             for _ in range(self.num_res_blocks):
-                h = next(modules)(hs[-1], temb)
+                h = next(modules)(hs[-1], temb, **kw)
                 if res in self.attn_resolutions:
                     h = next(modules)(h)
                 hs.append(h)
             if i_level != len(self.all_resolutions) - 1:
                 hs.append(next(modules)(hs[-1]))
 
-        h = next(modules)(hs[-1], temb)
+        h = next(modules)(hs[-1], temb, **kw)
         h = next(modules)(h)
-        h = next(modules)(h, temb)
+        h = next(modules)(h, temb, **kw)
 
         for i_level in reversed(range(len(self.all_resolutions))):
             for _ in range(self.num_res_blocks + 1):
-                h = next(modules)((h, hs.pop()), temb)
+                h = next(modules)((h, hs.pop()), temb, **kw)
             if self.all_resolutions[i_level] in self.attn_resolutions:
                 h = next(modules)(h)
             if i_level != 0:

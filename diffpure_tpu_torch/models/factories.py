@@ -1,11 +1,14 @@
-"""Model construction (port of diffpure_tpu/models/factories.py:21-98, the
-model half of :233-257 and :259 ncsnpp_from_config).
+"""Model and diffusion construction (port of diffpure_tpu/models/factories.py;
+ref guided_diffusion/script_util.py:27-460 and score_sde's create_model).
 
-``adm_from_config`` is the model half of JAX's
-``create_model_and_diffusion``: the ADM from the defaults merged with a
-YAML ``model:`` section. The Gaussian diffusion it also returns
-(``diffusion/discrete.py``) waits for ROADMAP item 15; JAX's CLI discards
-it (diffpure_tpu/cli.py:58), so the port's CLI needs the model only.
+``adm_from_config`` is the model half of ``create_model_and_diffusion``
+(JAX's CLI discards the diffusion, diffpure_tpu/cli.py:58, and so does the
+port's). ``create_gaussian_diffusion`` is the one builder of a
+``SpacedDiffusion`` from guided-diffusion's flags; the ImageNet
+purification's process (``purify.runners.make_imagenet_diffusion``) is one
+of its calls. The guidance classifier (``create_classifier``) and the
+upsampler (``sr_create_model``) are built as JAX builds them: no class
+conditioning and no flash attention.
 """
 from __future__ import annotations
 
@@ -13,7 +16,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from diffpure_tpu_torch.models.adm_unet import ADMUNet
+from diffpure_tpu_torch.diffusion.discrete import ModelMeanType, ModelVarType, \
+    SpacedDiffusion
+from diffpure_tpu_torch.diffusion.schedules import get_named_beta_schedule, space_timesteps
+from diffpure_tpu_torch.models.adm_unet import ADMUNet, EncoderUNetADM, SuperResADM
 from diffpure_tpu_torch.models.ncsnpp import NCSNpp
 
 
@@ -123,3 +129,120 @@ def create_model(image_size: int, num_channels: int, num_res_blocks: int,
         resblock_updown=resblock_updown,
         use_new_attention_order=use_new_attention_order,
         dtype=torch.bfloat16 if use_fp16 else None)
+
+
+def create_gaussian_diffusion(*, steps: int = 1000, learn_sigma: bool = False,
+                              sigma_small: bool = False, noise_schedule: str = "linear",
+                              use_kl: bool = False, predict_xstart: bool = False,
+                              rescale_timesteps: bool = False,
+                              rescale_learned_sigmas: bool = False,
+                              timestep_respacing="") -> SpacedDiffusion:
+    """ref script_util.py:394-443 (JAX :101). ``use_kl`` and
+    ``rescale_learned_sigmas`` choose the training loss only and are
+    ignored, as in JAX; an empty respacing keeps all ``steps``."""
+    betas = get_named_beta_schedule(noise_schedule, steps)
+    if learn_sigma:
+        var_type = ModelVarType.LEARNED_RANGE
+    elif sigma_small:
+        var_type = ModelVarType.FIXED_SMALL
+    else:
+        var_type = ModelVarType.FIXED_LARGE
+    return SpacedDiffusion.from_original(
+        betas, space_timesteps(steps, timestep_respacing or [steps]),
+        model_mean_type=(ModelMeanType.START_X if predict_xstart else ModelMeanType.EPSILON),
+        model_var_type=var_type, rescale_timesteps=rescale_timesteps)
+
+
+def classifier_defaults() -> dict:
+    """ref script_util.py:27-42 (JAX :134)."""
+    return dict(image_size=64, classifier_use_fp16=False, classifier_width=128,
+                classifier_depth=2, classifier_attention_resolutions="32,16,8",
+                classifier_use_scale_shift_norm=True, classifier_resblock_updown=True,
+                classifier_pool="attention")
+
+
+def create_classifier(image_size: int, classifier_use_fp16: bool, classifier_width: int,
+                      classifier_depth: int, classifier_attention_resolutions: str,
+                      classifier_use_scale_shift_norm: bool,
+                      classifier_resblock_updown: bool,
+                      classifier_pool: str) -> EncoderUNetADM:
+    """The noise-conditioned guidance classifier (ref script_util.py:236-275;
+    JAX :148): 1000 classes, heads of 64 channels; ``classifier_use_fp16``
+    gives a bf16 torso."""
+    attention_ds = tuple(image_size // int(res)
+                         for res in classifier_attention_resolutions.split(","))
+    return EncoderUNetADM(
+        image_size=image_size, in_channels=3, model_channels=classifier_width,
+        out_channels=1000, num_res_blocks=classifier_depth,
+        attention_resolutions=attention_ds,
+        channel_mult=channel_mult_for_image_size(image_size), num_head_channels=64,
+        use_scale_shift_norm=classifier_use_scale_shift_norm,
+        resblock_updown=classifier_resblock_updown, pool=classifier_pool,
+        dtype=torch.bfloat16 if classifier_use_fp16 else None)
+
+
+def _diffusion_of(d: dict) -> SpacedDiffusion:
+    return create_gaussian_diffusion(
+        steps=d.get("diffusion_steps", 1000), learn_sigma=d.get("learn_sigma", False),
+        noise_schedule=d.get("noise_schedule", "linear"), use_kl=d.get("use_kl", False),
+        predict_xstart=d.get("predict_xstart", False),
+        rescale_timesteps=d.get("rescale_timesteps", False),
+        rescale_learned_sigmas=d.get("rescale_learned_sigmas", False),
+        timestep_respacing=d.get("timestep_respacing", ""))
+
+
+def create_classifier_and_diffusion(**kwargs):
+    """ref script_util.py:195-233 (JAX :169): the classifier from
+    ``classifier_defaults`` updated by ``kwargs``, and its diffusion."""
+    classifier = create_classifier(**{k: kwargs.get(k, v)
+                                      for k, v in classifier_defaults().items()})
+    return classifier, _diffusion_of(kwargs)
+
+
+def sr_create_model(large_size: int, small_size: int, **kwargs) -> SuperResADM:
+    """The upsampler (ref script_util.py:278-340; JAX :184): the model
+    defaults updated by ``kwargs`` (names it does not know ignored), 6
+    input channels. As in JAX, no class conditioning and none of the
+    defaults' ``num_heads_upsample`` / ``use_new_attention_order``."""
+    del small_size  # the low-resolution input's size is the caller's
+    d = model_and_diffusion_defaults()
+    d.update({k: v for k, v in kwargs.items() if k in d})
+    if large_size in (256, 512):
+        mult = (1, 1, 2, 2, 4, 4)
+    elif large_size == 64:
+        mult = (1, 2, 3, 4)
+    else:
+        raise ValueError(f"unsupported large size: {large_size}")
+    attention_ds = tuple(large_size // int(res) for res in d["attention_resolutions"].split(","))
+    return SuperResADM(
+        image_size=large_size, in_channels=6, model_channels=d["num_channels"],
+        out_channels=(6 if d["learn_sigma"] else 3), num_res_blocks=d["num_res_blocks"],
+        attention_resolutions=attention_ds, dropout=d["dropout"], channel_mult=mult,
+        num_heads=d["num_heads"], num_head_channels=d["num_head_channels"],
+        use_scale_shift_norm=d["use_scale_shift_norm"],
+        resblock_updown=d["resblock_updown"],
+        dtype=torch.bfloat16 if d["use_fp16"] else None)
+
+
+def sr_model_and_diffusion_defaults() -> dict:
+    """ref script_util.py:278-292 (JAX :218)."""
+    d = model_and_diffusion_defaults()
+    d.update(large_size=256, small_size=64)
+    d.pop("image_size")
+    return d
+
+
+def sr_create_model_and_diffusion(config: dict):
+    """ref script_util.py:294-340 (JAX :226)."""
+    d = sr_model_and_diffusion_defaults()
+    d.update({k: v for k, v in config.items() if k in d})
+    large, small = d.pop("large_size"), d.pop("small_size")
+    return sr_create_model(large, small, **d), _diffusion_of(d)
+
+
+def create_model_and_diffusion(config: dict):
+    """ref script_util.py:82-136 (JAX :245): the ADM and its diffusion from
+    the defaults merged with ``config``."""
+    d = model_and_diffusion_defaults()
+    d.update({k: v for k, v in config.items() if k in d})
+    return adm_from_config(d), _diffusion_of(d)

@@ -1,4 +1,4 @@
 from diffpure_tpu_torch.purify.config import PurifyConfig
-from diffpure_tpu_torch.purify.runners import DiscreteNoise, SeededNoise, \
+from diffpure_tpu_torch.purify.runners import BatchSlice, DiscreteNoise, SeededNoise, \
     make_imagenet_diffusion, purify, purify_celebahq_ddpm, purify_dpm, \
     purify_guided_ddpm, purify_ldsde, purify_ode, purify_sde

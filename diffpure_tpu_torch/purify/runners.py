@@ -18,7 +18,8 @@ i's increment from (it, i) (runners.py:214). The two discrete loops draw
 round ``it``'s forward noise from stream 2*it and step i's noise from
 (2*it + 1, i), where JAX splits the key of stream 2*it + 1 once a step
 (runners.py:313-339): ``DiscreteNoise``. An integer seed gives
-``SeededNoise`` (``DiscreteNoise``) with the runner's layout; tests pass an
+``SeededNoise`` (``DiscreteNoise``) with the runner's layout, a
+``BatchSlice`` the same noise's rows of a larger batch; tests pass an
 object with the same methods that returns the draws JAX made.
 
 Gradients (``cfg.grad_mode``, runners.py:121-138): ``'checkpoint'``
@@ -36,19 +37,19 @@ checkpointed path under ``'reversible'``; the discrete loops, as JAX's
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
-from diffpure_tpu_torch.diffusion.discrete import ModelMeanType, ModelVarType, \
-    SpacedDiffusion, _gather, _to32
-from diffpure_tpu_torch.diffusion.schedules import get_named_beta_schedule, \
-    linear_beta_schedule
+from diffpure_tpu_torch.diffusion.discrete import SpacedDiffusion, _gather, _to32
+from diffpure_tpu_torch.diffusion.schedules import linear_beta_schedule
 from diffpure_tpu_torch.diffusion.score import get_score_fn, \
     make_guided_score_fn
 from diffpure_tpu_torch.diffusion.sde import VPSDE, batch_mul
+from diffpure_tpu_torch.models.factories import create_gaussian_diffusion
 from diffpure_tpu_torch.purify.config import PurifyConfig
 from diffpure_tpu_torch.solvers.adjoint import odeint_euler_adjoint, sdeint_em_adjoint
 from diffpure_tpu_torch.solvers.dpm import dpm_solver_pp_2m
@@ -106,12 +107,56 @@ class DiscreteNoise:
         return torch.randn(like.shape, generator=g, device=like.device, dtype=like.dtype)
 
 
-Noise = Union[int, SeededNoise, DiscreteNoise]
+@dataclasses.dataclass(frozen=True)
+class BatchSlice:
+    """An integer seed's noise for rows [start, stop) of a batch of
+    ``batch``: every per-example draw is the whole batch's draw, sliced, so
+    a batch purified in slices (``parallel.ShardedDefendedModel``) gets the
+    noise it gets in one call. ``tile``: the forward draw is fix_rand's one
+    tile for the whole batch, drawn as it is. ``as_noise`` /
+    ``as_discrete_noise`` give it the runner's streams."""
+    seed: int
+    start: int
+    stop: int
+    batch: int
+    tile: bool = False
+
+
+class _SlicedNoise:
+    """A ``BatchSlice`` over a runner's noise source."""
+
+    def __init__(self, base, rows: BatchSlice):
+        self.base, self.rows = base, rows
+
+    def _whole(self, like: Tensor) -> Tensor:
+        return like.new_empty((self.rows.batch,) + tuple(like.shape[1:]))
+
+    def _rows(self, whole: Tensor) -> Tensor:
+        return whole[self.rows.start:self.rows.stop]
+
+    def t_offset(self, it: int, t_delta: int) -> int:
+        return self.base.t_offset(it, t_delta)
+
+    def forward_eps(self, it: int, shape, like: Tensor) -> Tensor:
+        if self.rows.tile:
+            return self.base.forward_eps(it, shape, like)
+        return self._rows(self.base.forward_eps(it, (self.rows.batch,) + tuple(shape[1:]), like))
+
+    def brownian(self, it: int, i: int, like: Tensor, dt: float) -> Tensor:
+        return self._rows(self.base.brownian(it, i, self._whole(like), dt))
+
+    def step_eps(self, it: int, i: int, like: Tensor) -> Tensor:
+        return self._rows(self.base.step_eps(it, i, self._whole(like)))
+
+
+Noise = Union[int, SeededNoise, DiscreteNoise, BatchSlice]
 
 
 def as_noise(noise, streams: int = 3) -> SeededNoise:
     if isinstance(noise, (int, np.integer)):
         return SeededNoise(noise, streams)
+    if isinstance(noise, BatchSlice):
+        return _SlicedNoise(SeededNoise(noise.seed, streams), noise)
     return noise
 
 
@@ -333,10 +378,9 @@ def make_imagenet_diffusion(timestep_respacing: str = "1000") -> SpacedDiffusion
     """The guided-diffusion process of the ImageNet purification, with
     rescaled timesteps (JAX :274; ref configs/imagenet.yml +
     script_util.py:394-443)."""
-    betas = get_named_beta_schedule("linear", 1000)
-    return SpacedDiffusion.from_original(
-        betas, timestep_respacing or "1000", model_mean_type=ModelMeanType.EPSILON,
-        model_var_type=ModelVarType.LEARNED_RANGE, rescale_timesteps=True)
+    return create_gaussian_diffusion(steps=1000, learn_sigma=True, noise_schedule="linear",
+                                     rescale_timesteps=True,
+                                     timestep_respacing=timestep_respacing or "1000")
 
 
 def _discrete_loop(step, x0: Tensor, noise, it: int, t_star: int,
@@ -368,6 +412,9 @@ def _discrete_forward(x0: Tensor, noise, it: int, abar: np.ndarray, t_star: int)
 def as_discrete_noise(noise):
     if isinstance(noise, (int, np.integer)):
         return DiscreteNoise(noise)
+    if isinstance(noise, BatchSlice):  # the discrete loops draw no tile
+        return _SlicedNoise(DiscreteNoise(noise.seed),
+                            dataclasses.replace(noise, tile=False))
     return noise
 
 

@@ -17,26 +17,15 @@ from __future__ import annotations
 
 from typing import Callable, Tuple
 
-import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
+from diffpure_tpu_torch.diffusion.schedules import linspace_f32
 from diffpure_tpu_torch.diffusion.sde import VPSDE
 from diffpure_tpu_torch.utils.profiling import record_nfe
 
 Tensor = torch.Tensor
 EpsFn = Callable[[Tensor, Tensor], Tensor]  # (x, t_batch) -> epsilon
-
-
-def linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
-    """``jnp.linspace(start, stop, num)`` in float32, as XLA computes it:
-    start (1 - s) + stop s with s = k * (1 / (num - 1)), the last point
-    exactly ``stop`` (equal to JAX's grid or within an ulp)."""
-    start, stop = np.float32(start), np.float32(stop)
-    if num == 1:
-        return np.array([start], np.float32)
-    s = np.arange(num - 1, dtype=np.float32) * (np.float32(1) / np.float32(num - 1))
-    return np.append(start * (np.float32(1) - s) + stop * s, stop).astype(np.float32)
 
 
 def _coeffs(sde: VPSDE, t: float) -> Tuple[Tensor, Tensor, Tensor]:

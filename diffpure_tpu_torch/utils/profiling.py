@@ -1,5 +1,5 @@
-"""NFE accounting and phase timers (port of the ledger half of
-diffpure_tpu/utils/profiling.py:19-222).
+"""NFE accounting, phase timers and profiler glue (port of
+diffpure_tpu/utils/profiling.py).
 
 The solvers know how many score evaluations one call makes and report it
 with ``record_nfe``; a ``count_nfe()`` context installs the ledger that
@@ -10,16 +10,25 @@ do here. A solver records once per call, outside its steps, so the
 recomputation of ``checkpoint=True`` and the adjoint's backward add
 nothing. The ledger is the calling thread's: a purification run in
 another thread (a CPU reference computed beside the card's work) does not
-land in it. The JAX profiler glue (``trace``, ``annotate``,
-``flops_estimate``) is not ported.
+land in it.
+
+The profiler glue: ``trace`` is ``torch.profiler`` writing a Chrome trace,
+``annotate`` a ``record_function`` range, ``flops_estimate`` PyTorch's
+``FlopCounterMode`` (XLA's cost analysis in JAX). The counter sees
+PyTorch's operators only, not the hand-written kernels' work: count a
+function whose work runs in them on CPU tensors, where the wrappers run
+their plain versions.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, Optional
+
+import torch
 
 
 class NFECounter:
@@ -85,3 +94,47 @@ class PhaseTimer:
     def report(self) -> str:
         return ", ".join(f"{k}: {self.times[k]:.2f}s/{self.counts[k]}x"
                          for k in sorted(self.times))
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None) -> Iterator[None]:
+    """Profile the scope (the CPU, and the card where there is one) and
+    write ``log_dir/trace.json`` (chrome://tracing, Perfetto); None: no
+    profiling."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def annotate(name: str):
+    """A named range in the trace."""
+    return torch.profiler.record_function(name)
+
+
+def flops_estimate(fn, *args) -> Optional[float]:
+    """FLOPs of one call ``fn(*args)`` without a graph, by PyTorch's
+    ``FlopCounterMode`` (matrix products, convolutions, attention); None
+    where counting fails."""
+    try:
+        from torch.utils.flop_counter import FlopCounterMode
+
+        counter = FlopCounterMode(display=False)
+        with torch.no_grad(), counter:
+            fn(*args)
+        return float(counter.get_total_flops())
+    except Exception:
+        return None
+
+
+def attention_flops(batch: int, seq: int, channels: int) -> int:
+    """Closed-form attention matmul FLOPs (ref unet.py:316-333): two
+    (seq x seq x channels) matmuls."""
+    return 2 * batch * (seq ** 2) * channels

@@ -196,3 +196,53 @@ def test_ddpm_census_is_the_kernels_path():
                   (4, 512): 3}
     assert sum(gn.values()) == 44
     assert attn == {(16, 256): 3, (4, 256): 1}
+
+
+def test_ddpm_train_mode_matches_jax():
+    """train=True is JAX's: at dropout 0 the function of JAX's train=True
+    (and of eval mode); above it flax's dropout rule, drawn from the
+    generator (the same generator state, the same output)."""
+    cfg = dict(SMALL, dropout=0.0)
+    model, sd = _load(DDPM(**cfg), 3)
+    params = translate_ncsnpp(sd)
+    x = normal(np.random.default_rng(4), 2, 16, 16, 3)
+    want = jax.jit(lambda p, a, b: JaxDDPM(**cfg).apply(p, a, b, train=True))(
+        params, jnp.asarray(x), jnp.asarray(LABELS))
+    got = model(torch.from_numpy(x), torch.from_numpy(LABELS), train=True,
+                generator=torch.Generator().manual_seed(0))
+    assert_close(got, want, MODEL, "DDPM train=True at dropout 0")
+    drop = DDPM(**dict(SMALL, dropout=0.1))
+    drop.load_state_dict(model.state_dict())
+    a, b, c = (drop(torch.from_numpy(x), torch.from_numpy(LABELS), train=True,
+                    generator=torch.Generator().manual_seed(s)) for s in (0, 1, 0))
+    assert torch.equal(a, c) and not torch.allclose(a, b)
+    assert not torch.allclose(a, got)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ddpm_train_mode_keeps_the_kernel_route(rate, monkeypatch):
+    """Dropout comes after #10's GroupNorm+SiLU, so training mode calls the
+    same GNSiLU and attention blocks as eval mode, 44 and 4 at full width
+    (the census); at rate 0 output and weight gradients equal eval mode's
+    bit for bit."""
+    calls = {"gn": 0, "attn": 0}
+    for name, cls in (("gn", layers.GNSiLU), ("attn", layers.AttnBlockpp)):
+        fwd = cls.forward
+        monkeypatch.setattr(cls, "forward", lambda self, *a, _f=fwd, _n=name, **k: (
+            calls.__setitem__(_n, calls[_n] + 1), _f(self, *a, **k))[1])
+    model, _ = _load(DDPM(**dict(SMALL, dropout=rate)), 5)
+    x = torch.from_numpy(normal(np.random.default_rng(6), 2, 16, 16, 3))
+    t = torch.from_numpy(LABELS)
+    outs, grads = [], []
+    for train in (True, False):
+        out = model(x, t, train=train, generator=torch.Generator().manual_seed(0))
+        outs.append(out)
+        grads.append(torch.autograd.grad(out.square().sum(), list(model.parameters())))
+    per_eval = (sum(isinstance(m, layers.GNSiLU) for m in model.modules()),
+                sum(isinstance(m, layers.AttnBlockpp) for m in model.modules()))
+    assert (calls["gn"], calls["attn"]) == tuple(2 * n for n in per_eval)
+    if rate == 0.0:
+        assert torch.equal(outs[0], outs[1])
+        assert all(torch.equal(a, b) for a, b in zip(*grads))
+    else:
+        assert not torch.allclose(outs[0], outs[1])
