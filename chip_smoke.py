@@ -91,12 +91,16 @@ Phases, each fatal on failure:
   2d. (run after phase 2c) GroupNorm+SiLU (#10) against its plain version
      at every shape the full-width score_sde DDPM gives it at batch 8 (a
      census of its GNSiLU calls over one evaluation) and at a shape off the
-     census that takes its L2 route (GN_OFF_CENSUS), and fused bias + leaky
-     ReLU (#11, on no path) at the DDPM's feature-map shapes and an odd
-     one, bf16 and fp32; kernel (CUDA events), device (profiler), plain and
-     bound times, per shape and per evaluation, and F.silu(F.group_norm(.))
-     as #10's yardstick; a #10 call that launches the old kernel
-     (OLD_GN_KERNELS) fails;
+     census that takes its L2 route (GN_OFF_CENSUS), bf16 and fp32; kernel
+     (CUDA events), device (profiler), plain and bound times, per shape and
+     per evaluation, and F.silu(F.group_norm(.)) as #10's yardstick; a #10
+     call that launches the old kernel (OLD_GN_KERNELS) fails; then fused
+     bias + leaky ReLU (#11, on no path) at the DDPM's feature-map shapes,
+     an odd one and two past L2 (FLR_CASES, FLR_LARGE), with and without a
+     bias, bf16 and fp32: device time back to back and, past L2, in steady
+     state over rotating copies (steady_device_ms), the yardstick
+     F.leaky_relu(x + b) * scale, the 1-element launch floor, and its
+     gradient on the card, the kernel route against the plain one;
   10. the DDPM slice: DefendedModel (full-width DDPM, fp32, 35,218,947
      parameters + WRN-28-10) on 8 seeded images at t*=100 through
      get_accuracy under inference_mode, cold then warm; the launch
@@ -136,7 +140,7 @@ Phases, each fatal on failure:
      cotangent), fp32 and bf16, both grad modes, kernels (card) against
      the plain fp32 path (CPU), the same noise; #6-#9 must launch (phase_adm_grad_parity);
   16. the ImageNet gradient-image rate: the input gradient of the
-     cross-entropy of DefendedModel(resize_to=256) at t*=25, bf16 ADM +
+     cross-entropy of DefendedModel(resize_to=256) at t*=10, bf16 ADM +
      ResNet-50, batch 2, both grad modes, once each (phase 15 warmed the
      paths), wall time, gradient-images/s and peak device memory, the
      launch counters exactly the forward census times the mode's forward
@@ -159,7 +163,7 @@ Phases, each fatal on failure:
      and purify_sde (reversible), fp32 and bf16, kernels (card) against
      plain (CPU), the launch counters each mode derives; whether the score
      model gives the same bits twice; reversible Heun's gradient at batch
-     16, t*=REV_T (50) (rate, peak memory, reconstruction error) beside phase 5's,
+     16, t*=REV_T (25) (rate, peak memory, reconstruction error) beside phase 5's,
      and its gap to the exact gradient of the same solve (autograd through
      its steps) (phase_purifiers);
   21. eval_autoattack 'standard' (APGD-CE, APGD-T, FAB-T, Square) through
@@ -481,6 +485,13 @@ DDPM_KERNELS = {
 # multiple of the 16-byte vector width. (shape, bias)
 FLR_CASES = (((N, 32, 32, 128), True), ((N, 16, 16, 256), True), ((N, 16, 16, 256), False),
              ((N, 8, 8, 512), True), ((N, 4, 4, 256), True), ((7, 9, 11, 13), True))
+# ... and at two shapes past the 50 MB L2 that the repo's models give a
+# first-level activation at full width: the ImageNet ADM's at batch 4
+# (imagenet256_config, model_channels 256) and the CIFAR NCSN++'s at the bf16
+# serving batch (bench.py:38, 128), with and without a bias; timed in
+# steady state past L2 (steady_device_ms). Every shape of #11 is held
+# against its plain version with and without a bias.
+FLR_LARGE = ((4, 256, 256, 256), (CIFAR_BIG_N, 32, 32, 128))
 # #10 off the census: a 64 x 64 map of 512 channels, whose (example, group)
 # slices (4096 x 16 values) are above the registers route's budget and take
 # the L2 route (ops/groupnorm.py gn_silu_plan). No #10 call may launch the
@@ -512,10 +523,10 @@ NCSN_DDPM_REL = {"float32": 2e-4, "bfloat16": 5e-2}
 ADM_GRAD_PARITY_T = 1
 ADM_GRAD_REL = {"float32": 5e-4, "bfloat16": 1e-2}
 # Phase 16: the ImageNet gradient-image rate at JAX's ADM_GRAD_BATCH
-# (bench.py:186) and t* = ADM_GRAD_T: 25 (JAX's cell is t* = 150; at 150
-# the phase took 113.8 s of a full run, at 50 49.1 s on the slowest card
-# machine seen): a depth cut that holds the run in 1200 s there.
-ADM_GRAD_N, ADM_GRAD_T = 2, 25
+# (bench.py:186) and t* = ADM_GRAD_T: 10 (JAX's cell is t* = 150; at 150
+# the phase took 113.8 s of a full run, at 50 49.1 s, at 25 26.9 s on the
+# slowest card machines seen): a depth cut that holds the run in 1200 s there.
+ADM_GRAD_N, ADM_GRAD_T = 2, 10
 # Phase 17: eval_autoattack 'rand' through the ImageNet defence: batch, t*
 # (Euler steps), APGD iterations, EOT samples, eps (the scripts' 0.0157).
 # t* 5 here and phase 7's AA_T 50: depth cuts that hold the run in 1200 s
@@ -602,10 +613,10 @@ PURIFY_MODES = (("ode", "checkpoint"), ("ode", "adjoint"), ("ode", "reversible")
                 ("ldsde", "checkpoint"), ("ldsde", "adjoint"), ("sde", "reversible"))
 PURIFY_T, PURIFY_N = 2, 1
 # (c) reversible Heun's gradient at batch GRAD_N and t* = REV_T, beside
-# phase 5's at 100: 50, a depth cut (with its yardstick, the exact gradient
-# of the same solve, it took ≈ 50 s of the run at 100 on the slowest card
-# machine seen)
-REV_T = 50
+# phase 5's at 100: 25, a depth cut (with its yardstick, the exact gradient
+# of the same solve, it took ≈ 50 s of the run at 100 on a slow card
+# machine, and the whole script 1183 s at 50 on the slowest seen)
+REV_T = 25
 # Phase 21: AutoAttack 'standard' through the bf16 CIFAR defence (WRN-28-10)
 # at the budget AA_STANDARD (t* = 5: at 10 the suites took 46 s of the
 # run), in each norm at its run scripts' eps
@@ -721,7 +732,7 @@ DDPM_TRAIN_N = 8
 DDPM_TRAIN_WARM = 3
 DDPM_TRAIN_COUNTS = {"group_norm_silu_fused": 44, "fused_attnblock": 4}
 # (c) the demo at its default distribution (nf 32, 16x16), cut to a budget
-DEMO_ARGS = ["--score_steps", "100", "--n_eval", "8", "--apgd_iter", "1", "--eot_iter", "1",
+DEMO_ARGS = ["--score_steps", "50", "--n_eval", "8", "--apgd_iter", "1", "--eot_iter", "1",
              "--attacks", "apgd-eot"]
 DEMO_TIMEOUT_S = 300
 # the demo in a process of its own, with the launch counts read before and
@@ -2765,25 +2776,23 @@ def gn_yardstick(torch, x, scale, bias, groups):
 
 def phase_gn_act_kernels(torch, dev, gn_shapes):
     """#10 at every (H, C) of the DDPM census, batch N, and at
-    GN_OFF_CENSUS, and #11 at FLR_CASES, each against its plain version on
-    the card, bf16 and fp32; per-shape records with kernel (CUDA events),
-    device (profiler, back-to-back calls, every case in one session) and
-    plain times, the bound and the launched kernels' names; for #10 its
-    plan's route and the yardstick F.silu(F.group_norm(.)) (gn_yardstick).
-    Both compute in fp32 (FMA units) whatever the dtype; #10 does ~10
-    operations per element (sum, squared deviation, normalise, affine,
-    SiLU), #11 3. A #10 call that launches a kernel of OLD_GN_KERNELS
-    fails, and so does a shape off the census whose kernel is not the L2
-    route's (GN_L2_FRAGMENT)."""
+    GN_OFF_CENSUS, each against its plain version on the card, bf16 and
+    fp32; per-shape records with kernel (CUDA events), device (profiler,
+    back-to-back calls, every case in one session) and plain times, the
+    bound, the launched kernels' names, its plan's route and the yardstick
+    F.silu(F.group_norm(.)) (gn_yardstick). It computes in fp32 (FMA units)
+    whatever the dtype, ~10 operations per element (sum, squared deviation,
+    normalise, affine, SiLU). A #10 call that launches a kernel of
+    OLD_GN_KERNELS fails, and so does a shape off the census whose kernel
+    is not the L2 route's (GN_L2_FRAGMENT). Then #11 (phase_flr_kernels);
+    returns the records of both."""
     import numpy as np
     from diffpure_tpu_torch.ops import fused_act, groupnorm
 
-    cases = [("group_norm_silu_fused", (N, H, H, C), True, calls)
-             for (H, C), calls in sorted(gn_shapes.items())]
-    cases += [("group_norm_silu_fused", shape, True, 0) for shape in GN_OFF_CENSUS]
-    cases += [("fused_leaky_relu", shape, bias, 0) for shape, bias in FLR_CASES]
+    cases = [((N, H, H, C), calls) for (H, C), calls in sorted(gn_shapes.items())]
+    cases += [(shape, 0) for shape in GN_OFF_CENSUS]
     records, timed = [], []
-    for i, (name, shape, with_bias, calls) in enumerate(cases):
+    for i, (shape, calls) in enumerate(cases):
         rng = np.random.default_rng(3000 + i)
         C = shape[-1]
         x32 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 2 + 0.5).to(dev)
@@ -2793,81 +2802,280 @@ def phase_gn_act_kernels(torch, dev, gn_shapes):
             esize = 2 if dtype_name == "bfloat16" else 4
             x = x32.to(dtype)
             elems = x.numel()
-            yard = None
-            if name == "group_norm_silu_fused":
-                kern = functools.partial(groupnorm.group_norm_silu_fused, x, s, b, 32, 1e-6)
-                plain = functools.partial(groupnorm.group_norm_silu_fused_reference,
-                                          x, s, b, 32, 1e-6)
-                yard = gn_yardstick(torch, x, s, b, 32)
-                flops, nbytes = 10 * elems, 2 * elems * esize + 2 * C * 4
-            else:
-                kern = functools.partial(fused_act.fused_leaky_relu, x,
-                                         b.to(dtype) if with_bias else None)
-                plain = functools.partial(fused_act.fused_leaky_relu_reference, x,
-                                          b.to(dtype) if with_bias else None)
-                flops = 3 * elems
-                nbytes = 2 * elems * esize + (C * esize if with_bias else 0)
+            kern = functools.partial(groupnorm.group_norm_silu_fused, x, s, b, 32, 1e-6)
+            plain = functools.partial(groupnorm.group_norm_silu_fused_reference,
+                                      x, s, b, 32, 1e-6)
+            yard = gn_yardstick(torch, x, s, b, 32)
+            flops, nbytes = 10 * elems, 2 * elems * esize + 2 * C * 4
             with torch.inference_mode():
                 got = kern()
                 torch.cuda.synchronize()
                 want = plain()
+                ygot = yard()
             err = float((got.float() - want.float()).abs().max())
             scale = float(want.float().abs().max())
             ok = bool(torch.isfinite(got.float()).all()) and got.dtype == dtype \
                 and err <= REL[dtype_name] * scale
             t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES
-            rec = dict(kernel=name, shape=list(shape), bias=with_bias, calls_per_eval=calls,
-                       dtype=dtype_name, max_abs_err=err, rel_err=err / scale,
-                       rel_tol=REL[dtype_name], ms=cuda_ms(torch, kern, 50, 5),
-                       plain_ms=cuda_ms(torch, plain, 50, 5), library_ms=None, flops=flops,
-                       bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
-                       bound_by="operations" if t_ops >= t_bytes else "bytes", ok=ok)
-            if yard is not None:
-                with torch.inference_mode():
-                    ygot = yard()
-                rec.update(yardstick_ms=cuda_ms(torch, yard, 50, 5),
-                           yardstick_rel_err=float((ygot.float() - want.float()).abs().max())
-                           / scale,
-                           route=groupnorm.gn_silu_plan(shape[0], shape[1] * shape[2], C, 32,
-                                                        dtype).route)
+            rec = dict(kernel="group_norm_silu_fused", shape=list(shape), bias=True,
+                       calls_per_eval=calls, dtype=dtype_name, max_abs_err=err,
+                       rel_err=err / scale, rel_tol=REL[dtype_name],
+                       ms=cuda_ms(torch, kern, 50, 5), plain_ms=cuda_ms(torch, plain, 50, 5),
+                       library_ms=None, flops=flops, bytes=nbytes,
+                       bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes", ok=ok,
+                       yardstick_ms=cuda_ms(torch, yard, 50, 5),
+                       yardstick_rel_err=float((ygot.float() - want.float()).abs().max())
+                       / scale,
+                       route=groupnorm.gn_silu_plan(shape[0], shape[1] * shape[2], C, 32,
+                                                    dtype).route)
             records.append(rec)
             timed.append((rec, kern, yard))
     # the kernels' and the yardsticks' device time, all in one session
-    fns = [f for _, kern, yard in timed for f in (kern, yard) if f is not None]
+    fns = [f for _, kern, yard in timed for f in (kern, yard)]
     with torch.inference_mode():
         dev_times = iter(device_ms_many(torch, fns))
     for rec, kern, yard in timed:
         rec["device_ms"], rec["device_kernels"] = next(dev_times)
+        rec["yardstick_device_ms"] = next(dev_times)[0]
+        names = rec["device_kernels"]
         line = ""
-        if yard is not None:
-            rec["yardstick_device_ms"] = next(dev_times)[0]
-            names = rec["device_kernels"]
-            if any(f in k for k in names for f in OLD_GN_KERNELS) or (
-                    rec["calls_per_eval"] == 0 and not any(GN_L2_FRAGMENT in k for k in names)):
-                rec["ok"] = False
-                line = f" KERNELS {names}"
-            line = (f" yardstick device {rec['yardstick_device_ms'] * 1e3:.2f} us "
-                    f"{rec['route']}" + line)
+        if any(f in k for k in names for f in OLD_GN_KERNELS) or (
+                rec["calls_per_eval"] == 0 and not any(GN_L2_FRAGMENT in k for k in names)):
+            rec["ok"] = False
+            line = f" KERNELS {names}"
         log(f"  {rec['kernel']:21s} {str(tuple(rec['shape'])):18s} "
-            f"{'' if rec['bias'] else 'no bias ':8s}x{rec['calls_per_eval']:<2d} "
-            f"{rec['dtype']:8s} rel err {rec['rel_err']:.2e} <= {rec['rel_tol']:.0e} kernel "
-            f"{rec['ms']:.4f} ms device {rec['device_ms'] * 1e3:.2f} us plain "
-            f"{rec['plain_ms']:.4f} ms bound {rec['bound_ms'] * 1e3:.2f} us{line} "
+            f"x{rec['calls_per_eval']:<2d} {rec['dtype']:8s} rel err {rec['rel_err']:.2e} <= "
+            f"{rec['rel_tol']:.0e} kernel {rec['ms']:.4f} ms device "
+            f"{rec['device_ms'] * 1e3:.2f} us plain {rec['plain_ms']:.4f} ms bound "
+            f"{rec['bound_ms'] * 1e3:.2f} us yardstick device "
+            f"{rec['yardstick_device_ms'] * 1e3:.2f} us {rec['route']}{line} "
             f"{'ok' if rec['ok'] else 'FAIL'}")
-    for name in ("group_norm_silu_fused", "fused_leaky_relu"):
-        for dtype_name in ("float32", "bfloat16"):
-            mine = [r for r in records if r["kernel"] == name and r["dtype"] == dtype_name
-                    and (r["calls_per_eval"] or name == "fused_leaky_relu")]
-            calls = [r["calls_per_eval"] or 1 for r in mine]
-            log(f"  {name} {dtype_name}: device "
-                f"{sum(r['device_ms'] * c for r, c in zip(mine, calls)):.4f} ms, bound "
-                f"{sum(r['bound_ms'] * c for r, c in zip(mine, calls)):.4f} ms "
-                + ("per DDPM evaluation (batch 8)" if name == "group_norm_silu_fused"
-                   else "over its shapes (one call each)"))
+    for dtype_name in ("float32", "bfloat16"):
+        mine = [r for r in records if r["dtype"] == dtype_name and r["calls_per_eval"]]
+        log(f"  group_norm_silu_fused {dtype_name}: device "
+            f"{sum(r['device_ms'] * r['calls_per_eval'] for r in mine):.4f} ms, bound "
+            f"{sum(r['bound_ms'] * r['calls_per_eval'] for r in mine):.4f} ms per DDPM "
+            f"evaluation (batch 8)")
     bad = [r for r in records if not r["ok"]]
     if bad:
-        raise AssertionError(f"{len(bad)} GroupNorm+SiLU / leaky ReLU checks failed: {bad}")
-    return records
+        raise AssertionError(f"{len(bad)} GroupNorm+SiLU checks failed: {bad}")
+    return records + phase_flr_kernels(torch, dev, fused_act)
+
+
+# #11's yardstick's slope and gain; its back-to-back device-time
+# repetitions; and past L2 (steady_device_ms) the rounds timed a case, the
+# bytes that a case's rotating input copies and their outputs span at least
+# (three times the 50 MB L2) and the spin that lets the host queue a case's
+# calls before the card runs them (cycles: ≈ 20 ms)
+FLR_SLOPE, FLR_GAIN = 0.2, 2.0 ** 0.5
+FLR_REPS, FLR_STEADY_ROUNDS = 20, 21
+FLR_SPAN_BYTES = 150 << 20
+FLR_SPIN_CYCLES = 40_000_000
+
+
+def flr_inputs(torch, dev, i, shape, dtype):
+    """Seeded x (normal, 2 x + 0.5) and bias (0.5 x normal) for #11's i-th
+    case, made on the card (the largest is 67 M elements)."""
+    g = torch.Generator(device=dev).manual_seed(3100 + i)
+    x = torch.randn(shape, generator=g, device=dev) * 2 + 0.5
+    b = torch.randn(shape[-1], generator=g, device=dev) * 0.5
+    return x.to(dtype), b.to(dtype)
+
+
+def steady_device_ms(torch, cases, rounds=FLR_STEADY_ROUNDS):
+    """The device time per call (ms) of each of ``cases`` in steady state
+    past L2. A case is a list of functions, one per copy of its inputs, the
+    copies and their outputs spanning FLR_SPAN_BYTES or more; a round calls
+    each once, in turn, and holds each output until its slot comes round
+    again. So no call finds its operands or its output's lines in L2, and
+    each writes back, inside its own time, the dirty lines that the call
+    before it left, as it leaves its own. ``rounds`` rounds a case, queued
+    behind a spin kernel so that the card runs them back to back (fails if
+    the spin ended before the host had queued them); CUDA events around
+    all but the first round, which starts from another state. The time
+    holds the card's gap between two queued launches (the launch floor is
+    timed alike, flr_records); the profiler is not used, since late in a
+    run its sessions drop kernels."""
+    out = []
+    for case in cases:
+        held = [None] * len(case)
+        start, end, spun = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        for _ in range(2):  # the allocator's blocks, so no cudaMalloc waits on the spin
+            for j, f in enumerate(case):
+                held[j] = f()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(FLR_SPIN_CYCLES)
+        spun.record()
+        for r in range(rounds):
+            if r == 1:
+                start.record()
+            for j, f in enumerate(case):
+                held[j] = f()
+        end.record()
+        if spun.query():
+            raise AssertionError("the spin ended before the host had queued the calls")
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / ((rounds - 1) * len(case)))
+        del held
+    return out
+
+
+def flr_records(torch, dev, fa):
+    """#11 (``fa.fused_leaky_relu``, the module of any tree of the repo:
+    scripts/torch_flr_compare.py times a parent's too) against its plain
+    version on the card at every shape of FLR_CASES and FLR_LARGE, bf16 and
+    fp32, with and without a bias (fp32 bit for bit, recorded): per case
+    CUDA-event ms, device ms back to back, plain ms, the bound, and the
+    yardstick F.leaky_relu(x + b, slope) * scale (three PyTorch calls, on
+    no path) timed alike; at FLR_LARGE also both in steady state past L2
+    (steady_device_ms), beside a copy of x (x.clone(): the card's own
+    copy, which moves the same bytes, as a ceiling). GB/s and the share of
+    the bound from the steady state past L2, else back to back. A last
+    record holds the launch floor (a 1-element call), back to back and
+    queued as past L2. Fails if a case disagrees with the plain version."""
+    import torch.nn.functional as F
+
+    shapes = list(dict.fromkeys([s for s, _ in FLR_CASES] + list(FLR_LARGE)))
+    kern_fn = lambda x, b: functools.partial(fa.fused_leaky_relu, x, b)  # noqa: E731
+    yard_fn = lambda x, b: (lambda: F.leaky_relu(x if b is None else x + b,  # noqa: E731
+                                                 FLR_SLOPE) * FLR_GAIN)
+    records, timed, steady = [], [], []
+    for i, shape in enumerate(shapes):
+        for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            esize = 2 if dtype_name == "bfloat16" else 4
+            x, b0 = flr_inputs(torch, dev, i, shape, dtype)
+            large = tuple(shape) in FLR_LARGE
+            # copies of x whose calls span FLR_SPAN_BYTES with their outputs
+            copies = [x] + [x.clone() for _ in range(
+                -(-FLR_SPAN_BYTES // (2 * x.numel() * esize)) - 1 if large else 0)]
+            for with_bias in (True, False):
+                b = b0 if with_bias else None
+                C, elems = shape[-1], x.numel()
+                kern, yard = kern_fn(x, b), yard_fn(x, b)
+                plain = functools.partial(fa.fused_leaky_relu_reference, x, b)
+                with torch.inference_mode():
+                    got = kern()
+                    torch.cuda.synchronize()
+                    want = plain()
+                err = float((got.float() - want.float()).abs().max())
+                scale = float(want.float().abs().max())
+                flops = 3 * elems
+                nbytes = 2 * elems * esize + (C * esize if with_bias else 0)
+                t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES
+                rec = dict(kernel="fused_leaky_relu", shape=list(shape), bias=with_bias,
+                           calls_per_eval=0, dtype=dtype_name,
+                           toy=(tuple(shape), with_bias) in FLR_CASES, large=large,
+                           max_abs_err=err, rel_err=err / scale, rel_tol=REL[dtype_name],
+                           bitwise=bool(torch.equal(got, want)),
+                           ms=cuda_ms(torch, kern, 50, 5), plain_ms=cuda_ms(torch, plain, 20, 3),
+                           yardstick_ms=cuda_ms(torch, yard, 20, 3), library_ms=None,
+                           flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
+                           bound_by="operations" if t_ops >= t_bytes else "bytes",
+                           ok=bool(torch.isfinite(got.float()).all()) and got.dtype == dtype
+                           and err <= REL[dtype_name] * scale)
+                del got, want
+                records.append(rec)
+                timed.append((rec, kern, yard))
+                if large:
+                    steady.append((rec, [kern_fn(c, b) for c in copies],
+                                   [yard_fn(c, b) for c in copies],
+                                   [c.clone for c in copies]))
+            del copies
+    # the launch floor: one element (and its bias)
+    one, one_b = flr_inputs(torch, dev, len(shapes), (1,), torch.float32)
+    floor = kern_fn(one, one_b)
+    fns = [f for _, kern, yard in timed for f in (kern, yard)] + [floor]
+    with torch.inference_mode():
+        dev_times = device_ms_many(torch, fns, FLR_REPS)
+        steady_ms = steady_device_ms(torch, [c for _, *cases in steady for c in cases])
+        floor_rec = dict(kernel="fused_leaky_relu_floor", shape=[1],
+                         ms=cuda_ms(torch, floor, 50, 5), device_ms=dev_times[-1][0],
+                         queued_ms=steady_device_ms(torch, [[floor]])[0])
+    for j, (rec, _, _) in enumerate(timed):
+        rec["device_ms"], rec["device_kernels"] = dev_times[2 * j]
+        rec["yardstick_device_ms"] = dev_times[2 * j + 1][0]
+    for j, (rec, *_) in enumerate(steady):
+        rec["steady_device_ms"], rec["yardstick_steady_device_ms"], \
+            rec["copy_steady_device_ms"] = steady_ms[3 * j:3 * j + 3]
+    for rec in records:
+        t = rec["steady_device_ms"] if rec["large"] else rec["device_ms"]
+        rec["gb_s"] = rec["bytes"] / t / 1e6
+        rec["share"] = rec["bound_ms"] / t
+        past = (f", steady past L2 {rec['steady_device_ms'] * 1e3:.2f} us" if rec["large"]
+                else "")
+        ypast = (f", steady {rec['yardstick_steady_device_ms'] * 1e3:.2f} us; x.clone() "
+                 f"steady {rec['copy_steady_device_ms'] * 1e3:.2f} us" if rec["large"] else "")
+        log(f"  fused_leaky_relu {str(tuple(rec['shape'])):18s} "
+            f"{'bias' if rec['bias'] else 'none':4s} {rec['dtype']:8s} rel err "
+            f"{rec['rel_err']:.2e}{' (bitwise)' if rec['bitwise'] else ''} kernel "
+            f"{rec['ms'] * 1e3:.2f} us device {rec['device_ms'] * 1e3:.2f} us{past} "
+            f"({rec['gb_s']:.0f} GB/s, {rec['share']:.2f} of the bound "
+            f"{rec['bound_ms'] * 1e3:.2f} us) plain {rec['plain_ms'] * 1e3:.2f} us yardstick "
+            f"device {rec['yardstick_device_ms'] * 1e3:.2f} us{ypast} "
+            f"{'ok' if rec['ok'] else 'FAIL'}")
+    log(f"  fused_leaky_relu launch floor (1 element): kernel {floor_rec['ms'] * 1e3:.2f} us, "
+        f"device {floor_rec['device_ms'] * 1e3:.2f} us, queued as past L2 "
+        f"{floor_rec['queued_ms'] * 1e3:.2f} us")
+    for dtype_name in ("float32", "bfloat16"):
+        toys = [r for r in records if r["toy"] and r["dtype"] == dtype_name]
+        log(f"  fused_leaky_relu {dtype_name}: the six FLR_CASES device "
+            f"{sum(r['device_ms'] for r in toys) * 1e3:.2f} us, bound "
+            f"{sum(r['bound_ms'] for r in toys) * 1e3:.2f} us (6 x the floor "
+            f"{6 * floor_rec['device_ms'] * 1e3:.2f} us)")
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} fused bias + leaky ReLU checks failed: {bad}")
+    return records + [floor_rec]
+
+
+def phase_flr_kernels(torch, dev, fa):
+    """Phase 2d's #11 part: flr_records, each case's route (fa.flr_plan)
+    and the gradient on the card, the kernel route against the plain one
+    (flr_grad_checks); returns the records and one of the gradient
+    checks."""
+    records = flr_records(torch, dev, fa)
+    for rec in records[:-1]:
+        rec["route"] = fa.flr_plan(tuple(rec["shape"]), getattr(torch, rec["dtype"])).route
+    log("  fused_leaky_relu routes: " + ", ".join(
+        f"{tuple(r['shape'])} {r['dtype']} {r['route']}" for r in records[:-1] if r["bias"]))
+    grad = flr_grad_checks(torch, dev, fa)
+    for g in grad:
+        log(f"  fused_leaky_relu gradient {str(tuple(g['shape'])):18s} {g['dtype']:8s} kernel "
+            f"route against plain: dx {g['dx_rel']:.2e} dbias {g['db_rel']:.2e} <= "
+            f"{g['rel_tol']:.0e}, launches {g['launches']} {'ok' if g['ok'] else 'FAIL'}")
+    bad = [g for g in grad if not g["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} fused bias + leaky ReLU gradient checks failed: {bad}")
+    return records + [dict(kernel="fused_leaky_relu_grad", grad=grad)]
+
+
+def flr_grad_checks(torch, dev, fa):
+    """The gradient of sum(w * fused_leaky_relu(x, bias)) in x and bias
+    through the kernel route (one kernel launch, the closed-form backward)
+    against autograd of the plain version, on the card, bf16 and fp32:
+    max abs error <= REL x max |plain|."""
+    from diffpure_tpu_torch.ops import launch_counts
+
+    checks = []
+    for i, shape in enumerate(((N, 16, 16, 256), (7, 9, 11, 13))):
+        for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            x0, b0 = flr_inputs(torch, dev, 50 + i, shape, dtype)
+            w = flr_inputs(torch, dev, 60 + i, shape, dtype)[0]
+            grads = []
+            for fn in (fa.fused_leaky_relu, fa.fused_leaky_relu_reference):
+                x, b = x0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+                before = launch_counts()["fused_leaky_relu"]
+                loss = (fn(x, b, FLR_SLOPE, FLR_GAIN) * w).float().sum()
+                grads.append((*torch.autograd.grad(loss, (x, b)),
+                              launch_counts()["fused_leaky_relu"] - before))
+            (kx, kb, launches), (px, pb, _) = grads
+            dx = float((kx.float() - px.float()).abs().max()) / float(px.float().abs().max())
+            db = float((kb.float() - pb.float()).abs().max()) / float(pb.float().abs().max())
+            checks.append(dict(shape=list(shape), dtype=dtype_name, dx_rel=dx, db_rel=db,
+                               rel_tol=REL[dtype_name], launches=launches,
+                               ok=max(dx, db) <= REL[dtype_name] and launches == 1))
+    return checks
 
 
 def input_grad(torch, model, x01, y, noise):
@@ -7155,8 +7363,9 @@ def main() -> int:
     for name, (source, replaces) in DDPM_KERNELS.items():
         # fp32, the DDPM's dtype. #10: per DDPM evaluation at batch 8 (its
         # calls at each census shape); #11, on no path: one call at each of
-        # its shapes
-        mine = [r for r in gn_act_records if r["kernel"] == name and r["dtype"] == "float32"]
+        # FLR_CASES and, with a bias, FLR_LARGE
+        mine = [r for r in gn_act_records if r["kernel"] == name and r["dtype"] == "float32"
+                and (name == "group_norm_silu_fused" or r["toy"] or (r["large"] and r["bias"]))]
         calls = [r["calls_per_eval"] if name == "group_norm_silu_fused" else 1 for r in mine]
         by = {"operations": 0.0, "bytes": 0.0}
         for r, c in zip(mine, calls):

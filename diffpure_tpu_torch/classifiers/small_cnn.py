@@ -96,7 +96,7 @@ class SmallMLP(nn.Module):
 def train_classifier(seed: int, sample_fn: Callable, *, n_classes: int = 4,
                      width: int = 32, steps: int = 1000, batch_size: int = 128,
                      lr: float = 1e-3, scan_chunk: int = 100, n_train: int = 0,
-                     arch: str = "cnn", device=None, model: Optional[nn.Module] = None):
+                     arch: str = "cnn", device="cuda", model: Optional[nn.Module] = None):
     """Train a SmallCNN (or SmallMLP); returns (model, final_loss).
 
     ``sample_fn(generator, n) -> (x in [-1, 1] NHWC, y)``. With n_train > 0
@@ -106,9 +106,13 @@ def train_classifier(seed: int, sample_fn: Callable, *, n_classes: int = 4,
     With n_train == 0 step i draws a fresh batch from stream (seed, i).
     As in JAX, training runs in whole chunks of ``scan_chunk`` steps, at
     least one. ``model`` replaces the fresh flax-style init (drawn on the
-    CPU from stream (seed, 999979)).
+    CPU from stream (seed, 999979)). It trains on ``device``, the card
+    unless the caller asks for the CPU; with no card the default raises.
     """
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"train_classifier(device={device!r}): no CUDA device is "
+                           f"available (pass device='cpu' to train on the CPU)")
     gen = lambda *path: make_generator(seed, *path, device=dev)  # noqa: E731
     if model is None:
         x0, _ = sample_fn(gen(), 2)

@@ -84,9 +84,13 @@ def sample_batch(generator: Optional[torch.Generator], n: int,
 
 
 def class_means(spec: SyntheticSpec, amp: float = 0.3, phase: float = 0.7,
-                device=None) -> Tensor:
+                device="cuda") -> Tensor:
     """One fixed grating per class, no nuisances: the means of the
-    Gaussian mixture. (n_classes, S, S, C)."""
+    Gaussian mixture. (n_classes, S, S, C), on ``device``: the card unless
+    the caller asks for the CPU; with no card the default raises."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"class_means(device={device!r}): no CUDA device is available "
+                           f"(pass device='cpu' to build them on the CPU)")
     y = torch.arange(spec.n_classes, device=device)
     wave = amp * _waves(spec, y, phase)
     return wave[..., None].expand(-1, -1, -1, spec.channels).contiguous()

@@ -126,7 +126,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         P, P]                             # plan, stream
     lib.diffpure_gn_silu.restype = I
     lib.diffpure_fused_leaky_relu.argtypes = [
-        I, P, P, L, I, F, F, P, P]        # dtype, x, bias, total, C, slope, scale, out, stream
+        I, P, P, L, I, F, F, P,           # dtype, x, bias, total, C, slope, scale, out
+        P, P]                             # plan (6 ints), stream
     lib.diffpure_fused_leaky_relu.restype = I
     lib.diffpure_error_string.argtypes = [I]
     lib.diffpure_error_string.restype = ctypes.c_char_p
@@ -168,18 +169,6 @@ def scratch(device, *nbytes: int):
     buf = torch.empty(total + 4 * SPLITK_WORKSPACE, device=device, dtype=torch.uint8)
     base = buf.data_ptr()
     return buf, [base + o for o in offsets], base + total
-
-
-def refuse_card_grad(what: str, *tensors) -> None:
-    """Raise where autograd would need the gradient of a forward-only kernel
-    on the card: #11 (``fused_leaky_relu``), which no model calls, in JAX or
-    here (ROADMAP Queue 2)."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what}: the kernel has no gradient on the card (no model calls it; "
-            f"ROADMAP Queue 2, #11); run it under torch.no_grad() or "
-            f"torch.inference_mode()")
 
 
 def check_device(what: str, t: torch.Tensor) -> None:

@@ -36,7 +36,8 @@ def gmm_setup(spec):
     """A fragile standard-trained classifier, the eval batch and the
     adversarial examples that break it."""
     sample_fn = lambda g, n: sample_gmm_batch(g, n, spec, AMP, SIG)  # noqa: E731
-    clf, _ = train_classifier(0, sample_fn, steps=300, n_train=256, arch="cnn", width=8)
+    clf, _ = train_classifier(0, sample_fn, steps=300, n_train=256, arch="cnn", width=8,
+                              device="cpu")
     clf.requires_grad_(False)
     x, y = sample_fn(generator(5), 32)
     x01 = (x + 1.0) * 0.5

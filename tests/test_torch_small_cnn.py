@@ -91,7 +91,7 @@ def test_train_classifier_steps_match_jax():
     feed = iter((t_(x), t_(y, torch.int64)) for x, y in batches)
     model, loss = train_classifier(0, lambda g, n: next(feed), width=8, steps=4,
                                    batch_size=16, lr=1e-3, scan_chunk=4, arch="mlp",
-                                   model=model)
+                                   model=model, device="cpu")
     assert loss == pytest.approx(jloss, rel=1e-5)
     want = small_mlp_state_dict_from_flax(jparams)
     for name, p in model.state_dict().items():
@@ -99,7 +99,17 @@ def test_train_classifier_steps_match_jax():
     # the finite-sample regime, drawn by the port: deterministic in its seed
     spec = syn.SyntheticSpec(**SPEC)
     runs = [train_classifier(3, lambda g, n: syn.sample_batch(g, n, spec), width=8, steps=2,
-                             batch_size=8, scan_chunk=2, n_train=32, arch=arch)
+                             batch_size=8, scan_chunk=2, n_train=32, arch=arch, device="cpu")
             for arch in ("cnn", "cnn", "mlp")]
     assert runs[0][1] == runs[1][1] and math.isfinite(runs[2][1])
     assert isinstance(runs[2][0], SmallMLP)
+
+
+def test_train_classifier_defaults_to_the_card(monkeypatch):
+    """With no device it trains on the card, and raises where there is
+    none: never a quiet fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = syn.SyntheticSpec(**SPEC)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_classifier(0, lambda g, n: syn.sample_batch(g, n, spec), width=8, steps=1,
+                         batch_size=4, scan_chunk=1)

@@ -60,7 +60,8 @@ def test_grating_batch_from_jax_draws():
 
 def test_gmm_batch_means_and_eps_model():
     spec, jspec = syn.SyntheticSpec(size=8), jsyn.SyntheticSpec(size=8)
-    assert_close(syn.class_means(spec, 0.25), jsyn.class_means(jspec, 0.25), REL, "means")
+    assert_close(syn.class_means(spec, 0.25, device="cpu"), jsyn.class_means(jspec, 0.25), REL,
+                 "means")
     key = jax.random.PRNGKey(4)
     want_x, _ = jax.jit(lambda k: jsyn.sample_gmm_batch(k, 12, jspec, 0.25, 0.08))(key)
 
@@ -112,3 +113,11 @@ def test_training_loader_matches_jax(image_dir, kw):
     np.testing.assert_array_equal(img.center_crop_arr(im, 24), jimg.center_crop_arr(im, 24))
     np.testing.assert_array_equal(img.random_crop_arr(im, 24, rng=random.Random(2)),
                                   jimg.random_crop_arr(im, 24, rng=random.Random(2)))
+
+
+def test_class_means_default_to_the_card(monkeypatch):
+    """JAX builds the means on its default device: the port's default is
+    the card, which raises where there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        syn.class_means(syn.SyntheticSpec(size=8))

@@ -87,9 +87,12 @@ def test_wrappers_take_cpu_or_cuda_only_and_refuse_card_gradients():
         tgn.group_stats(x)
     with pytest.raises(ValueError, match="cpu or cuda"):
         tgn.gn_film_silu_apply(x, x[:, 0, 0], x[:, 0, 0])
-    w = torch.zeros(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _cuda.refuse_card_grad("k", None, w)
-    with torch.no_grad():
-        _cuda.refuse_card_grad("k", w)
-    _cuda.refuse_card_grad("k", w.detach())
+    # no wrapper refuses a gradient any more (#11, the last forward-only
+    # kernel, has its closed-form backward): the apply pass differentiates
+    # in x, A and B through its Function
+    assert not hasattr(_cuda, "refuse_card_grad")
+    xs = torch.randn(1, 2, 2, 8, requires_grad=True)
+    A = torch.randn(1, 8, requires_grad=True)
+    B = torch.randn(1, 8, requires_grad=True)
+    tgn.gn_film_silu_apply(xs, A, B).sum().backward()
+    assert all(t.grad is not None and bool(t.grad.abs().sum() > 0) for t in (xs, A, B))
