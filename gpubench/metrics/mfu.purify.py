@@ -1,0 +1,12 @@
+"""mfu.purify: The model FLOPs the window's calls need (configs/<config>.json's flops), over the window's wall time and the dtype's dense peak."""
+from gpubench.lib import readers
+
+LAYER = "whole step"
+UNIT = "%"
+SOURCE = "host_clock"
+BETTER = "higher"
+MOVES = "purify_img_per_s"
+
+
+def read(t):
+    return readers.mfu(t, "purify")

@@ -1,0 +1,12 @@
+"""step.kernels.adm_purify: Device operations of every kind launched in the window, a solver step."""
+from gpubench.lib import readers
+
+LAYER = "model step"
+UNIT = "kernels/step"
+SOURCE = "device_trace"
+BETTER = "lower"
+MOVES = "adm_purify_img_per_s"
+
+
+def read(t):
+    return readers.kernels_per_step(t, "purify")

@@ -1,0 +1,12 @@
+"""step_roofline.grad: The score model's blocks' least time a step (counts/blocks.py over the census of the published widths, whatever route runs each block) over the step's device time."""
+from gpubench.lib import readers
+
+LAYER = "model step"
+UNIT = "%"
+SOURCE = "device_trace"
+BETTER = "higher"
+MOVES = "grad_img_per_s"
+
+
+def read(t):
+    return readers.step_roofline(t, "eotgrad")
